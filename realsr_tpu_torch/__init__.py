@@ -1,0 +1,21 @@
+"""realsr_tpu_torch — the PyTorch/CUDA port of realsr_tpu for NVIDIA Hopper.
+
+The JAX package ``realsr_tpu`` is the reference; this package computes the
+same RealSR x4 super-resolution (ncnn ``.param``/``.bin`` models, RRDBNet,
+halo-padded tiles with reflect-101 borders, uint8 rounding, bicubic alpha)
+with PyTorch, and runs the RRDB trunk on a hand-written CUDA kernel for
+``sm_90a`` (``csrc/rdb_kernel.cu``). It imports no JAX.
+
+The public facade is :class:`realsr_tpu_torch.engine.RealSR`.
+"""
+
+__all__ = ["RealSR", "EngineConfig"]
+
+
+def __getattr__(name):
+    # Lazy: importing the facade pulls in torch; keep bare imports light.
+    if name in ("RealSR", "EngineConfig"):
+        from realsr_tpu_torch import engine
+
+        return getattr(engine, name)
+    raise AttributeError(name)

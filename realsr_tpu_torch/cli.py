@@ -1,0 +1,226 @@
+"""Command-line interface of the PyTorch port, with the reference's flags.
+
+Counterpart of ``realsr_tpu/cli.py`` (src/main.cpp:101-115 usage, 441-525
+getopt loop, 527-672 validation and file lists), ending in the same
+``realsr_tpu.pipeline.run_pipeline``. Flags:
+
+    -i input-path   -o output-path   -s scale (4)
+    -t tile-size    -m model-path    -g gpu-id (-1=cpu, comma list)
+    -j load:proc:save  -x (tta)  -f format  -v  -h
+
+Exit codes follow the reference: usage and validation errors return -1
+(the shell sees 255). One deviation from the JAX CLI: without ``-g`` it
+takes CUDA device 0 and fails when there is none; the CPU runs only on an
+explicit ``-g -1``. TTA (``-x``) is not ported yet and fails at engine
+creation.
+"""
+
+from __future__ import annotations
+
+import getopt
+import os
+import sys
+from typing import List, Optional
+
+from realsr_tpu.cli import _atoi, parse_int_array, parse_jobs, print_usage
+from realsr_tpu.utils.fsutils import (
+    get_file_extension,
+    get_file_name_without_extension,
+    list_directory,
+    path_is_directory,
+)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+
+    inputpath = ""
+    outputpath = ""
+    scale = 4
+    tilesize: List[int] = []
+    model = "models-DF2K_JPEG"  # main.cpp:429 default
+    gpuid: List[int] = []
+    jobs_load, jobs_proc, jobs_save = 1, [], 2
+    verbose = False
+    tta_mode = False
+    fmt = "png"
+
+    try:
+        opts, _ = getopt.getopt(argv, "i:o:s:t:m:g:j:f:vxh")
+    except getopt.GetoptError:
+        print_usage()
+        return -1
+    for opt, val in opts:
+        if opt == "-i":
+            inputpath = val
+        elif opt == "-o":
+            outputpath = val
+        elif opt == "-s":
+            scale = _atoi(val)
+        elif opt == "-t":
+            tilesize = parse_int_array(val)
+        elif opt == "-m":
+            model = val
+        elif opt == "-g":
+            gpuid = parse_int_array(val)
+        elif opt == "-j":
+            jobs_load, jobs_proc, jobs_save = parse_jobs(val)
+        elif opt == "-f":
+            fmt = val
+        elif opt == "-v":
+            verbose = True
+        elif opt == "-x":
+            tta_mode = True
+        else:  # -h
+            print_usage()
+            return -1
+
+    if not inputpath or not outputpath:
+        print_usage()
+        return -1
+
+    if scale != 4:  # main.cpp:533-537
+        print("invalid scale argument", file=sys.stderr)
+        return -1
+
+    n_dev = len(gpuid) if gpuid else 1
+    if tilesize and len(tilesize) != n_dev:
+        print("invalid tilesize argument", file=sys.stderr)
+        return -1
+    for t in tilesize:
+        if t != 0 and t < 32:  # main.cpp:545-552
+            print("invalid tilesize argument", file=sys.stderr)
+            return -1
+
+    if jobs_load < 1 or jobs_save < 1:
+        print("invalid thread count argument", file=sys.stderr)
+        return -1
+    if jobs_proc and len(jobs_proc) != n_dev:
+        print("invalid jobs_proc thread count argument", file=sys.stderr)
+        return -1
+    for j in jobs_proc:
+        if j < 1:
+            print("invalid jobs_proc thread count argument", file=sys.stderr)
+            return -1
+
+    # format inference from output extension (main.cpp:575-603)
+    if not path_is_directory(outputpath):
+        ext = get_file_extension(outputpath).lower()
+        if ext == "png":
+            fmt = "png"
+        elif ext == "webp":
+            fmt = "webp"
+        elif ext in ("jpg", "jpeg"):
+            fmt = "jpg"
+        else:
+            print("invalid outputpath extension type", file=sys.stderr)
+            return -1
+    if fmt not in ("png", "webp", "jpg"):
+        print("invalid format argument", file=sys.stderr)
+        return -1
+
+    # input/output file lists (main.cpp:605-659)
+    input_files: List[str] = []
+    output_files: List[str] = []
+    if path_is_directory(inputpath) and path_is_directory(outputpath):
+        last_filename = ""
+        last_filename_noext = ""
+        for fn in list_directory(inputpath):
+            noext = get_file_name_without_extension(fn)
+            out_fn = noext + "." + fmt
+            if noext == last_filename_noext:  # collision rename :628-643
+                out_fn2 = fn + "." + fmt
+                print(
+                    f"both {fn} and {last_filename} output {out_fn} ! "
+                    f"{fn} will output {out_fn2}",
+                    file=sys.stderr,
+                )
+                out_fn = out_fn2
+            else:
+                last_filename = fn
+                last_filename_noext = noext
+            input_files.append(os.path.join(inputpath, fn))
+            output_files.append(os.path.join(outputpath, out_fn))
+    elif not path_is_directory(inputpath) and not path_is_directory(outputpath):
+        input_files = [inputpath]
+        output_files = [outputpath]
+    else:
+        print(
+            "inputpath and outputpath must be either file or directory at the same time",
+            file=sys.stderr,
+        )
+        return -1
+
+    # prepadding from model dir name (main.cpp:661-672)
+    if "models-DF2K" in model:
+        prepadding = 10
+    else:
+        print("unknown model dir type", file=sys.stderr)
+        return -1
+
+    from realsr_tpu_torch.modelzoo import resolve_model_files
+
+    resolved = resolve_model_files(model, scale)
+    if resolved is None:
+        print(
+            f"model files not found under -m {model} "
+            f"(x{scale}.param / x{scale}.bin)",
+            file=sys.stderr,
+        )
+        return -1
+    parampath, modelpath = resolved
+
+    import torch
+
+    from realsr_tpu.pipeline import run_pipeline
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+
+    n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not gpuid:
+        if not n_cuda:
+            print(
+                "no CUDA device found; pass -g -1 to run on the CPU",
+                file=sys.stderr,
+            )
+            return -1
+        gpuid = [0]
+    for g in gpuid:
+        if g < -1 or g >= n_cuda:
+            print("invalid gpu device", file=sys.stderr)
+            return -1
+
+    n_dev = len(gpuid)
+    if not jobs_proc:
+        jobs_proc = [2] * n_dev  # main.cpp:708-711
+    if not tilesize:
+        tilesize = [0] * n_dev
+
+    cpu_count = os.cpu_count() or 1
+    jobs_load = min(jobs_load, cpu_count)
+    jobs_save = min(jobs_save, cpu_count)
+
+    storage = os.environ.get("REALSR_TPU_STORAGE", "auto")
+    engines = []
+    for i, g in enumerate(gpuid):
+        cfg = EngineConfig(tilesize=tilesize[i], prepadding=prepadding, storage=storage)
+        try:
+            e = RealSR(gpuid=g, tta_mode=tta_mode, num_threads=jobs_proc[i], config=cfg)
+            e.load(parampath, modelpath)
+        except (ValueError, OSError, NotImplementedError) as ex:
+            # corrupt or unsupported model files, or a mode the port lacks:
+            # a clean diagnostic and an error exit, like ncnn's load failure
+            print(f"load model failed: {ex}", file=sys.stderr)
+            return -1
+        engines.append(e)
+
+    run_pipeline(
+        input_files,
+        output_files,
+        engines,
+        jobs_proc,
+        jobs_load=jobs_load,
+        jobs_save=jobs_save,
+        verbose=verbose,
+        image_batch=max(1, _atoi(os.environ.get("REALSR_TPU_IMAGE_BATCH", "1"))),
+    )
+    return 0

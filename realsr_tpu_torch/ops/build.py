@@ -1,0 +1,88 @@
+"""Build the package's CUDA sources with ``nvcc`` and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``<build dir>/<name>-<hash>.so`` for ``sm_90a`` (Hopper) at first use;
+the hash covers the source and the flags, so an edited source rebuilds and
+an unchanged one loads in milliseconds. A plain C interface keeps PyTorch's
+headers out of the build (seconds, not minutes). The build directory is
+``realsr_tpu_torch/_build`` unless ``REALSR_TPU_TORCH_BUILD`` names another.
+
+Nothing here runs at import: the CPU-only test host has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# seconds the last nvcc run of each library took (0.0 when it was cached)
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def build_dir() -> str:
+    return os.environ.get(
+        "REALSR_TPU_TORCH_BUILD",
+        os.path.join(os.path.dirname(CSRC), "_build"),
+    )
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda, "bin", "nvcc")
+    if os.path.isfile(path):
+        return path
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels build on a machine with the CUDA toolkit"
+    )
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        src = os.path.join(CSRC, f"{name}.cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        out_dir = build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        so = os.path.join(out_dir, f"{name}-{digest.hexdigest()[:16]}.so")
+        BUILD_SECONDS[name] = 0.0
+        if not os.path.isfile(so):
+            # build under a private name, then rename: a concurrent process
+            # never loads a half-written library
+            tmp = f"{so}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, so)
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+        lib = ctypes.CDLL(so)
+        _LIBS[name] = lib
+        return lib

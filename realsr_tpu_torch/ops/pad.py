@@ -1,0 +1,30 @@
+"""Reflect-101 padding with the reference's semantics.
+
+Counterpart of ``realsr_tpu/ops/pad.py``: out-of-range coordinates mirror
+without edge duplication (``x = abs(x); x = (w-1) - abs(x - (w-1))``,
+OpenCV BORDER_REFLECT_101). Always an index gather: ``F.pad(mode="reflect")``
+rejects pad >= dim, which tiny images and edge tiles reach.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def reflect101_indices(n: int, pad_lo: int, pad_hi: int) -> np.ndarray:
+    """Source index for each position of a padded axis (host-side, static)."""
+    idx = np.arange(-pad_lo, n + pad_hi)
+    if n == 1:
+        return np.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = np.abs(idx) % period
+    return np.where(idx > n - 1, period - idx, idx)
+
+
+def reflect101_pad2d(img: torch.Tensor, pad: int) -> torch.Tensor:
+    """Pad H and W of ``[..., H, W, C]`` by ``pad`` with reflect-101."""
+    h, w = img.shape[-3], img.shape[-2]
+    yi = torch.from_numpy(reflect101_indices(h, pad, pad)).to(img.device)
+    xi = torch.from_numpy(reflect101_indices(w, pad, pad)).to(img.device)
+    return img.index_select(img.dim() - 3, yi).index_select(img.dim() - 2, xi)

@@ -1,0 +1,127 @@
+"""The port's engine and CLI on the CPU, against the JAX package's."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from realsr_tpu.engine import EngineConfig as JaxConfig
+from realsr_tpu.engine import RealSR as JaxRealSR
+from realsr_tpu_torch import cli
+from realsr_tpu_torch.engine import EngineConfig, RealSR
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def engines(tiny_model_dir):
+    files = (os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
+    jax_e = JaxRealSR(
+        gpuid=-1,
+        config=JaxConfig(tilesize=32, storage="float32", compilation_cache=False),
+    )
+    jax_e.load(*files)
+    port = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="float32"))
+    port.load(*files)
+    return jax_e, port
+
+
+@pytest.mark.parametrize("shape", [(37, 45, 3), (23, 19, 4)])
+def test_cpu_engine_matches_jax(engines, shape):
+    jax_e, port = engines
+    img = np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)
+    want = jax_e.process(img)
+    got = port.process(img)
+    assert got.shape == want.shape == (4 * shape[0], 4 * shape[1], shape[2])
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert np.mean(diff == 0) >= 0.999 and diff.max() <= 1
+    assert port.device.platform == "cpu" and port.variant == "dense"
+
+
+def test_process_batch_matches_single_images(engines):
+    _, port = engines
+    imgs = np.random.default_rng(3).integers(0, 256, (3, 9, 14, 3), np.uint8)
+    batch = port.process_batch(list(imgs))
+    for img, out in zip(imgs, batch):
+        np.testing.assert_array_equal(out, port.process(img))
+
+
+@pytest.fixture(scope="module")
+def cli_model_dir(tmp_path_factory):
+    from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    d = tmp_path_factory.mktemp("torchmodels") / "models-DF2K"
+    make_model_dir(str(d), RRDBNetSpec(num_rrdb=1, nf=16, gc=8), seed=5)
+    return str(d)
+
+
+def test_cli_cpu_writes_4x_png(cli_model_dir, tmp_path):
+    src, out = tmp_path / "in.png", tmp_path / "out.png"
+    Image.fromarray(
+        np.random.default_rng(9).integers(0, 256, (11, 13, 3), np.uint8)
+    ).save(src)
+    rc = cli.main(["-i", str(src), "-o", str(out), "-m", cli_model_dir, "-g", "-1"])
+    assert rc == 0
+    assert np.asarray(Image.open(out)).shape == (44, 52, 3)
+
+
+def test_gpu_without_cuda_fails(cli_model_dir, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RealSR(gpuid=0)
+    src = tmp_path / "in.png"
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(src)
+    args = ["-i", str(src), "-o", str(tmp_path / "o.png"), "-m", cli_model_dir]
+    assert cli.main(args) == -1
+    assert "pass -g -1" in capsys.readouterr().err
+    assert cli.main(args + ["-g", "0"]) == -1
+    assert not (tmp_path / "o.png").exists()
+
+
+def test_unported_modes_raise(engines):
+    _, port = engines
+    with pytest.raises(NotImplementedError, match="TTA"):
+        RealSR(gpuid=-1, tta_mode=True)
+    with pytest.raises(NotImplementedError, match="process_banded"):
+        port.process_banded(np.zeros((8, 8, 3), np.uint8))
+
+
+def test_float16_with_kernel_variant_raises(tiny_model_dir):
+    """The fused kernel has no float16 instance; asking for it raises
+    rather than running plain convs in its place."""
+    e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="float16", variant="cuda"))
+    with pytest.raises(NotImplementedError, match="no float16 instance"):
+        e.load(os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
+
+
+def test_port_never_imports_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import realsr_tpu_torch
+        from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
+        from realsr_tpu_torch.ncnn.synth import make_model_dir
+        p, b = make_model_dir({str(tmp_path / "m")!r}, RRDBNetSpec(num_rrdb=1, nf=16, gc=8))
+        e = realsr_tpu_torch.RealSR(gpuid=-1, config=realsr_tpu_torch.EngineConfig(tilesize=32))
+        e.load(p, b)
+        out = e.process(np.zeros((9, 7, 4), np.uint8))
+        assert out.shape == (36, 28, 4), out.shape
+        assert "jax" not in sys.modules, "the port imported jax"
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    r = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
