@@ -3,32 +3,39 @@
 Phases (each prints its lines; any failure exits non-zero):
 
 1. card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
-2. build: the fused RDB kernel from ``realsr_tpu_torch/csrc`` with nvcc;
-3. kernel against its plain PyTorch version at the main path's shape (8 tiles
-   of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): one RDB in mixed
-   and float32 mode, and the 69-RDB trunk with the RRDB residual, with
-   CUDA-event times of both;
+2. build: the fused RDB and tail kernels from ``realsr_tpu_torch/csrc``, one
+   nvcc for each source, started together;
+3. the RDB kernel against its plain PyTorch version at the main path's shape
+   (8 tiles of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): one RDB
+   in mixed and float32 mode, and the 69-RDB trunk with the RRDB residual,
+   with CUDA-event times of both;
+3b. the tail kernels K6 (up2 + HRconv + conv_last) and K7 (HRconv +
+   conv_last) against their plain versions at the same shape and at a
+   ragged 2 x 37 x 21, with CUDA-event times;
 4. the main path: ``realsr_tpu_torch.cli.main`` on three images with the
    committed DF2K graph (23 RRDB, nf = 64, gc = 32) and synthesized weights,
-   checking the outputs and that the trunk ran on the kernel (69 launches
-   per chunk);
-5. numerics: mixed (kernel) against float32 (plain trunk) by PSNR, held to
-   the plain mixed path's PSNR, on uniform noise and on an image with a
-   natural 1/f spectrum; the float32 kernel against float32 plain by
-   identical u8 pixels;
+   checking the outputs and that the trunk and the tail ran on the kernels
+   (69 RDB launches and one tail launch per chunk); then the CLI with the
+   K7 tail (REALSR_TPU_PACKED_TAIL=2) and with TTA (``-x``) on one image;
+5. numerics: mixed engines (kernel trunk with the default and the K6 tail,
+   TTA) against float32 plain by PSNR, held to the plain mixed path's PSNR,
+   on uniform noise and on an image with a natural 1/f spectrum; the float32
+   kernel against float32 plain by identical u8 pixels; a mixed engine's
+   output bit-equal before and after a float32 engine ran in the process;
 6. steady state: device-resident ``RealSR.process_device`` on one 1024 x 768
-   image for each engine mode, and one profiled image's device time by
-   kernel group.
+   image for each tail form and engine mode, TTA on a smaller one, and the
+   device time of one profiled image by kernel group.
 
-Every conv of the run computes with TF32 off (the plain versions' float32
-contract), except the one steady-state row that leaves cuDNN's default, as
-a fresh CLI process in mixed mode does.
+The engines set TF32 for each chunk from their operand type (off for
+float32); the plain versions here run with TF32 off, except where a line
+says that it times them as a mixed engine runs them.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -61,6 +68,8 @@ PSNR_BAND = 50.0
 PSNR_SLACK = 1.0
 SAME_MIN = 0.999  # float32 kernel vs float32 plain: share of equal u8 values
 STEADY_HW = (768, 1024)  # phase 6 image
+TAILS = ("interleaved", "packed", "kernel_hr", "kernel")  # models.rrdbnet.TAIL_MODES
+TAIL_SHAPES = ((B, SIDE, SIDE), (2, 37, 21))  # phase 3b: the main path's, and ragged
 
 
 def fail(msg: str) -> None:
@@ -96,6 +105,77 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
     """(max abs diff, max abs diff / max(1, max |want|))."""
     d = (got.float() - want.float()).abs().max().item()
     return d, d / max(1.0, want.float().abs().max().item())
+
+
+def tail_check(tk, name, x, tp_bf16, tp_f32, timed):
+    """Phase 3b for one tail kernel on one input: (|kernel - plain bf16|,
+    |kernel - plain f32|, |plain bf16 - plain f32|, kernel ms, plain ms)
+    after the gates: error against the float32 plain tail at most max(2 x
+    the plain bf16 version's, 1e-3) (the JAX suite's rule for its tail
+    kernel), finite, bit-equal over two runs."""
+    from realsr_tpu_torch.models.rrdbnet import tf32
+
+    fn, ref = getattr(tk, name), getattr(tk, name.replace("_packed", "_reference"))
+    got = fn(x, tp_bf16)
+    torch.cuda.synchronize()
+    plain = ref(x, tp_bf16)
+    exact = ref(x.float(), tp_f32)
+    e_k, e_p = rel_err(got, exact)[0], rel_err(plain, exact)[0]
+    up = int(name.startswith("up2"))  # K6 reads up1's [B, H + 1, W + 1, 256]
+    want_shape = (x.shape[0], 4 * (x.shape[1] - up), 4 * (x.shape[2] - up), 3)
+    check(tuple(got.shape) == want_shape and bool(torch.isfinite(got).all()),
+          f"{name}: output {tuple(got.shape)} not finite or not [B, 4H, 4W, 3]")
+    check(e_k <= max(2 * e_p, 1e-3),
+          f"{name}: max|kernel - f32 plain| {e_k} > max(2 x {e_p}, 1e-3)")
+    check(torch.equal(got, fn(x, tp_bf16)), f"{name}: two runs on the same input differ")
+    ms = pms = float("nan")
+    if timed:
+        # the plain version as a mixed engine runs it: TF32 allowed (exact
+        # for bf16 operands, f32 sums)
+        with tf32(True):
+            ms = cuda_ms(lambda: fn(x, tp_bf16), 2, 10)
+            pms = cuda_ms(lambda: ref(x, tp_bf16), 1, 2)
+    return rel_err(got, plain)[0], e_k, e_p, ms, pms
+
+
+def chunk_counts(engine, images: dict) -> tuple:
+    """(chunks, forward batches) an engine's CLI run takes on ``images``:
+    with TTA a chunk of non-square tiles runs two forwards."""
+    from realsr_tpu.tiling.planner import plan_tiles
+
+    chunks = batches = 0
+    for img in images.values():
+        h, w = img.shape[:2]
+        plan = plan_tiles(w, h, engine.tilesize, engine.prepadding)
+        for (ph, pw), idx in plan.buckets.items():
+            n = engine._chunking(len(idx))[1]
+            chunks += n
+            batches += n * (2 if engine.tta_mode and ph != pw else 1)
+    return chunks, batches
+
+
+def run_cli(cli, rk, tk, args, env=None):
+    """cli.main with the launch counts set to 0 just before it and read just
+    after: (wall s, RDB launches, K6 launches, K7 launches)."""
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        rk.LAUNCHES = 0
+        for k in tk.LAUNCHES:
+            tk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (rk.LAUNCHES, tk.LAUNCHES["up2_hr_last_packed"], tk.LAUNCHES["hr_last_packed"])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(rc == 0, f"cli.main {args} returned {rc}")
+    return (wall, *counts)
 
 
 def plain_trunk(rk, x, stacked):
@@ -171,6 +251,8 @@ def profile_image(eng, img: np.ndarray) -> tuple:
         ms = e.self_device_time_total / 1e3
         if "rdb_kernel" in n:
             g = "rdb_kernel"
+        elif "tail_kernel" in n:
+            g = "tail_kernel"
         elif any(s in n for s in ("nchwtonhwc", "nhwctonchw", "transpose")):
             g = "layout transposes"
         elif any(s in n for s in ("conv", "gemm", "xmma", "fprop", "winograd", "fft")):
@@ -182,16 +264,20 @@ def profile_image(eng, img: np.ndarray) -> tuple:
     return wall, groups, sorted(rows, reverse=True)[:4]
 
 
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
     from realsr_tpu_torch.engine import EngineConfig, RealSR
     from realsr_tpu_torch.loader import load_model
-    from realsr_tpu_torch.models.rrdbnet import disable_tf32
+    from realsr_tpu_torch.models.rrdbnet import tf32
     from realsr_tpu_torch.ops import build
     from realsr_tpu_torch.ops import rdb_kernel as rk
+    from realsr_tpu_torch.ops import tail_kernel as tk
 
-    disable_tf32()
+    # the default run: the engines' own choice of tail
+    os.environ.pop("REALSR_TPU_PACKED_TAIL", None)
 
     # -- 1. card ---------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -203,14 +289,16 @@ def main() -> int:
     print(f"card: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # -- 2. build --------------------------------------------------------
+    # -- 2. build: one nvcc per source, started together -----------------
     t0 = time.perf_counter()
-    build.load_library("rdb_kernel")
-    print(f"build: rdb_kernel.cu -> {build.build_dir()} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {build.BUILD_SECONDS['rdb_kernel']:.2f} s) "
-          f"{card}", flush=True)
+    sources = ("rdb_kernel", "tail_kernel")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.load_library, sources))
+    print(f"build: {', '.join(f'{s}.cu' for s in sources)} -> {build.build_dir()} in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          + ", ".join(f"{s} {build.BUILD_SECONDS[s]:.2f} s" for s in sources) + f") {card}",
+          flush=True)
 
-    # -- 3. kernel against plain at the main path's shape ----------------
     dev = torch.device("cuda", 0)
     param = os.path.join(ROOT, "models", "models-DF2K", "x4.param")
     work = tempfile.mkdtemp(prefix="realsr_smoke_")
@@ -228,6 +316,7 @@ def main() -> int:
         mparam = os.path.join(model_dir, "x4.param")
         mbin = os.path.join(model_dir, "x4.bin")
 
+        # -- 3. RDB kernel against plain at the main path's shape --------
         rng = np.random.default_rng(0)
         x = torch.from_numpy(
             rng.normal(0.0, 0.5, (B, SIDE, SIDE, NF)).astype(np.float32)
@@ -239,42 +328,65 @@ def main() -> int:
                   and bundle.spec.num_rrdb == 23, f"unexpected spec {bundle.spec}")
             stacked = {k: v.to(dev) for k, v in bundle.params["rdb"].items()}
             p0 = {"w": stacked["w"][0], "b": stacked["b"][0]}
-            got = rk.rdb_apply(x, p0)
-            torch.cuda.synchronize()
-            want = rk.rdb_reference(x, p0, torch.float32, op)
-            err, rel = rel_err(got, want)
-            check(bool(torch.isfinite(got).all()), f"{mode} RDB: non-finite output")
-            check(rel <= RDB_TOL[mode],
-                  f"{mode} RDB: max|kernel-plain| {err} > {RDB_TOL[mode]} x max(1, max|plain|)")
-            ms = cuda_ms(lambda: rk.rdb_apply(x, p0), 2, 10)
-            pms = cuda_ms(lambda: rk.rdb_reference(x, p0, torch.float32, op), 2, 10)
+            with tf32(False):
+                got = rk.rdb_apply(x, p0)
+                torch.cuda.synchronize()
+                want = rk.rdb_reference(x, p0, torch.float32, op)
+                err, rel = rel_err(got, want)
+                check(bool(torch.isfinite(got).all()), f"{mode} RDB: non-finite output")
+                check(rel <= RDB_TOL[mode],
+                      f"{mode} RDB: max|kernel-plain| {err} > {RDB_TOL[mode]} x max(1, max|plain|)")
+                ms = cuda_ms(lambda: rk.rdb_apply(x, p0), 2, 10)
+                pms = cuda_ms(lambda: rk.rdb_reference(x, p0, torch.float32, op), 2, 10)
             print(f"rdb {mode}: B={B} {SIDE}x{SIDE} nf={NF} gc={GC}: max_abs_err {err:.3e} "
-                  f"(rel {rel:.3e} <= {RDB_TOL[mode]}); kernel {ms:.3f} ms, plain {pms:.3f} ms {card}",
-                  flush=True)
+                  f"(rel {rel:.3e} <= {RDB_TOL[mode]}); kernel {ms:.3f} ms, plain {pms:.3f} ms "
+                  f"(TF32 off) {card}", flush=True)
             results[("rdb", mode)] = (err, ms, pms)
 
-            got = rk.rdb_trunk(x, stacked)
-            torch.cuda.synchronize()
-            want = plain_trunk(rk, x, stacked)
-            err, rel = rel_err(got, want)
-            check(bool(torch.isfinite(got).all()), f"{mode} trunk: non-finite output")
-            check(rel <= TRUNK_TOL, f"{mode} trunk: relative max diff {rel} > {TRUNK_TOL}")
-            check(torch.equal(got, rk.rdb_trunk(x, stacked)),
-                  f"{mode} trunk: two runs on the same input differ")
-            ms = cuda_ms(lambda: rk.rdb_trunk(x, stacked), 1, 1)
-            pms = cuda_ms(lambda: plain_trunk(rk, x, stacked), 1, 1)
+            with tf32(False):
+                got = rk.rdb_trunk(x, stacked)
+                torch.cuda.synchronize()
+                want = plain_trunk(rk, x, stacked)
+                err, rel = rel_err(got, want)
+                check(bool(torch.isfinite(got).all()), f"{mode} trunk: non-finite output")
+                check(rel <= TRUNK_TOL, f"{mode} trunk: relative max diff {rel} > {TRUNK_TOL}")
+                check(torch.equal(got, rk.rdb_trunk(x, stacked)),
+                      f"{mode} trunk: two runs on the same input differ")
+                ms = cuda_ms(lambda: rk.rdb_trunk(x, stacked), 1, 1)
+                pms = cuda_ms(lambda: plain_trunk(rk, x, stacked), 1, 1)
             print(f"trunk {mode}: 69 RDB, B={B} {SIDE}x{SIDE}: max_abs_err {err:.3e} "
-                  f"(rel {rel:.3e} <= {TRUNK_TOL}), two runs bit-equal; kernel {ms:.3f} ms, plain {pms:.3f} ms "
-                  f"{card}", flush=True)
+                  f"(rel {rel:.3e} <= {TRUNK_TOL}), two runs bit-equal; kernel {ms:.3f} ms, "
+                  f"plain {pms:.3f} ms (TF32 off) {card}", flush=True)
             results[("trunk", mode)] = (err, ms, pms)
             del stacked, p0, got, want, bundle
         del x
+
+        # -- 3b. tail kernels against plain ------------------------------
+        bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
+        tp16 = {k: v.to(dev) for k, v in bundle.params["tail"].items()}
+        tp32 = {k: v.to(dev) for k, v in tk.pack_tail_params(bundle.params, torch.float32).items()}
+        for b_, h_, w_ in TAIL_SHAPES:
+            # post-lrelu activations, as up1 and up2 leave them
+            p1 = np.abs(rng.normal(0.0, 0.5, (b_, h_ + 1, w_ + 1, 4 * NF)))
+            p2 = np.abs(rng.normal(0.0, 0.5, (b_, h_, w_, 16 * NF)))
+            for label, fn, arr in (("K6", "up2_hr_last_packed", p1), ("K7", "hr_last_packed", p2)):
+                xin = torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
+                timed = (b_, h_, w_) == TAIL_SHAPES[0]
+                with tf32(False):
+                    err, e_k, e_p, ms, pms = tail_check(tk, fn, xin, tp16, tp32, timed)
+                times = f"; kernel {ms:.3f} ms, plain {pms:.3f} ms (TF32 allowed)" if timed else ""
+                print(f"tail {label} {fn}: B={b_} {h_}x{w_} -> {4 * h_}x{4 * w_}x3: max_abs_err "
+                      f"{err:.3e} vs plain bf16; vs float32 plain {e_k:.3e} <= max(2 x {e_p:.3e}, "
+                      f"1e-3), two runs bit-equal{times} {card}", flush=True)
+                if timed:
+                    results[(label, "mixed")] = (err, ms, pms)
+                del xin
+        del bundle, tp16, tp32
         torch.cuda.empty_cache()
 
         # -- 4. the main path through the CLI ----------------------------
         from PIL import Image
 
-        from realsr_tpu.tiling.planner import plan_tiles
         from realsr_tpu_torch import cli
 
         in_dir, out_dir = os.path.join(work, "in"), os.path.join(work, "out")
@@ -289,18 +401,12 @@ def main() -> int:
         for fn, img in images.items():
             Image.fromarray(img).save(os.path.join(in_dir, fn))
 
-        rk.LAUNCHES = 0
-        t0 = time.perf_counter()
-        rc = cli.main(["-i", in_dir, "-o", out_dir, "-m", model_dir, "-g", "0"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = rk.LAUNCHES
-        check(rc == 0, f"cli.main returned {rc}")
-
         # the CLI's engine: the same default config, so the same tile plan
         engine = RealSR(gpuid=0, config=EngineConfig())
         engine.load(mparam, mbin)
-        chunks = 0
+        wall, launches, k6_main, k7 = run_cli(
+            cli, rk, tk, ["-i", in_dir, "-o", out_dir, "-m", model_dir, "-g", "0"])
+        chunks, _ = chunk_counts(engine, images)
         out_mp = 0.0
         for fn, img in images.items():
             h, w, c = img.shape
@@ -309,89 +415,176 @@ def main() -> int:
             with Image.open(path) as im:
                 out = np.asarray(im)
             check(out.shape == (4 * h, 4 * w, c), f"{fn}: output {out.shape}, want {(4 * h, 4 * w, c)}")
-            plan = plan_tiles(w, h, engine.tilesize, engine.prepadding)
-            chunks += sum(engine._chunking(len(idx))[1] for idx in plan.buckets.values())
             out_mp += 16 * h * w / 1e6
+        want_k6 = chunks if engine.tail == "kernel" else 0
         check(launches == 69 * chunks and chunks > 0,
               f"rdb_kernel launches {launches} != 69 x {chunks} chunks")
+        check(k6_main == want_k6 and k7 == 0,
+              f"tail launches K6 {k6_main}, K7 {k7}; want {want_k6} (tail {engine.tail}) and 0")
         print(f"main path: cli.main rc 0, 3 images -> 4x outputs (RGBA kept 4 channels), "
-              f"tile {engine.tilesize}, {chunks} chunks, {launches} rdb_kernel launches; "
-              f"{out_mp:.3f} output MP in {wall:.3f} s = {out_mp / wall:.3f} output MP/s "
-              f"(model load and first calls included) {card}", flush=True)
+              f"tile {engine.tilesize}, tail {engine.tail}, {chunks} chunks, {launches} rdb_kernel "
+              f"launches, {k6_main} K6 launches; {out_mp:.3f} output MP in {wall:.3f} s = "
+              f"{out_mp / wall:.3f} output MP/s (model load and first calls included) {card}",
+              flush=True)
+        one = {"b.png": images["b.png"]}
+        one_in = os.path.join(in_dir, "b.png")
+        n1, _ = chunk_counts(engine, one)
+        k6_cli = k6_main
+        if engine.tail != "kernel":
+            # auto kept the interleaved tail: drive K6 through the CLI too
+            _, launches3, k6_cli, _ = run_cli(
+                cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_k6.png"),
+                              "-m", model_dir, "-g", "0"], {"REALSR_TPU_PACKED_TAIL": "3"})
+            check(k6_cli == n1 and launches3 == 69 * n1, f"K6 CLI run: {k6_cli} K6 launches != {n1}")
+        _, launches2, k6, k7 = run_cli(
+            cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_k7.png"), "-m", model_dir,
+                          "-g", "0"], {"REALSR_TPU_PACKED_TAIL": "2"})
+        check(k7 == n1 and k6 == 0 and launches2 == 69 * n1,
+              f"K7 CLI run: {k7} K7 / {k6} K6 / {launches2} RDB launches for {n1} chunks")
+        print(f"main path, REALSR_TPU_PACKED_TAIL=2 (K7 tail): b.png, {n1} chunks, {launches2} "
+              f"rdb_kernel launches, {k7} K7 launches {card}", flush=True)
+
+        tta_engine = RealSR(gpuid=0, tta_mode=True, config=EngineConfig())
+        tta_engine.load(mparam, mbin)
+        tta_out = os.path.join(out_dir, "b_tta.png")
+        wall, launches_x, k6_x, k7_x = run_cli(
+            cli, rk, tk, ["-i", one_in, "-o", tta_out, "-m", model_dir, "-g", "0", "-x"])
+        chunks_x, batches_x = chunk_counts(tta_engine, one)
+        with Image.open(tta_out) as im:
+            check(np.asarray(im).shape == (800, 1200, 3), f"-x output {np.asarray(im).shape}")
+        check(launches_x == 69 * batches_x and k6_x == (batches_x if tta_engine.tail == "kernel" else 0)
+              and k7_x == 0, f"-x: {launches_x} RDB / {k6_x} K6 launches for {batches_x} forward batches")
+        print(f"main path -x (TTA): b.png 200x300 -> 800x1200, tail {tta_engine.tail}, "
+              f"{chunks_x} chunks, {batches_x} forward batches of 8 or 2 x 4 variants, "
+              f"{launches_x} rdb_kernel launches, {k6_x} K6 launches, {wall:.3f} s {card}",
+              flush=True)
 
         # -- 5. numerics of the slice ------------------------------------
+        # repair check: TF32 belongs to each engine's chunks, so a float32
+        # engine leaves a mixed engine's pixels as they were (torch's
+        # default flags before and after)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        before = engine.process(images["a.png"])
         plain32 = RealSR(gpuid=0, config=EngineConfig(storage="float32", variant="dense"))
         plain32.load(mparam, mbin)
-        plain_mixed = RealSR(gpuid=0, config=EngineConfig(variant="dense"))
+        ref_a = plain32.process(images["a.png"])
+        after = engine.process(images["a.png"])
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        same, dmax = u8_same(before, after)
+        check(same == 1.0 and flags == (True, False),
+              f"mixed engine before/after a float32 engine: {same * 100:.4f}% equal u8, "
+              f"max diff {dmax}; TF32 flags {flags}")
+        print(f"TF32 scope: mixed engine output bit-equal before and after a float32 engine "
+              f"loaded and ran; process flags unchanged {flags} {card}", flush=True)
+
+        plain_mixed = RealSR(gpuid=0, config=EngineConfig(variant="dense", tail="interleaved"))
         plain_mixed.load(mparam, mbin)
+        k6_engine = engine
+        if engine.tail != "kernel":
+            k6_engine = RealSR(gpuid=0, config=EngineConfig(tail="kernel"))
+            k6_engine.load(mparam, mbin)
         kern32 = RealSR(gpuid=0, config=EngineConfig(storage="float32"))
         kern32.load(mparam, mbin)
+        tta32 = RealSR(gpuid=0, tta_mode=True,
+                       config=EngineConfig(storage="float32", variant="dense"))
+        tta32.load(mparam, mbin)
+        tta_plain = RealSR(gpuid=0, tta_mode=True,
+                           config=EngineConfig(variant="dense", tail="interleaved"))
+        tta_plain.load(mparam, mbin)
         check(engine.variant == "cuda" and kern32.variant == "cuda", "engine did not pick the kernel")
+        check(kern32.tail == "interleaved", f"float32 engine tail {kern32.tail}")
         for label, img in (("1/f", images["a.png"]), ("noise", noise)):
-            ref = plain32.process(img)
-            db = psnr(engine.process(img), ref)
+            ref, ref_tta = plain32.process(img), tta32.process(img)
             db_plain = psnr(plain_mixed.process(img), ref)
+            # TTA against float32 TTA, held to the plain mixed TTA path's
+            # PSNR: TTA's averaging moves most pixels of these weights'
+            # output to 0, which lifts every TTA PSNR alike
+            db_tta_plain = psnr(tta_plain.process(img), ref_tta)
+            dbs = {"default": (psnr(engine.process(img), ref), db_plain),
+                   "K6 tail": (psnr(k6_engine.process(img), ref), db_plain),
+                   "TTA": (psnr(tta_engine.process(img), ref_tta), db_tta_plain)}
+            for what, (db, db_ref) in dbs.items():
+                check(db >= db_ref - PSNR_SLACK,
+                      f"{label}: mixed {what} vs float32 {db:.2f} dB, below the plain mixed "
+                      f"path's {db_ref:.2f} dB by more than {PSNR_SLACK} dB")
             same, dmax = u8_same(kern32.process(img), ref)
-            check(db >= db_plain - PSNR_SLACK,
-                  f"{label}: mixed kernel vs float32 {db:.2f} dB, below the plain mixed "
-                  f"path's {db_plain:.2f} dB by more than {PSNR_SLACK} dB")
             check(same >= SAME_MIN and dmax <= 1,
-                  f"{label}: float32 kernel vs plain: {same:.6f} equal "
+                  f"{label}: float32 kernel vs plain: {same * 100:.4f}% equal "
                   f"(want >= {SAME_MIN}), max diff {dmax}")
-            band = "met" if db >= PSNR_BAND else "not met"
-            print(f"numerics 256x192 {label}: vs float32 plain, mixed kernel {db:.2f} dB, "
-                  f"mixed plain {db_plain:.2f} dB (kernel within {PSNR_SLACK} dB of plain; "
+            band = "met" if dbs["default"][0] >= PSNR_BAND else "not met"
+            print(f"numerics 256x192 {label}: vs float32 plain, mixed "
+                  + ", ".join(f"{k} {v[0]:.2f} dB" for k, v in dbs.items())
+                  + f"; mixed plain {db_plain:.2f} dB, mixed plain TTA {db_tta_plain:.2f} dB "
+                  f"(each within {PSNR_SLACK} dB of its plain path; "
                   f"the {PSNR_BAND} dB band {band}); float32 kernel vs plain "
                   f"{same * 100:.4f}% equal u8, max diff {dmax} {card}", flush=True)
 
         # -- 6. steady state, device-resident ----------------------------
         big = natural_image(np.random.default_rng(1), *STEADY_HW)
         big_mp = 16 * STEADY_HW[0] * STEADY_HW[1] / 1e6
-        torch.backends.cudnn.allow_tf32 = True  # torch's default
-        rows = [("mixed, kernel, cuDNN TF32 allowed (a fresh CLI process)",
-                 steady_s(engine, big))]
-        wall, groups, top = profile_image(engine, big)
-        tf32_out = engine.process(big)
-        disable_tf32()
-        for label, eng in (("mixed, kernel", engine), ("mixed, plain", plain_mixed),
-                           ("float32, kernel", kern32), ("float32, plain", plain32)):
+        tails = {}
+        for t in TAILS:
+            tails[t] = engine if t == engine.tail else RealSR(gpuid=0, config=EngineConfig(tail=t))
+            if tails[t] is not engine:
+                tails[t].load(mparam, mbin)
+        # the tail forms in turns, forward then backward; median of all runs
+        runs: dict = {t: [] for t in TAILS}
+        for order in (TAILS, TAILS[::-1]):
+            for t in order:
+                runs[t].append(steady_s(tails[t], big))
+        rows = [(f"mixed, kernel trunk, {t} tail", float(np.median(runs[t]))) for t in TAILS]
+        for label, eng in (("mixed, plain trunk and interleaved tail", plain_mixed),
+                           ("float32, kernel trunk", kern32), ("float32, plain", plain32)):
             rows.append((label, steady_s(eng, big)))
-        for label, s in rows:
-            print(f"steady {STEADY_HW[1]}x{STEADY_HW[0]} RGB, {label}: {s:.4f} s/image, "
-                  f"{big_mp / s:.3f} output MP/s {card}", flush=True)
-        # any change in the order of the sums moves mixed outputs through
-        # the trunk's bf16 roundings; what must hold is the error vs float32
+        for label, s_img in rows:
+            print(f"steady {STEADY_HW[1]}x{STEADY_HW[0]} RGB, {label}: {s_img:.4f} s/image, "
+                  f"{big_mp / s_img:.3f} output MP/s {card}", flush=True)
+        tta_mp = 16 * 192 * 256 / 1e6
+        s_tta = steady_s(tta_engine, images["a.png"])
+        print(f"steady 256x192 RGB, mixed TTA (-x), {tta_engine.tail} tail: {s_tta:.4f} s/image, "
+              f"{tta_mp / s_tta:.3f} output MP/s {card}", flush=True)
+        s_k6, s_int = (float(np.median(runs[t])) for t in ("kernel", "interleaved"))
+        print(f"auto tail on the card: {engine.tail}; K6 tail {big_mp / s_k6:.3f} vs interleaved "
+              f"{big_mp / s_int:.3f} output MP/s, {'K6' if s_k6 < s_int else 'interleaved'} faster "
+              f"{card}", flush=True)
         ref = plain32.process(big)
-        db_tf32, db_off = psnr(tf32_out, ref), psnr(engine.process(big), ref)
-        same, dmax = u8_same(tf32_out, engine.process(big))
-        check(db_tf32 >= db_off - PSNR_SLACK,
-              f"mixed kernel with TF32 allowed {db_tf32:.2f} dB vs float32, below TF32 "
-              f"off's {db_off:.2f} dB by more than {PSNR_SLACK} dB")
-        print(f"steady numerics: mixed kernel vs float32 plain {db_tf32:.2f} dB with TF32 "
-              f"allowed, {db_off:.2f} dB with TF32 off; the two agree on {same * 100:.4f}% "
-              f"of u8 values, max diff {dmax}", flush=True)
-        dev_ms = sum(groups.values())
-        if dev_ms:
+        dbs = {t: psnr(tails[t].process(big), ref) for t in TAILS}
+        db_plain = psnr(plain_mixed.process(big), ref)
+        for t, db in dbs.items():
+            check(db >= db_plain - PSNR_SLACK,
+                  f"steady image, {t} tail: {db:.2f} dB vs float32, plain mixed {db_plain:.2f} dB")
+        print(f"steady numerics: vs float32 plain, mixed kernel trunk with tail "
+              + ", ".join(f"{t} {db:.2f} dB" for t, db in dbs.items())
+              + f"; mixed plain {db_plain:.2f} dB", flush=True)
+        for t in dict.fromkeys(("kernel", "interleaved")):
+            wall, groups, top = profile_image(tails[t], big)
+            dev_ms = sum(groups.values())
+            if not dev_ms:
+                print("profile: torch.profiler recorded no device time (not measured)", flush=True)
+                continue
             parts = ", ".join(f"{g} {ms:.1f} ms ({100 * ms / dev_ms:.1f} %)"
                               for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
-            print(f"profile of one mixed-kernel image (TF32 allowed): wall {1e3 * wall:.1f} ms "
+            print(f"profile of one mixed image, kernel trunk, {t} tail: wall {1e3 * wall:.1f} ms "
                   f"under the profiler, kernels {dev_ms:.1f} ms (device idle "
                   f"{100 * (1 - dev_ms / (1e3 * wall)):.1f} %): {parts}; costliest: "
                   + "; ".join(f"{ms:.1f} ms {n[:90]}" for ms, n in top) + f" {card}", flush=True)
-        else:
-            print("profile: torch.profiler recorded no device time (not measured)", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    src = "realsr_tpu_torch/csrc/rdb_kernel.cu"
     kernels = []
-    for what, replaces in (("rdb", "realsr_tpu/ops/rdb_kernel.py:263"),
-                           ("trunk", "realsr_tpu/ops/rdb_kernel.py:758")):
-        err, ms, pms = results[(what, "mixed")]
+    for key, kname, src, replaces, n in (
+        ("rdb", "rdb_kernel", "rdb_kernel.cu", "realsr_tpu/ops/rdb_kernel.py:263", launches),
+        ("trunk", "rdb_kernel (69-RDB trunk)", "rdb_kernel.cu", "realsr_tpu/ops/rdb_kernel.py:758",
+         launches),
+        ("K6", "tail_kernel (up2_hr_last_packed)", "tail_kernel.cu",
+         "realsr_tpu/ops/tail_kernel.py:103", k6_cli),
+        ("K7", "tail_kernel (hr_last_packed)", "tail_kernel.cu",
+         "realsr_tpu/ops/tail_kernel.py:329", k7),
+    ):
+        err, ms, pms = results[(key, "mixed")]
         kernels.append({
-            "name": "rdb_kernel" if what == "rdb" else "rdb_kernel (69-RDB trunk)",
-            "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "name": kname, "route": "cuda", "source": f"realsr_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,8 +11,10 @@ getopt loop, 527-672 validation and file lists), ending in the same
 Exit codes follow the reference: usage and validation errors return -1
 (the shell sees 255). One deviation from the JAX CLI: without ``-g`` it
 takes CUDA device 0 and fails when there is none; the CPU runs only on an
-explicit ``-g -1``. TTA (``-x``) is not ported yet and fails at engine
-creation.
+explicit ``-g -1``. ``-x`` runs TTA (8 dihedral variants per tile, averaged).
+The environment picks the precision (``REALSR_TPU_STORAGE``) and the tail
+form (``REALSR_TPU_PACKED_TAIL``: 0 interleaved, 1 packed, 2 the K7 tail
+kernel, 3 the K6 tail kernel; unset, the engine's own choice).
 """
 
 from __future__ import annotations

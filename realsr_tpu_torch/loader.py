@@ -1,7 +1,7 @@
 """Model loading: ncnn files -> a forward-callable bundle.
 
 Counterpart of ``realsr_tpu/loader.py``: parse the .param, read the .bin,
-match the RRDBNet structure and stack (and, for the CUDA kernel, pack) the
+match the RRDBNet structure and stack (and, for the CUDA kernels, pack) the
 weights. Graphs the matcher rejects need the generic ncnn executor, which is
 not ported yet: they raise ``NotImplementedError``.
 """
@@ -9,23 +9,51 @@ not ported yet: they raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from realsr_tpu.ncnn.bin import load_weights
 from realsr_tpu.ncnn.param import ParamGraph, parse_param_file
 from realsr_tpu_torch.graph.rrdb_match import extract_stacked_params, match_rrdbnet
-from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec, repack_scatter, rrdbnet_forward
+from realsr_tpu_torch.models.rrdbnet import (
+    TAIL_MODES,
+    RRDBNetSpec,
+    repack_scatter,
+    rrdbnet_forward,
+)
+
+# the tail forms that run on the fused tail kernel (ops/tail_kernel.py)
+KERNEL_TAILS = ("kernel_hr", "kernel")
+
+
+def kernel_tail_error(spec: RRDBNetSpec, op_dtype) -> Optional[Exception]:
+    """Why the tail kernel has no instance for ``spec`` and ``op_dtype``,
+    or None: it takes nf = 64, 3 outputs, two upsamplers, bf16 operands."""
+    from realsr_tpu_torch.ops.tail_kernel import NF, OUTC
+
+    if (spec.nf, spec.out_ch, spec.num_upsample) != (NF, OUTC, 2):
+        return ValueError(
+            f"the tail kernel is fixed at nf={NF}, out_ch={OUTC}, two upsamplers; "
+            f"the graph has nf={spec.nf}, out_ch={spec.out_ch}, "
+            f"{spec.num_upsample} upsamplers"
+        )
+    if op_dtype != torch.bfloat16:
+        return NotImplementedError(
+            f"the tail kernel has bfloat16 operands only, not {op_dtype} "
+            "(ROADMAP queue 2: float32 instances of the tail and RDB kernels)"
+        )
+    return None
 
 
 @dataclasses.dataclass
 class ModelBundle:
     forward: Callable[[Any, torch.Tensor], torch.Tensor]
-    params: Any  # numpy arrays, or CPU tensors for the packed RDB weights
+    params: Any  # numpy arrays, or CPU tensors for the packed kernel weights
     scale: int
     spec: RRDBNetSpec
     graph: ParamGraph
+    tail: str = "interleaved"  # the forward's tail form (models.rrdbnet.TAIL_MODES)
 
 
 def load_model(
@@ -34,12 +62,18 @@ def load_model(
     storage_dtype=torch.float32,
     op_dtype=None,
     variant: str = "dense",
+    tail: str = "interleaved",
 ) -> ModelBundle:
     """``variant``: 'dense' (the graph's concat-input convs), 'scatter'
     (weights regrouped by source, the same math) or 'cuda' (the trunk on the
     fused RDB kernel; weights packed for it at ``op_dtype``). ``op_dtype``
     defaults to ``storage_dtype``; float32 storage with bfloat16 operands is
-    the mixed mode."""
+    the mixed mode. ``tail``: one of ``models.rrdbnet.TAIL_MODES``, or
+    'auto' for the fused tail kernel (K6, 'kernel') where it has an
+    instance for the graph and ``op_dtype`` and 'interleaved' elsewhere.
+    For the kernel tails the tail weights are packed here, once, into
+    ``params["tail"]``; an explicit kernel tail that the graph or operand
+    type has no instance for raises."""
     graph = parse_param_file(param_path)
     match = match_rrdbnet(graph)
     if match is None:
@@ -50,6 +84,13 @@ def load_model(
         )
     op_dtype = op_dtype if op_dtype is not None else storage_dtype
     spec = match.spec
+    err = kernel_tail_error(spec, op_dtype)
+    if tail == "auto":
+        tail = "kernel" if err is None else "interleaved"
+    elif tail not in TAIL_MODES:
+        raise ValueError(f"unknown tail {tail!r}; expected 'auto' or one of {TAIL_MODES}")
+    elif tail in KERNEL_TAILS and err is not None:
+        raise err
     params = extract_stacked_params(match, load_weights(graph, bin_path))
     if variant == "scatter":
         params = repack_scatter(params)
@@ -62,11 +103,16 @@ def load_model(
         params["rdb"] = {k: v.reshape(n_rdb, -1) for k, v in packed.items()}
     elif variant != "dense":
         raise ValueError(f"unknown variant {variant!r}")
+    if tail in KERNEL_TAILS:
+        from realsr_tpu_torch.ops.tail_kernel import pack_tail_params
+
+        params = dict(params)
+        params["tail"] = pack_tail_params(params, op_dtype)
 
     def forward(p, x):
         return rrdbnet_forward(
             p, x, spec, storage_dtype=storage_dtype, variant=variant,
-            op_dtype=op_dtype,
+            op_dtype=op_dtype, tail=tail,
         )
 
-    return ModelBundle(forward, params, spec.scale, spec, graph)
+    return ModelBundle(forward, params, spec.scale, spec, graph, tail)

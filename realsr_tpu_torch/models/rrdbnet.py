@@ -13,9 +13,17 @@ in float32; carried activations are rounded to ``storage_dtype``. Storage
 float32 with bfloat16 operands is the mixed mode. Every conv rounds its
 operands to ``op_dtype`` and runs in float32, which is the JAX package's
 ``preferred_element_type=float32``. For float32 operands on a GPU, TF32
-must be off (:func:`disable_tf32`; the engine's float32 mode calls it) to
-match the JAX package's ``Precision.HIGHEST``; bfloat16 and float16 values
-are exact in TF32, so for them TF32 changes only the order of the sums.
+must be off (:func:`tf32` with ``allowed=False``, which the engine enters
+around each chunk) to match the JAX package's ``Precision.HIGHEST``;
+bfloat16 and float16 values are exact in TF32, so for them TF32 changes
+only the order of the sums.
+
+The tail after the trunk comes in two forms: the interleaved one (nearest-x2
+and 3x3 convs at 2x and 4x resolution, as the graph reads) and the
+packed-phase one (:func:`packed_tail`), which computes every stage at base
+resolution with the 2x and 4x output phases as channel groups, as the JAX
+package's ``_packed_tail`` does, and can hand its deep stages to the fused
+tail kernels (``ops/tail_kernel.py``).
 
 Parameters are numpy or torch trees of OIHW convs (:func:`params_from_jax`
 converts the JAX package's HWIO trees). Public functions take and return
@@ -24,6 +32,7 @@ NHWC like the JAX package; internally the convs run on NCHW views.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict
 
@@ -54,12 +63,18 @@ class RRDBNetSpec:
         return 2**self.num_upsample
 
 
-def disable_tf32() -> None:
-    """Turn TF32 off for cuDNN convs and matmuls, process-wide (torch has
-    no per-call switch): a float32 conv on the card then computes in
-    float32, as the JAX package's Precision.HIGHEST does."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+@contextlib.contextmanager
+def tf32(allowed: bool):
+    """Set whether cuDNN convs and CUDA matmuls may use TF32 inside the
+    block, and restore both flags on exit. torch has no per-call switch, so
+    the flags are process-global while the block runs."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = allowed
+    torch.backends.cuda.matmul.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def operand(t: torch.Tensor, op_dtype) -> torch.Tensor:
@@ -162,10 +177,187 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def _tail(params, fea, body, spec, storage_dtype, od):
-    """Trunk conv + long skip + upsampler + HRconv + conv_last (NCHW)."""
+def _hwio(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[cout, cin, kh, kw]`` -> HWIO ``[kh, kw, cin, cout]``."""
+    return w.permute(2, 3, 1, 0)
+
+
+def _shift0(x, sy, sx):
+    """NHWC ``x`` shifted by (sy, sx) in {-1, 0, 1} with zero fill:
+    ``result[:, i, j] = x[:, i + sy, j + sx]``, zero outside: the packed
+    tail's stand-in for the interleaved convs' zero padding."""
+    if sy == 0 and sx == 0:
+        return x
+    H, W = x.shape[1], x.shape[2]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return xp[:, 1 + sy : 1 + sy + H, 1 + sx : 1 + sx + W, :]
+
+
+def _phase_split(w):
+    """Tap-sum kernels of nearest-x2 + conv3x3 for an HWIO ``w``
+    ``[3, 3, cin, cout]`` (torch or numpy): ``k[a][b][s, t]`` is the
+    ``[cin, cout]`` weight that 2x-output phase (a, b) applies to the input
+    at ``[i + a - 1 + s, j + b - 1 + t]``, s, t in {0, 1}. The sums are
+    taken in float32 from the stored weights; callers round them after."""
+    if isinstance(w, torch.Tensor):
+        stack, w = torch.stack, w.float()
+    else:
+        stack, w = np.stack, np.asarray(w, np.float32)
+    r0 = stack([w[0], w[1] + w[2]])  # a = 0: rows (i - 1, i)
+    r1 = stack([w[0] + w[1], w[2]])  # a = 1: rows (i, i + 1)
+
+    def cols(rw):
+        return (
+            stack([rw[:, 0], rw[:, 1] + rw[:, 2]], 1),
+            stack([rw[:, 0] + rw[:, 1], rw[:, 2]], 1),
+        )
+
+    k00, k01 = cols(r0)
+    k10, k11 = cols(r1)
+    return [[k00, k01], [k10, k11]]
+
+
+def up2_matrices(w):
+    """The up2 tap sums of an HWIO ``w`` as matrices ``[4, 4 cin, cout]``:
+    entry ``2c + d`` serves output sub-phase (c, d); its rows are tap-major,
+    tap ``2s + t``, then input channel."""
+    k = _phase_split(w)
+    cat = torch.cat if isinstance(w, torch.Tensor) else np.concatenate
+    stack = torch.stack if isinstance(w, torch.Tensor) else np.stack
+    return stack([
+        cat([k[c][d][s, t] for s in (0, 1) for t in (0, 1)], 0)
+        for c in (0, 1)
+        for d in (0, 1)
+    ])
+
+
+def _mm(srcs, wd, b, slope, od, out_dt):
+    """``concat(srcs) @ wd + b`` with optional LeakyReLU: operands rounded
+    to ``od``, float32 sums; ``out_dt`` None keeps float32."""
+    x = operand(torch.cat(srcs, -1), od)
+    y = torch.matmul(x, operand(wd, od)) + b.float()
+    if slope is not None:
+        y = _lrelu(y, slope)
+    return y if out_dt is None else y.to(out_dt)
+
+
+def up1_phases(fea, w, b, od, tail_dt):
+    """up1 (nearest-x2 + conv3x3 + lrelu) of NHWC ``fea`` ``[B, H, W, nf]``
+    as ONE valid 2x2 conv with the four 2x phases as output-channel groups:
+    returns ``y1`` ``[B, H + 1, W + 1, 4 nf]`` in ``tail_dt``, where phase
+    (a, b) of base pixel (i, j) is ``y1[:, i + a, j + b, (2a + b) nf :
+    (2a + b + 1) nf]``. ``w`` is OIHW."""
+    k = _phase_split(_hwio(w))
+    k1c = torch.cat([k[0][0], k[0][1], k[1][0], k[1][1]], -1)  # [2, 2, cin, 4 cout]
+    xp = F.pad(fea, (0, 0, 1, 1, 1, 1))
+    y = F.conv2d(operand(_nchw(xp), od), operand(k1c.permute(3, 2, 0, 1), od))
+    y = _nhwc(y) + b.float().repeat(4)
+    return _lrelu(y).to(tail_dt)
+
+
+def p1_phases(y1, nf):
+    """The four 2x phases ``P1[a][b]`` ``[B, H, W, nf]`` as views of y1."""
+    H, W = y1.shape[1] - 1, y1.shape[2] - 1
+    return [
+        [y1[:, a : a + H, b : b + W, (2 * a + b) * nf : (2 * a + b + 1) * nf] for b in (0, 1)]
+        for a in (0, 1)
+    ]
+
+
+def up2_phases(P1, w2, b2, od, out_dt):
+    """up2 on the packed 2x phases: 4x phase (2a + c, 2b + d) at base (i,
+    j) taps the 2x image at row 2i + a + c - 1 + s, i.e. P1 phase m % 2 at
+    base shift m // 2 (m = a + c - 1 + s), and columns alike. ``w2``:
+    :func:`up2_matrices`. Returns the 4 x 4 list of P2 phases."""
+    P2 = [[None] * 4 for _ in range(4)]
+    for a in (0, 1):
+        for c in (0, 1):
+            for bb in (0, 1):
+                for d in (0, 1):
+                    srcs = []
+                    for s in (0, 1):
+                        m = a + c - 1 + s
+                        for t in (0, 1):
+                            n = bb + d - 1 + t
+                            srcs.append(_shift0(P1[m % 2][n % 2], m // 2, n // 2))
+                    P2[2 * a + c][2 * bb + d] = _mm(srcs, w2[2 * c + d], b2, LRELU_SLOPE, od, out_dt)
+    return P2
+
+
+def conv_phases(P, wd, b, slope, od, out_dt):
+    """A 3x3 conv at 4x resolution on its 16 base-resolution phases: tap
+    (dy, dx) of output phase (P, Q) reads source phase ((P + dy) % 4,
+    (Q + dx) % 4) at base shift ((P + dy) // 4, (Q + dx) // 4). ``wd``:
+    ``[9 cin, cout]``, the HWIO weight with its taps as rows."""
+    out = [[None] * 4 for _ in range(4)]
+    for pr in range(4):
+        for qc in range(4):
+            srcs = [
+                _shift0(P[(pr + dy) % 4][(qc + dx) % 4], (pr + dy) // 4, (qc + dx) // 4)
+                for dy in (-1, 0, 1)
+                for dx in (-1, 0, 1)
+            ]
+            out[pr][qc] = _mm(srcs, wd, b, slope, od, out_dt)
+    return out
+
+
+def interleave_phases(P):
+    """4 x 4 phases ``[B, H, W, C]`` -> the 4x image ``[B, 4H, 4W, C]``."""
+    grid = torch.stack([torch.stack([P[p][q] for q in range(4)], 3) for p in range(4)], 2)
+    B, H, _, W, _, C = grid.shape
+    return grid.reshape(B, 4 * H, 4 * W, C)
+
+
+# the tail forms of rrdbnet_forward; the packed ones are the JAX package's
+# PACKED_TAIL with PACKED_TAIL_KERNEL 0, 1 and 2
+TAIL_MODES = ("interleaved", "packed", "kernel_hr", "kernel")
+
+
+def packed_tail(params, fea, spec, od, tail_dt, mode=0):
+    """The tail after the long skip in packed-phase form: NHWC ``fea``
+    ``[B, H, W, nf]`` (``tail_dt``) -> NHWC float32 ``[B, 4H, 4W, out_ch]``.
+
+    Every stage runs at base resolution with the output phases as channel
+    groups and one 3-channel interleave at the end; the taps and zero
+    borders are those of the interleaved tail. ``mode`` 0: every stage as
+    matmuls over concatenated shifted slices; 1: up2 so, then HRconv +
+    conv_last on the fused kernel K7 (``ops.tail_kernel.hr_last_packed``);
+    2: up2 + HRconv + conv_last on the fused kernel K6
+    (``up2_hr_last_packed``) straight from up1's output. The kernel modes
+    read ``params["tail"]`` (``ops.tail_kernel.pack_tail_params``).
+    """
+    dev, nf = fea.device, fea.shape[-1]
+    up_w = torch.as_tensor(params["up"]["w"], device=dev)
+    up_b = torch.as_tensor(params["up"]["b"], device=dev)
+    y1 = up1_phases(fea, up_w[0], up_b[0], od, tail_dt)
+    if mode == 2:
+        from realsr_tpu_torch.ops.tail_kernel import up2_hr_last_packed
+
+        return up2_hr_last_packed(y1.to(od).contiguous(), params["tail"])
+    P2 = up2_phases(p1_phases(y1, nf), up2_matrices(_hwio(up_w[1])), up_b[1], od, tail_dt)
+    if mode == 1:
+        from realsr_tpu_torch.ops.tail_kernel import hr_last_packed
+
+        p2 = torch.cat([P2[p][q] for p in range(4) for q in range(4)], -1)
+        return hr_last_packed(p2.to(od).contiguous(), params["tail"])
+
+    def dense(group):
+        w = _hwio(torch.as_tensor(params[group]["w"], device=dev))
+        return w.reshape(-1, w.shape[-1]), torch.as_tensor(params[group]["b"], device=dev)
+
+    P3 = conv_phases(P2, *dense("hr"), LRELU_SLOPE, od, tail_dt)
+    P4 = conv_phases(P3, *dense("last"), None, od, None)
+    return interleave_phases(P4)
+
+
+def _tail(params, fea, body, spec, storage_dtype, od, tail):
+    """Trunk conv + long skip + upsampler + HRconv + conv_last: NCHW in,
+    NHWC float32 out."""
     trunk = conv3x3(body, params["trunk"]["w"], params["trunk"]["b"], None, od)
     fea = (fea.float() + trunk).to(storage_dtype)
+    if tail != "interleaved":
+        mode = TAIL_MODES.index(tail) - 1
+        return packed_tail(params, _nhwc(fea), spec, od, storage_dtype, mode)
     for s in range(spec.num_upsample):
         fea = _nchw(nearest_x2(_nhwc(fea)))
         fea = conv3x3(
@@ -173,7 +365,7 @@ def _tail(params, fea, body, spec, storage_dtype, od):
         ).to(storage_dtype)
     fea = conv3x3(fea, params["hr"]["w"], params["hr"]["b"], LRELU_SLOPE, od)
     fea = fea.to(storage_dtype)
-    return conv3x3(fea, params["last"]["w"], params["last"]["b"], None, od)
+    return _nhwc(conv3x3(fea, params["last"]["w"], params["last"]["b"], None, od))
 
 
 def rrdbnet_forward(
@@ -183,6 +375,7 @@ def rrdbnet_forward(
     storage_dtype=torch.float32,
     variant: str = "dense",
     op_dtype=None,
+    tail: str = "interleaved",
 ) -> torch.Tensor:
     """Normalized NHWC input in [0, 1] -> NHWC float32 (before denorm).
 
@@ -192,8 +385,18 @@ def rrdbnet_forward(
     ``{sw0..sw4, b1..b5}`` (repack_scatter) for 'scatter', and
     ``{w, b}`` stacked ``[num_rrdb * 3, ...]`` (ops.rdb_kernel.
     pack_rdb_params) for 'cuda', which runs the trunk on the fused RDB
-    kernel (the counterpart of the JAX package's 'pallas').
+    kernel (the counterpart of the JAX package's 'pallas'); ``tail``: the
+    kernel tails' packed weights (ops.tail_kernel.pack_tail_params) for
+    the ``tail`` modes 'kernel_hr' and 'kernel'.
+
+    ``tail`` (:data:`TAIL_MODES`): 'interleaved' (the graph's nearest-x2 +
+    conv form) or a packed-phase form (:func:`packed_tail` modes 0, 1, 2).
+    The packed forms need two upsamplers (scale 4).
     """
+    if tail not in TAIL_MODES:
+        raise ValueError(f"unknown tail {tail!r}; expected one of {TAIL_MODES}")
+    if tail != "interleaved" and spec.num_upsample != 2:
+        raise ValueError(f"the packed tail needs two upsamplers, the graph has {spec.num_upsample}")
     od = op_dtype if op_dtype is not None else storage_dtype
     x = _nchw(x.to(storage_dtype))
     fea = conv3x3(x, params["conv_first"]["w"], params["conv_first"]["b"], None, od)
@@ -215,7 +418,7 @@ def rrdbnet_forward(
         body = t
     else:
         raise ValueError(f"unknown variant {variant!r}")
-    return _nhwc(_tail(params, fea, body, spec, storage_dtype, od))
+    return _tail(params, fea, body, spec, storage_dtype, od, tail)
 
 
 def _oihw(w) -> np.ndarray:

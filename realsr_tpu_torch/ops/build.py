@@ -28,7 +28,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _NAME_LOCKS
+# one lock per library, so that two sources can build at once in two threads
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 # seconds the last nvcc run of each library took (0.0 when it was cached)
 BUILD_SECONDS: Dict[str, float] = {}
 
@@ -55,8 +57,11 @@ def _nvcc() -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    Thread-safe; calls for different names build concurrently."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -127,7 +127,7 @@ def rdb_reference(x, p, storage_dtype, op_dtype, u=None):
     """Plain PyTorch version of the kernel: one RDB on NHWC ``x``.
 
     Operands are rounded to ``op_dtype`` and convolved in float32. With TF32
-    off (:func:`~realsr_tpu_torch.models.rrdbnet.disable_tf32`) on a GPU, it
+    off (:func:`~realsr_tpu_torch.models.rrdbnet.tf32`) on a GPU, it
     differs from the kernel on the same inputs only in the order of the sums.
     """
     w = unpack_rdb_params(p, x.shape[-1])

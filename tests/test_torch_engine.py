@@ -89,10 +89,35 @@ def test_gpu_without_cuda_fails(cli_model_dir, tmp_path, capsys):
 
 def test_unported_modes_raise(engines):
     _, port = engines
-    with pytest.raises(NotImplementedError, match="TTA"):
-        RealSR(gpuid=-1, tta_mode=True)
     with pytest.raises(NotImplementedError, match="process_banded"):
         port.process_banded(np.zeros((8, 8, 3), np.uint8))
+
+
+def test_tf32_scoped_to_each_engines_chunks(tiny_model_dir):
+    """A float32 engine's chunks run with TF32 off, a mixed engine's with it
+    on, and neither loading nor running an engine changes the process's
+    flags (JAX's precision is per op: one engine never moves another's
+    pixels)."""
+    files = (os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)  # noqa: E731
+    saved = flags()
+    seen = {}
+    try:
+        for start in ((True, False), (False, True)):
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = start
+            for storage in ("float32", "mixed"):
+                e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage=storage))
+                e.load(*files)
+                assert flags() == start
+                fwd = e.bundle.forward
+                e.bundle.forward = lambda p, x, fwd=fwd, s=storage: (
+                    seen.setdefault(s, set()).add(flags()) or fwd(p, x)
+                )
+                e.process(np.zeros((9, 11, 3), np.uint8))
+                assert flags() == start
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert seen == {"float32": {(False, False)}, "mixed": {(True, True)}}
 
 
 def test_float16_with_kernel_variant_raises(tiny_model_dir):

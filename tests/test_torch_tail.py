@@ -1,0 +1,243 @@
+"""The port's packed-phase tail and its kernel module against the JAX package.
+
+The CUDA tail kernel runs only on the card (tests/test_torch_gpu.py); here
+the plain versions its wrappers take for CPU tensors are held to JAX's
+einsum packed tail and to its Pallas tail kernels in interpret mode, on the
+same numpy inputs.
+"""
+
+import functools
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from realsr_tpu.models import rrdbnet as R
+from realsr_tpu.ops import tail_kernel as JTK
+from realsr_tpu_torch.engine import EngineConfig, RealSR, packed_tail_env
+from realsr_tpu_torch.loader import load_model
+from realsr_tpu_torch.models import rrdbnet as TR
+from realsr_tpu_torch.ops import tail_kernel as TK
+
+torch.set_num_threads(2)
+
+
+def _tail_params(nf, seed):
+    """HWIO tail params, drawn as tests/test_packed_tail.py draws them."""
+    rng = np.random.default_rng(seed)
+
+    def conv(ci, co):
+        return (
+            rng.normal(0, 0.1, (3, 3, ci, co)).astype(np.float32),
+            rng.normal(0, 0.05, (co,)).astype(np.float32),
+        )
+
+    (tw, tb), (u0, c0), (u1, c1), (hw, hb), (lw, lb) = (
+        conv(nf, nf), conv(nf, nf), conv(nf, nf), conv(nf, nf), conv(nf, 3)
+    )
+    return {
+        "trunk": {"w": tw, "b": tb},
+        "up": {"w": np.stack([u0, u1]), "b": np.stack([c0, c1])},
+        "hr": {"w": hw, "b": hb},
+        "last": {"w": lw, "b": lb},
+    }
+
+
+def _inputs(nf, shape, seed):
+    rng = np.random.default_rng(seed)
+    fea = rng.normal(0, 1, (*shape, nf)).astype(np.float32)
+    body = rng.normal(0, 1, (*shape, nf)).astype(np.float32)
+    return fea, body
+
+
+def _jax_tail(params, fea, body, nf, od=jnp.float32, kernel=0):
+    """JAX's packed tail (PACKED_TAIL on; conftest restores the flags),
+    its kernels in interpret mode."""
+    spec = R.RRDBNetSpec(num_rrdb=1, nf=nf, gc=nf // 2)
+    R.PACKED_TAIL, R.PACKED_TAIL_KERNEL = True, kernel
+    origs = (JTK.hr_last_packed, JTK.up2_hr_last_packed)
+    JTK.hr_last_packed = functools.partial(origs[0], interpret=True)
+    JTK.up2_hr_last_packed = functools.partial(origs[1], interpret=True)
+    try:
+        return np.asarray(R._pallas_tail(
+            params, jnp.asarray(fea), jnp.asarray(body), spec, jnp.float32,
+            jnp.dtype(od), None if od == jnp.float32 else od,
+        ))
+    finally:
+        JTK.hr_last_packed, JTK.up2_hr_last_packed = origs
+
+
+def _port_tail(params_hwio, fea, body, nf, tail, od=torch.float32):
+    spec = TR.RRDBNetSpec(num_rrdb=1, nf=nf, gc=nf // 2)
+    p = TR.params_from_jax(params_hwio)
+    if tail in ("kernel_hr", "kernel"):
+        p["tail"] = TK.pack_tail_params(p, od)
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)  # noqa: E731
+    return TR._tail(p, nchw(fea), nchw(body), spec, torch.float32, od, tail).numpy()
+
+
+def test_phase_split_and_packed_weights_bit_equal_jax():
+    params = _tail_params(64, seed=40)
+    p = TR.params_from_jax(params)
+    w = params["up"]["w"][1]
+    kj, kt = R._phase_split(jnp.asarray(w)), TR._phase_split(w)
+    for a in (0, 1):
+        for b in (0, 1):
+            np.testing.assert_array_equal(kt[a][b], np.asarray(kj[a][b]))
+    # JAX's up2 packing (rrdbnet.py _packed_tail, kernel mode 2)
+    w2_jax = jnp.stack([
+        jnp.transpose(
+            jnp.stack([kj[c][d][s, t] for s in (0, 1) for t in (0, 1)]), (2, 0, 1)
+        ).reshape(64, 256)
+        for c in (0, 1)
+        for d in (0, 1)
+    ])
+    w2, b2 = TK.up2_weights(p["up"]["w"][1], p["up"]["b"][1])
+    np.testing.assert_array_equal(w2, np.asarray(w2_jax))
+    np.testing.assert_array_equal(b2, params["up"]["b"][1].reshape(64, 1))
+    want = JTK.pack_tail_weights(
+        params["hr"]["w"], params["hr"]["b"], params["last"]["w"], params["last"]["b"],
+        dtype=np.float32,
+    )
+    got = TK.pack_tail_weights(p["hr"]["w"], p["hr"]["b"], p["last"]["w"], p["last"]["b"])
+    for g, wnt in zip(got, want):
+        assert g.shape == wnt.shape
+        np.testing.assert_array_equal(g, np.asarray(wnt))
+
+
+def test_fragment_order_round_trips():
+    """The kernel's operands unpack to the JAX matrices (bf16-rounded)."""
+    params = _tail_params(64, seed=41)
+    p = TR.params_from_jax(params)
+    tp = TK.pack_tail_params(p, torch.bfloat16)
+    w2, w1, w9 = TK._dense(tp)
+    w2_np, _ = TK.up2_weights(p["up"]["w"][1], p["up"]["b"][1])
+    w1_np, _, w9_np, b3 = TK.pack_tail_weights(
+        p["hr"]["w"], p["hr"]["b"], p["last"]["w"], p["last"]["b"]
+    )
+    bf = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)  # noqa: E731
+    assert torch.equal(w2, bf(np.transpose(w2_np, (0, 2, 1))))
+    assert torch.equal(w1, bf(w1_np.T))
+    assert torch.equal(w9, bf(w9_np.reshape(9, 8, 64).transpose(0, 2, 1).reshape(576, 8)))
+    assert tp["b3"].tolist() == b3.ravel().tolist()
+
+
+@pytest.mark.parametrize("H,W", [(7, 9), (8, 8), (5, 12)])
+def test_packed_tail_matches_jax_f32(H, W):
+    params = _tail_params(16, seed=1)
+    fea, body = _inputs(16, (2, H, W), seed=2)
+    want = _jax_tail(params, fea, body, 16)
+    got = _port_tail(params, fea, body, 16, "packed")
+    assert got.shape == want.shape == (2, 4 * H, 4 * W, 3)
+    # same taps, float32 sums in another order
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+def test_packed_tail_matches_jax_mixed():
+    """Mixed mode: both round the same operands; sums in another order can
+    round a bf16 operand one ulp apart, so the limit is relative, and the
+    error against float32 must be JAX's own size (tests/test_torch_model.py
+    rule)."""
+    params = _tail_params(16, seed=3)
+    fea, body = _inputs(16, (1, 6, 11), seed=4)
+    want = _jax_tail(params, fea, body, 16, jnp.bfloat16)
+    exact = _jax_tail(params, fea, body, 16)
+    got = _port_tail(params, fea, body, 16, "packed", torch.bfloat16)
+    assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))  # noqa: E731
+    assert 0.8 <= rms(got - exact) / rms(want - exact) <= 1.25
+
+
+@pytest.mark.parametrize("H,W", [(7, 9), (12, 12)])
+@pytest.mark.parametrize("tail,kernel", [("kernel", 2), ("kernel_hr", 1)])
+def test_kernel_plain_versions_match_jax_kernels(tail, kernel, H, W):
+    """K6 (up2_hr_last_packed) and K7 (hr_last_packed) on CPU tensors take
+    their plain versions; held to JAX's Pallas kernels in interpret mode,
+    float32, nf = 64. CPU calls launch nothing."""
+    params = _tail_params(64, seed=15)
+    fea, body = _inputs(64, (2, H, W), seed=16)
+    want = _jax_tail(params, fea, body, 64, kernel=kernel)
+    launches = dict(TK.LAUNCHES)
+    got = _port_tail(params, fea, body, 64, tail)
+    assert TK.LAUNCHES == launches
+    assert got.shape == want.shape == (2, 4 * H, 4 * W, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("tail", ["packed", "kernel_hr", "kernel"])
+def test_packed_and_interleaved_tails_agree_f32(tail):
+    """Every packed form reproduces the interleaved tail's taps and zero
+    borders; only the order of the float32 sums differs. A border-only
+    input probes the zero padding."""
+    params = _tail_params(64, seed=5)
+    fea, body = _inputs(64, (1, 6, 7), seed=6)
+    fea[:, 1:-1, 1:-1] = 0.0
+    for f, b in ((fea, body), _inputs(64, (2, 5, 9), seed=7)):
+        want = _port_tail(params, f, b, 64, "interleaved")
+        np.testing.assert_allclose(_port_tail(params, f, b, 64, tail), want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("raw", ["0", "1", "2", "3", "4", "5", "off", ""])
+def test_packed_tail_env_parsed_as_jax(raw, tiny_model_dir, monkeypatch):
+    from realsr_tpu.engine import EngineConfig as JaxConfig
+    from realsr_tpu.engine import RealSR as JaxRealSR
+
+    monkeypatch.setenv("REALSR_TPU_PACKED_TAIL", raw)
+    e = JaxRealSR(gpuid=-1, config=JaxConfig(tilesize=32, compilation_cache=False))
+    e.load(os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
+    level = (1 + R.PACKED_TAIL_KERNEL) if R.PACKED_TAIL else 0
+    mode = packed_tail_env()
+    assert (mode or "interleaved") == TR.TAIL_MODES[level]
+    assert (mode is None) == (raw == "")
+
+
+@pytest.fixture(scope="module")
+def nf64_model(tmp_path_factory):
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    d = tmp_path_factory.mktemp("nf64") / "models-DF2K"
+    return make_model_dir(str(d), TR.RRDBNetSpec(num_rrdb=1, nf=64, gc=32), seed=2)
+
+
+@pytest.mark.parametrize("tail", ["kernel_hr", "kernel"])
+def test_explicit_kernel_tail_raises_without_an_instance(tail, nf64_model, tiny_model_dir):
+    with pytest.raises(NotImplementedError, match="bfloat16 operands only"):
+        load_model(*nf64_model, torch.float32, torch.float32, tail=tail)
+    tiny = (os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
+    with pytest.raises(ValueError, match="nf=64"):
+        load_model(*tiny, torch.float32, torch.bfloat16, tail=tail)
+    e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="float32", tail=tail))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        e.load(*nf64_model)
+
+
+def test_auto_tail(nf64_model, monkeypatch):
+    """'auto' is the interleaved tail on the CPU; the loader's 'auto' is the
+    kernel where it has an instance; the environment overrides 'auto'."""
+    monkeypatch.delenv("REALSR_TPU_PACKED_TAIL", raising=False)
+    e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="mixed"))
+    e.load(*nf64_model)
+    assert e.tail == "interleaved"
+    assert load_model(*nf64_model, torch.float32, torch.bfloat16, tail="auto").tail == "kernel"
+    assert load_model(*nf64_model, torch.float32, torch.float32, tail="auto").tail == "interleaved"
+    monkeypatch.setenv("REALSR_TPU_PACKED_TAIL", "2")
+    e.load(*nf64_model)
+    assert e.tail == "kernel_hr" and "tail" in e._params
+
+
+def test_engine_kernel_tail_matches_interleaved_mixed(nf64_model):
+    """A mixed CPU engine on the K6 tail (its plain version) against the
+    interleaved one: the packed form rounds tap sums, the interleaved form
+    each tap, so the two are held by PSNR, not u8 equality."""
+    img = np.random.default_rng(3).integers(0, 256, (21, 26, 3), np.uint8)
+    outs = {}
+    for tail in ("interleaved", "kernel", "packed"):
+        e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="mixed", tail=tail))
+        e.load(*nf64_model)
+        outs[tail] = e.process(img).astype(np.float64)
+    assert outs["kernel"].shape == (84, 104, 3)
+    for tail in ("kernel", "packed"):
+        mse = np.mean((outs[tail] - outs["interleaved"]) ** 2)
+        assert mse == 0 or 10 * np.log10(255.0**2 / mse) >= 40.0
