@@ -4,7 +4,9 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
 2. build: the fused RDB and tail kernels from ``realsr_tpu_torch/csrc``, one
-   nvcc for each source, started together;
+   nvcc for each source, started together (the RDB source holds every form
+   of the RDB kernel, K1-K5), with each RDB kernel's registers and spills
+   from ``-Xptxas -v``;
 3. the RDB kernel against its plain PyTorch version at the main path's shape
    (8 tiles of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): one RDB
    in mixed and float32 mode, and the 69-RDB trunk with the RRDB residual,
@@ -12,25 +14,41 @@ Phases (each prints its lines; any failure exits non-zero):
 3b. the tail kernels K6 (up2 + HRconv + conv_last) and K7 (HRconv +
    conv_last) against their plain versions at the same shape and at a
    ragged 2 x 37 x 21, with CUDA-event times;
+3c. the trunk's alternative modes' kernels at the phase-3 shape, mixed:
+   K5 (the K-packed schedule) and K4 (the paired bf16 carry) for one RDB
+   against their plain versions, K4's 69-RDB trunk against the plain paired
+   trunk, K3 (the chained layout) for one RDB against its plain version and
+   its 69-RDB trunk bit-equal to the K1 trunk; CUDA-event times of each,
+   of its plain version and of K1 at the same shape;
 4. the main path: ``realsr_tpu_torch.cli.main`` on three images with the
    committed DF2K graph (23 RRDB, nf = 64, gc = 32) and synthesized weights,
    checking the outputs and that the trunk and the tail ran on the kernels
    (69 RDB launches and one tail launch per chunk); then the CLI with the
    K7 tail (REALSR_TPU_PACKED_TAIL=2) and with TTA (``-x``) on one image;
+   then once per trunk mode on one image (chained and paired through the
+   module flags ``models.rrdbnet.CHAINED_TRUNK`` / ``PAIRED_CARRY``, packed
+   through ``REALSR_TPU_SCHED=packed``), with 69 launches of the mode's
+   kernel per chunk and none of K1's;
 5. numerics: mixed engines (kernel trunk with the default and the K6 tail,
-   TTA) against float32 plain by PSNR, held to the plain mixed path's PSNR,
-   on uniform noise and on an image with a natural 1/f spectrum; the float32
+   TTA, and the chained, paired and packed trunks) against float32 plain by
+   PSNR, held to the plain mixed path's PSNR, on uniform noise and on an
+   image with a natural 1/f spectrum; the float32
    kernel against float32 plain by identical u8 pixels; a mixed engine's
    output bit-equal before and after a float32 engine ran in the process;
 6. steady state: device-resident ``RealSR.process_device`` on one 1024 x 768
-   image for each tail form and engine mode, TTA on a smaller one, and the
-   device time of one profiled image by kernel group.
+   image for each tail form, trunk mode and engine mode, TTA on a smaller
+   one, and the device time of one profiled image by kernel group.
 
 The engines set TF32 for each chunk from their operand type (off for
 float32); the plain versions here run with TF32 off, except where a line
 says that it times them as a mixed engine runs them.
 
-The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
+The line before the card's line lists every kernel with its launches on
+the main path, its error against its plain version, its time, its plain
+version's and its bound on this card (``bound_ms``: the larger of the
+operations over the data sheet's dense bf16 peak and the bytes over its
+memory rate). The last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -70,6 +88,50 @@ SAME_MIN = 0.999  # float32 kernel vs float32 plain: share of equal u8 values
 STEADY_HW = (768, 1024)  # phase 6 image
 TAILS = ("interleaved", "packed", "kernel_hr", "kernel")  # models.rrdbnet.TAIL_MODES
 TAIL_SHAPES = ((B, SIDE, SIDE), (2, 37, 21))  # phase 3b: the main path's, and ragged
+# the trunk's alternative modes: engine config, the rrdbnet module flag or
+# REALSR_TPU_SCHED value that selects it through the CLI, its launch count
+MODES = {
+    "chained": (dict(trunk="chained"), "CHAINED_TRUNK", None, "rdb_apply_chained"),
+    "paired": (dict(trunk="paired"), "PAIRED_CARRY", None, "rdb_apply_paired"),
+    "packed": (dict(sched="packed"), None, "packed", "rdb_apply_packed"),
+}
+# NVIDIA's data sheet for the H100 SXM at 700 W: dense bf16 and HBM rates
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+RDB_MACS_PER_PX = 9 * sum((NF + i * GC) * (GC if i < 4 else NF) for i in range(5))
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(macs: float, moved: int) -> tuple:
+    """(ms, what bounds it): the least time the card could take for
+    ``macs`` bf16 multiply-adds moving ``moved`` bytes."""
+    t_ops, t_mem = 2 * macs / PEAK_BF16_FLOPS, moved / PEAK_BYTES
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def ptxas_rows(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) per entry
+    function of an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    forms = {"0": "K1", "1": "K3", "2": "K4", "3": "K5"}
+    rows = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        m = re.search(r"tc10rdb_kernelILi(\d)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        if m:
+            label = f"{forms[m.group(1)]} {'f32' if m.group(2) == 'f' else 'bf16'} state {m.group(3)}/{m.group(4)}"
+        elif "fp3210rdb_kernel" in name:
+            label = "K1 float32 (CUDA cores)"
+        else:
+            label = name[-40:]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        rows.append((label, int(regs.group(1)) if regs else -1,
+                     *(int(v) for v in (spill.groups() if spill else (-1, -1)))))
+    return rows
 
 
 def fail(msg: str) -> None:
@@ -141,7 +203,7 @@ def tail_check(tk, name, x, tp_bf16, tp_f32, timed):
 def chunk_counts(engine, images: dict) -> tuple:
     """(chunks, forward batches) an engine's CLI run takes on ``images``:
     with TTA a chunk of non-square tiles runs two forwards."""
-    from realsr_tpu.tiling.planner import plan_tiles
+    from realsr_tpu_torch.tiling.planner import plan_tiles
 
     chunks = batches = 0
     for img in images.values():
@@ -154,21 +216,28 @@ def chunk_counts(engine, images: dict) -> tuple:
     return chunks, batches
 
 
-def run_cli(cli, rk, tk, args, env=None):
+def run_cli(cli, rk, tk, args, env=None, flag=None):
     """cli.main with the launch counts set to 0 just before it and read just
-    after: (wall s, RDB launches, K6 launches, K7 launches)."""
+    after, with ``env`` set and the rrdbnet module flag ``flag`` True during
+    the call: (wall s, {RDB wrapper: launches}, K6 launches, K7 launches)."""
+    from realsr_tpu_torch.models import rrdbnet
+
     old = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
+    if flag:
+        setattr(rrdbnet, flag, True)
     try:
-        rk.LAUNCHES = 0
-        for k in tk.LAUNCHES:
-            tk.LAUNCHES[k] = 0
+        for counts in (rk.LAUNCHES, tk.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
         t0 = time.perf_counter()
         rc = cli.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = (rk.LAUNCHES, tk.LAUNCHES["up2_hr_last_packed"], tk.LAUNCHES["hr_last_packed"])
+        counts = (dict(rk.LAUNCHES), tk.LAUNCHES["up2_hr_last_packed"], tk.LAUNCHES["hr_last_packed"])
     finally:
+        if flag:
+            setattr(rrdbnet, flag, False)
         for k, v in old.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -187,6 +256,19 @@ def plain_trunk(rk, x, stacked):
         pk = {"w": stacked["w"][k], "b": stacked["b"][k]}
         t = rk.rdb_reference(t, pk, x.dtype, pk["w"].dtype, u if k % 3 == 2 else None)
     return t
+
+
+def plain_paired_trunk(rk, x, stacked):
+    """The trunk through the plain paired RDB (rk.rdb_trunk_paired's
+    schedule): hi + lo in float32."""
+    hi, lo = rk._split(x)
+    u = (hi, lo)
+    for k in range(stacked["w"].shape[0]):
+        if k % 3 == 0:
+            u = (hi, lo)
+        pk = {"w": stacked["w"][k], "b": stacked["b"][k]}
+        hi, lo = rk.rdb_paired_reference(hi, lo, pk, u if k % 3 == 2 else None)
+    return hi.float() + lo.float()
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -298,6 +380,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{s} {build.BUILD_SECONDS[s]:.2f} s" for s in sources) + f") {card}",
           flush=True)
+    if build.BUILD_LOG["rdb_kernel"]:
+        rows = ptxas_rows(build.BUILD_LOG["rdb_kernel"])
+        check(all(r[1] > 0 for r in rows), f"ptxas log without register counts: {rows}")
+        print("ptxas rdb_kernel.cu: " + "; ".join(
+            f"{label} {regs} registers, spills {st}/{ld} B" for label, regs, st, ld in rows), flush=True)
 
     dev = torch.device("cuda", 0)
     param = os.path.join(ROOT, "models", "models-DF2K", "x4.param")
@@ -306,8 +393,8 @@ def main() -> int:
         model_dir = os.path.join(work, "models-DF2K")
         os.makedirs(model_dir)
         shutil.copyfile(param, os.path.join(model_dir, "x4.param"))
-        from realsr_tpu.ncnn.bin import write_weights
-        from realsr_tpu.ncnn.param import parse_param_file
+        from realsr_tpu_torch.ncnn.bin import write_weights
+        from realsr_tpu_torch.ncnn.param import parse_param_file
         from realsr_tpu_torch.ncnn.synth import synth_weights
 
         graph = parse_param_file(param)
@@ -359,7 +446,6 @@ def main() -> int:
                   f"plain {pms:.3f} ms (TF32 off) {card}", flush=True)
             results[("trunk", mode)] = (err, ms, pms)
             del stacked, p0, got, want, bundle
-        del x
 
         # -- 3b. tail kernels against plain ------------------------------
         bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
@@ -380,8 +466,101 @@ def main() -> int:
                       f"1e-3), two runs bit-equal{times} {card}", flush=True)
                 if timed:
                     results[(label, "mixed")] = (err, ms, pms)
+                    # the input, the packed tail weights, the [B, 4H, 4W, 3] f32 output
+                    results[(label, "io")] = nbytes(xin, *tp16.values()) + b_ * 16 * h_ * w_ * 3 * 4
                 del xin
         del bundle, tp16, tp32
+        torch.cuda.empty_cache()
+
+        # -- 3c. the trunk modes' kernels against plain, mixed ---------------
+        bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, variant="cuda")
+        stacked = {k: v.to(dev) for k, v in bundle.params["rdb"].items()}
+        bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, variant="cuda",
+                            sched="packed")
+        stacked_q = {k: v.to(dev) for k, v in bundle.params["rdb"].items()}
+        p0 = {"w": stacked["w"][0], "b": stacked["b"][0]}
+        q0 = {"w": stacked_q["w"][0], "b": stacked_q["b"][0]}
+        hi, lo = rk._split(x)
+        xc = rk.to_chained(x)
+        flag0 = torch.zeros(1, dtype=torch.int32, device=dev)
+        out_c = torch.zeros_like(xc)
+        tol = RDB_TOL["mixed"]
+        with tf32(False):
+            k1_ms = cuda_ms(lambda: rk.rdb_apply(x, p0), 2, 10)
+            k1_trunk = rk.rdb_trunk(x, stacked)
+            k1_trunk_ms = cuda_ms(lambda: rk.rdb_trunk(x, stacked), 1, 1)
+
+            # K5: one RDB in the K-packed schedule
+            got = rk.rdb_apply_packed(x, q0)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, rk.rdb_packed_reference(x, q0, torch.float32, torch.bfloat16))
+            check(bool(torch.isfinite(got).all()) and rel <= tol,
+                  f"K5 packed RDB: max|kernel-plain| {err} (rel {rel}) > {tol}")
+            check(torch.equal(got, rk.rdb_apply_packed(x, q0)), "K5: two runs differ")
+            ms = cuda_ms(lambda: rk.rdb_apply_packed(x, q0), 2, 10)
+            pms = cuda_ms(lambda: rk.rdb_packed_reference(x, q0, torch.float32, torch.bfloat16), 2, 10)
+            print(f"K5 packed rdb mixed: B={B} {SIDE}x{SIDE}: max_abs_err {err:.3e} (rel {rel:.3e} "
+                  f"<= {tol}), two runs bit-equal; kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 "
+                  f"{k1_ms:.3f} ms (TF32 off) {card}", flush=True)
+            results[("K5", "mixed")] = (err, ms, pms)
+            results[("K5", "io")] = nbytes(x, q0["w"], q0["b"], got)
+
+            # K4: one RDB on hi + lo, then the 69-RDB trunk
+            gh, gl = rk.rdb_apply_paired(hi, lo, p0)
+            torch.cuda.synchronize()
+            wh, wl = rk.rdb_paired_reference(hi, lo, p0)
+            err, rel = rel_err(gh.float() + gl.float(), wh.float() + wl.float())
+            check(bool(torch.isfinite(gh.float() + gl.float()).all()) and rel <= tol,
+                  f"K4 paired RDB: max|kernel-plain| {err} (rel {rel}) > {tol}")
+            ms = cuda_ms(lambda: rk.rdb_apply_paired(hi, lo, p0), 2, 10)
+            pms = cuda_ms(lambda: rk.rdb_paired_reference(hi, lo, p0), 2, 10)
+            print(f"K4 paired rdb: B={B} {SIDE}x{SIDE}, hi + lo bf16: max_abs_err {err:.3e} (rel "
+                  f"{rel:.3e} <= {tol}); kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 {k1_ms:.3f} ms "
+                  f"(TF32 off) {card}", flush=True)
+            results[("K4", "mixed")] = (err, ms, pms)
+            results[("K4", "io")] = nbytes(hi, lo, p0["w"], p0["b"], gh, gl)
+            got = rk.rdb_trunk_paired(x, stacked)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, plain_paired_trunk(rk, x, stacked))
+            e_k1, rel_k1 = rel_err(got, k1_trunk)
+            check(bool(torch.isfinite(got).all()) and rel <= TRUNK_TOL,
+                  f"K4 trunk: relative max diff to the plain paired trunk {rel} > {TRUNK_TOL}")
+            check(torch.equal(got, rk.rdb_trunk_paired(x, stacked)), "K4 trunk: two runs differ")
+            ms = cuda_ms(lambda: rk.rdb_trunk_paired(x, stacked), 1, 1)
+            pms = cuda_ms(lambda: plain_paired_trunk(rk, x, stacked), 1, 1)
+            print(f"K4 paired trunk: 69 RDB: max_abs_err {err:.3e} vs the plain paired trunk (rel "
+                  f"{rel:.3e} <= {TRUNK_TOL}), {e_k1:.3e} vs the K1 trunk (rel {rel_k1:.3e}); "
+                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 trunk {k1_trunk_ms:.3f} ms "
+                  f"(TF32 off) {card}", flush=True)
+
+            # K3: one RDB on the chained layout, then the 69-RDB trunk
+            rk.rdb_apply_chained(xc, p0, xc, flag0, SIDE, SIDE, out_c)
+            torch.cuda.synchronize()
+            want = rk.rdb_chained_reference(xc, p0, xc, flag0, SIDE, SIDE, torch.zeros_like(xc),
+                                            torch.float32, torch.bfloat16)
+            err, rel = rel_err(out_c, want)
+            check(rel <= tol, f"K3 chained RDB: max|kernel-plain| {err} (rel {rel}) > {tol}")
+            check(torch.equal(rk.from_chained(out_c, SIDE, SIDE), rk.rdb_apply(x, p0)),
+                  "K3 chained RDB: image not bit-equal to K1's output")
+            ms = cuda_ms(lambda: rk.rdb_apply_chained(xc, p0, xc, flag0, SIDE, SIDE, out_c), 2, 10)
+            pms = cuda_ms(lambda: rk.rdb_chained_reference(
+                xc, p0, xc, flag0, SIDE, SIDE, out_c, torch.float32, torch.bfloat16), 2, 10)
+            results[("K3", "mixed")] = (err, ms, pms)
+            results[("K3", "io")] = nbytes(x, p0["w"], p0["b"], x)  # the image in, the image out
+            got = rk.rdb_trunk_chained(x, stacked)
+            torch.cuda.synchronize()
+            check(torch.equal(got, k1_trunk), "K3 chained trunk: not bit-equal to the K1 trunk")
+            tms = cuda_ms(lambda: rk.rdb_trunk_chained(x, stacked), 1, 1)
+            print(f"K3 chained rdb: B={B} {SIDE}x{SIDE} in a {tuple(xc.shape[1:3])} layout: "
+                  f"max_abs_err {err:.3e} (rel {rel:.3e} <= {tol}), image bit-equal to K1's; "
+                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 {k1_ms:.3f} ms; 69-RDB chained trunk "
+                  f"bit-equal to the K1 trunk, {tms:.3f} ms vs K1 trunk {k1_trunk_ms:.3f} ms "
+                  f"(TF32 off) {card}", flush=True)
+        results[("K1", "io")] = nbytes(x, p0["w"], p0["b"], x)
+        results[("K2", "io")] = nbytes(x, stacked["w"], stacked["b"], x)
+        n_rdb = stacked["w"].shape[0]
+        del bundle, stacked, stacked_q, p0, q0, hi, lo, gh, gl, wh, wl, xc, out_c, got, want, k1_trunk
+        del x
         torch.cuda.empty_cache()
 
         # -- 4. the main path through the CLI ----------------------------
@@ -404,8 +583,9 @@ def main() -> int:
         # the CLI's engine: the same default config, so the same tile plan
         engine = RealSR(gpuid=0, config=EngineConfig())
         engine.load(mparam, mbin)
-        wall, launches, k6_main, k7 = run_cli(
+        wall, counts, k6_main, k7 = run_cli(
             cli, rk, tk, ["-i", in_dir, "-o", out_dir, "-m", model_dir, "-g", "0"])
+        launches = counts["rdb_apply"]
         chunks, _ = chunk_counts(engine, images)
         out_mp = 0.0
         for fn, img in images.items():
@@ -417,8 +597,8 @@ def main() -> int:
             check(out.shape == (4 * h, 4 * w, c), f"{fn}: output {out.shape}, want {(4 * h, 4 * w, c)}")
             out_mp += 16 * h * w / 1e6
         want_k6 = chunks if engine.tail == "kernel" else 0
-        check(launches == 69 * chunks and chunks > 0,
-              f"rdb_kernel launches {launches} != 69 x {chunks} chunks")
+        check(launches == 69 * chunks and chunks > 0 and sum(counts.values()) == launches,
+              f"rdb_kernel launches {counts} != 69 x {chunks} chunks of K1")
         check(k6_main == want_k6 and k7 == 0,
               f"tail launches K6 {k6_main}, K7 {k7}; want {want_k6} (tail {engine.tail}) and 0")
         print(f"main path: cli.main rc 0, 3 images -> 4x outputs (RGBA kept 4 channels), "
@@ -432,13 +612,15 @@ def main() -> int:
         k6_cli = k6_main
         if engine.tail != "kernel":
             # auto kept the interleaved tail: drive K6 through the CLI too
-            _, launches3, k6_cli, _ = run_cli(
+            _, counts3, k6_cli, _ = run_cli(
                 cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_k6.png"),
                               "-m", model_dir, "-g", "0"], {"REALSR_TPU_PACKED_TAIL": "3"})
-            check(k6_cli == n1 and launches3 == 69 * n1, f"K6 CLI run: {k6_cli} K6 launches != {n1}")
-        _, launches2, k6, k7 = run_cli(
+            check(k6_cli == n1 and counts3["rdb_apply"] == 69 * n1,
+                  f"K6 CLI run: {k6_cli} K6 launches != {n1}")
+        _, counts2, k6, k7 = run_cli(
             cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_k7.png"), "-m", model_dir,
                           "-g", "0"], {"REALSR_TPU_PACKED_TAIL": "2"})
+        launches2 = counts2["rdb_apply"]
         check(k7 == n1 and k6 == 0 and launches2 == 69 * n1,
               f"K7 CLI run: {k7} K7 / {k6} K6 / {launches2} RDB launches for {n1} chunks")
         print(f"main path, REALSR_TPU_PACKED_TAIL=2 (K7 tail): b.png, {n1} chunks, {launches2} "
@@ -447,8 +629,9 @@ def main() -> int:
         tta_engine = RealSR(gpuid=0, tta_mode=True, config=EngineConfig())
         tta_engine.load(mparam, mbin)
         tta_out = os.path.join(out_dir, "b_tta.png")
-        wall, launches_x, k6_x, k7_x = run_cli(
+        wall, counts_x, k6_x, k7_x = run_cli(
             cli, rk, tk, ["-i", one_in, "-o", tta_out, "-m", model_dir, "-g", "0", "-x"])
+        launches_x = counts_x["rdb_apply"]
         chunks_x, batches_x = chunk_counts(tta_engine, one)
         with Image.open(tta_out) as im:
             check(np.asarray(im).shape == (800, 1200, 3), f"-x output {np.asarray(im).shape}")
@@ -458,6 +641,23 @@ def main() -> int:
               f"{chunks_x} chunks, {batches_x} forward batches of 8 or 2 x 4 variants, "
               f"{launches_x} rdb_kernel launches, {k6_x} K6 launches, {wall:.3f} s {card}",
               flush=True)
+
+        # the trunk modes through the CLI, each on one image
+        mode_launches = {}
+        for mode, (_, flag, sched, key) in MODES.items():
+            out_m = os.path.join(out_dir, f"b_{mode}.png")
+            wall, counts_m, k6_m, _ = run_cli(
+                cli, rk, tk, ["-i", one_in, "-o", out_m, "-m", model_dir, "-g", "0"],
+                {"REALSR_TPU_SCHED": sched} if sched else None, flag)
+            with Image.open(out_m) as im:
+                check(np.asarray(im).shape == (800, 1200, 3), f"{mode}: output {np.asarray(im).shape}")
+            check(counts_m[key] == 69 * n1 and sum(counts_m.values()) == counts_m[key]
+                  and k6_m == (n1 if engine.tail == "kernel" else 0),
+                  f"{mode} CLI run: launches {counts_m}, K6 {k6_m}; want 69 x {n1} of {key} only")
+            mode_launches[key] = counts_m[key]
+            print(f"main path, trunk mode {mode} ({flag or f'REALSR_TPU_SCHED={sched}'}): b.png, {n1} "
+                  f"chunks, {counts_m[key]} {key} launches, 0 rdb_apply, {k6_m} K6 launches, "
+                  f"{wall:.3f} s {card}", flush=True)
 
         # -- 5. numerics of the slice ------------------------------------
         # repair check: TF32 belongs to each engine's chunks, so a float32
@@ -491,6 +691,13 @@ def main() -> int:
         tta_plain = RealSR(gpuid=0, tta_mode=True,
                            config=EngineConfig(variant="dense", tail="interleaved"))
         tta_plain.load(mparam, mbin)
+        modes = {}
+        for mode, (cfg, _, _, _) in MODES.items():
+            modes[mode] = RealSR(gpuid=0, config=EngineConfig(**cfg))
+            modes[mode].load(mparam, mbin)
+            check((modes[mode].trunk, modes[mode].sched) == (cfg.get("trunk", "per_rdb"),
+                                                              cfg.get("sched", "scatter")),
+                  f"{mode} engine runs trunk {modes[mode].trunk}, sched {modes[mode].sched}")
         check(engine.variant == "cuda" and kern32.variant == "cuda", "engine did not pick the kernel")
         check(kern32.tail == "interleaved", f"float32 engine tail {kern32.tail}")
         for label, img in (("1/f", images["a.png"]), ("noise", noise)):
@@ -503,6 +710,8 @@ def main() -> int:
             dbs = {"default": (psnr(engine.process(img), ref), db_plain),
                    "K6 tail": (psnr(k6_engine.process(img), ref), db_plain),
                    "TTA": (psnr(tta_engine.process(img), ref_tta), db_tta_plain)}
+            for mode, eng in modes.items():
+                dbs[f"{mode} trunk"] = (psnr(eng.process(img), ref), db_plain)
             for what, (db, db_ref) in dbs.items():
                 check(db >= db_ref - PSNR_SLACK,
                       f"{label}: mixed {what} vs float32 {db:.2f} dB, below the plain mixed "
@@ -527,12 +736,16 @@ def main() -> int:
             tails[t] = engine if t == engine.tail else RealSR(gpuid=0, config=EngineConfig(tail=t))
             if tails[t] is not engine:
                 tails[t].load(mparam, mbin)
-        # the tail forms in turns, forward then backward; median of all runs
-        runs: dict = {t: [] for t in TAILS}
-        for order in (TAILS, TAILS[::-1]):
+        # the tail forms and the trunk modes in turns, forward then
+        # backward; median of all runs
+        steady = {**tails, **{f"{m} trunk": e for m, e in modes.items()}}
+        runs: dict = {t: [] for t in steady}
+        for order in (list(steady), list(steady)[::-1]):
             for t in order:
-                runs[t].append(steady_s(tails[t], big))
+                runs[t].append(steady_s(steady[t], big))
         rows = [(f"mixed, kernel trunk, {t} tail", float(np.median(runs[t]))) for t in TAILS]
+        rows += [(f"mixed, {m} trunk mode ({modes[m].trunk}, {modes[m].sched}), "
+                  f"{modes[m].tail} tail", float(np.median(runs[f"{m} trunk"]))) for m in modes]
         for label, eng in (("mixed, plain trunk and interleaved tail", plain_mixed),
                            ("float32, kernel trunk", kern32), ("float32, plain", plain32)):
             rows.append((label, steady_s(eng, big)))
@@ -548,12 +761,12 @@ def main() -> int:
               f"{big_mp / s_int:.3f} output MP/s, {'K6' if s_k6 < s_int else 'interleaved'} faster "
               f"{card}", flush=True)
         ref = plain32.process(big)
-        dbs = {t: psnr(tails[t].process(big), ref) for t in TAILS}
+        dbs = {t: psnr(steady[t].process(big), ref) for t in steady}
         db_plain = psnr(plain_mixed.process(big), ref)
         for t, db in dbs.items():
             check(db >= db_plain - PSNR_SLACK,
-                  f"steady image, {t} tail: {db:.2f} dB vs float32, plain mixed {db_plain:.2f} dB")
-        print(f"steady numerics: vs float32 plain, mixed kernel trunk with tail "
+                  f"steady image, {t}: {db:.2f} dB vs float32, plain mixed {db_plain:.2f} dB")
+        print(f"steady numerics: vs float32 plain, mixed kernel trunk with tail (or trunk mode) "
               + ", ".join(f"{t} {db:.2f} dB" for t, db in dbs.items())
               + f"; mixed plain {db_plain:.2f} dB", flush=True)
         for t in dict.fromkeys(("kernel", "interleaved")):
@@ -571,21 +784,39 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # every kernel of the repo's TPU kernels' counterparts, with its launches
+    # on the main path (K1/K2: the default CLI run; K6: K6's; K7: the
+    # REALSR_TPU_PACKED_TAIL=2 run; K3-K5: their modes' runs) and its bound
+    rdb_macs = RDB_MACS_PER_PX * B * SIDE * SIDE
+    tail_px = B * 16 * SIDE * SIDE
     kernels = []
-    for key, kname, src, replaces, n in (
-        ("rdb", "rdb_kernel", "rdb_kernel.cu", "realsr_tpu/ops/rdb_kernel.py:263", launches),
-        ("trunk", "rdb_kernel (69-RDB trunk)", "rdb_kernel.cu", "realsr_tpu/ops/rdb_kernel.py:758",
-         launches),
-        ("K6", "tail_kernel (up2_hr_last_packed)", "tail_kernel.cu",
-         "realsr_tpu/ops/tail_kernel.py:103", k6_cli),
-        ("K7", "tail_kernel (hr_last_packed)", "tail_kernel.cu",
-         "realsr_tpu/ops/tail_kernel.py:329", k7),
+    for key, kname, replaces, n, macs in (
+        ("K1", "rdb_kernel (tc::rdb_kernel<kScatter>, one RDB)", "realsr_tpu/ops/rdb_kernel.py:263",
+         launches, rdb_macs),
+        ("K2", "rdb_kernel (69-RDB trunk: rdb_trunk)", "realsr_tpu/ops/rdb_kernel.py:758",
+         launches, n_rdb * rdb_macs),
+        ("K3", "rdb_kernel (tc::rdb_kernel<kChained>: rdb_apply_chained)",
+         "realsr_tpu/ops/rdb_kernel.py:675", mode_launches["rdb_apply_chained"], rdb_macs),
+        ("K4", "rdb_kernel (tc::rdb_kernel<kPaired>: rdb_apply_paired)",
+         "realsr_tpu/ops/rdb_kernel.py:595", mode_launches["rdb_apply_paired"], rdb_macs),
+        ("K5", "rdb_kernel (tc::rdb_kernel<kPacked>: rdb_apply_packed)",
+         "realsr_tpu/ops/rdb_kernel.py:216", mode_launches["rdb_apply_packed"], rdb_macs),
+        ("K6", "tail_kernel (up2_hr_last_packed)", "realsr_tpu/ops/tail_kernel.py:103", k6_cli,
+         tail_px * (13 * NF * NF + 9 * NF * 3)),
+        ("K7", "tail_kernel (hr_last_packed)", "realsr_tpu/ops/tail_kernel.py:329", k7,
+         tail_px * (9 * NF * NF + 9 * NF * 3)),
     ):
-        err, ms, pms = results[(key, "mixed")]
+        err, ms, pms = results[(("rdb", "mixed") if key == "K1" else ("trunk", "mixed")
+                                if key == "K2" else (key, "mixed"))]
+        b_ms, b_by = bound(macs, results[(key, "io")])
+        src = "tail_kernel.cu" if key in ("K6", "K7") else "rdb_kernel.cu"
         kernels.append({
-            "name": kname, "route": "cuda", "source": f"realsr_tpu_torch/csrc/{src}",
+            "name": f"{key} {kname}", "route": "cuda", "source": f"realsr_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "checked_against_plain": True,  # phases 3-3c fail on any disagreement
         })
+        check(n > 0, f"{key}: no launch on the main path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Command-line interface of the PyTorch port, with the reference's flags.
 
 Counterpart of ``realsr_tpu/cli.py`` (src/main.cpp:101-115 usage, 441-525
-getopt loop, 527-672 validation and file lists), ending in the same
-``realsr_tpu.pipeline.run_pipeline``. Flags:
+getopt loop, 527-672 validation and file lists), ending in the port's
+``pipeline.run_pipeline``. Flags:
 
     -i input-path   -o output-path   -s scale (4)
     -t tile-size    -m model-path    -g gpu-id (-1=cpu, comma list)
@@ -22,15 +22,60 @@ from __future__ import annotations
 import getopt
 import os
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
-from realsr_tpu.cli import _atoi, parse_int_array, parse_jobs, print_usage
-from realsr_tpu.utils.fsutils import (
+from realsr_tpu_torch.utils.fsutils import (
     get_file_extension,
     get_file_name_without_extension,
     list_directory,
     path_is_directory,
 )
+
+
+def print_usage(file=None) -> None:
+    # flag-for-flag the reference usage text (main.cpp:101-115), with the
+    # binary name of this framework.
+    file = file or sys.stderr
+    print("Usage: realsr-tpu -i infile -o outfile [options]...\n", file=file)
+    print("  -h                   show this help", file=file)
+    print("  -v                   verbose output", file=file)
+    print("  -i input-path        input image path (jpg/png/webp) or directory", file=file)
+    print("  -o output-path       output image path (jpg/png/webp) or directory", file=file)
+    print("  -s scale             upscale ratio (4, default=4)", file=file)
+    print("  -t tile-size         tile size (>=32/0=auto, default=0) can be 0,0,0 for multi-gpu", file=file)
+    print("  -m model-path        realsr model path (default=models-DF2K_JPEG)", file=file)
+    print("  -g gpu-id            gpu device to use (-1=cpu, default=auto) can be 0,1,2 for multi-gpu", file=file)
+    print("  -j load:proc:save    thread count for load/proc/save (default=1:2:2) can be 1:2,2,2:2 for multi-gpu", file=file)
+    print("  -x                   enable tta mode", file=file)
+    print("  -f format            output image format (jpg/png/webp, default=ext/png)", file=file)
+
+
+def _atoi(s: str) -> int:
+    """C atoi: parse a leading integer, 0 if none."""
+    s = s.strip()
+    i = 0
+    if i < len(s) and s[i] in "+-":
+        i += 1
+    j = i
+    while j < len(s) and s[j].isdigit():
+        j += 1
+    if j == i:
+        return 0
+    return int(s[: j])
+
+
+def parse_int_array(s: str) -> List[int]:
+    """Reference parse_optarg_int_array (main.cpp:75-89): atoi per comma."""
+    return [_atoi(tok) for tok in s.split(",")]
+
+
+def parse_jobs(s: str) -> Tuple[int, List[int], int]:
+    """Parse ``load:proc[,proc...]:save`` (main.cpp:507-508 sscanf)."""
+    parts = s.split(":")
+    jobs_load = _atoi(parts[0]) if parts else 1
+    jobs_save = _atoi(parts[-1]) if len(parts) >= 3 else 2
+    jobs_proc = parse_int_array(parts[1]) if len(parts) >= 2 else []
+    return jobs_load, jobs_proc, jobs_save
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -174,7 +219,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     import torch
 
-    from realsr_tpu.pipeline import run_pipeline
+    from realsr_tpu_torch.pipeline import run_pipeline
     from realsr_tpu_torch.engine import EngineConfig, RealSR
 
     n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0

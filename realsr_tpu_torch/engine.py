@@ -27,10 +27,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from realsr_tpu.tiling.planner import auto_tilesize, plan_tiles
-from realsr_tpu.utils.trace import tracer
+from realsr_tpu_torch.tiling.planner import auto_tilesize, plan_tiles
+from realsr_tpu_torch.utils.trace import tracer
 from realsr_tpu_torch.loader import ModelBundle, load_model
-from realsr_tpu_torch.models.rrdbnet import TAIL_MODES, tf32
+from realsr_tpu_torch.models import rrdbnet as R
+from realsr_tpu_torch.models.rrdbnet import SCHEDS, TAIL_MODES, tf32
 from realsr_tpu_torch.ops.pad import reflect101_pad2d
 from realsr_tpu_torch.ops.resize import resize_bicubic
 from realsr_tpu_torch.ops.tta import NUM_TRANSFORMS, d4_inverse, d4_transform
@@ -53,12 +54,21 @@ class EngineConfig:
     # tail kernel on a GPU where the kernel has an instance (bf16 operands,
     # nf 64, 3 outputs) and "interleaved" elsewhere.
     tail: str = "auto"
+    # the kernel trunk's form (variant "cuda"): "auto" | "per_rdb" |
+    # "chained" (K3) | "paired" (K4, mixed mode). "auto" reads the module
+    # flags models.rrdbnet.CHAINED_TRUNK and PAIRED_CARRY at load, as the
+    # JAX package does: chained if set, else paired if set and the precision
+    # is mixed, else per_rdb.
+    trunk: str = "auto"
+    # the per-RDB kernel's schedule: "scatter" (K1) | "packed" (K5).
+    # REALSR_TPU_SCHED overrides it on the kernel trunk (sched_env).
+    sched: str = "scatter"
 
 
 @dataclasses.dataclass(frozen=True)
 class Device:
     """Where an engine runs: ``platform`` is "gpu" or "cpu" (what
-    ``realsr_tpu.pipeline`` reads); ``torch_device`` is the real device."""
+    ``realsr_tpu_torch.pipeline`` reads); ``torch_device`` is the real device."""
 
     platform: str
     torch_device: torch.device
@@ -91,6 +101,27 @@ def packed_tail_env() -> Optional[str]:
     if not raw:
         return None
     return TAIL_MODES[min(int(raw), 3) if raw.isdigit() else 0]
+
+
+def sched_env() -> Optional[str]:
+    """``REALSR_TPU_SCHED`` parsed as the JAX engine parses it: only the
+    exact strings "scatter" and "packed" count; anything else is None."""
+    raw = os.environ.get("REALSR_TPU_SCHED", "")
+    return raw if raw in SCHEDS else None
+
+
+def _resolve_trunk(config: EngineConfig, variant: str, dtype, op_dtype) -> tuple:
+    """(trunk, sched) for the forward. On the kernel trunk, "auto" reads
+    the module flags and ``REALSR_TPU_SCHED`` overrides ``config.sched``; on
+    plain convs, where the JAX package's flags and SCHED have no effect,
+    "auto" is per_rdb and the environment is not read."""
+    trunk, sched = config.trunk, config.sched
+    if variant != "cuda":
+        return ("per_rdb" if trunk == "auto" else trunk), sched
+    if trunk == "auto":
+        mixed = (dtype, op_dtype) == (torch.float32, torch.bfloat16)
+        trunk = "chained" if R.CHAINED_TRUNK else "paired" if R.PAIRED_CARRY and mixed else "per_rdb"
+    return trunk, sched_env() or sched
 
 
 def _auto_batch(
@@ -176,7 +207,9 @@ class RealSR:
     def load(self, parampath: str, modelpath: str) -> int:
         """Parse and load the model files onto the device. Returns 0 like
         the reference (src/realsr.cpp:142). An explicit kernel tail that
-        the graph or the operand type has no kernel for raises."""
+        the graph or the operand type has no kernel for raises, as does a
+        trunk form the variant or precision cannot run (``ValueError``) or
+        has no instance for on the card (``NotImplementedError``)."""
         dtype, op_dtype = _resolve_precision(self.config.storage, self.device)
         variant = self.config.variant
         if variant == "auto":
@@ -186,15 +219,25 @@ class RealSR:
                 "the fused RDB kernel has no float16 instance (ROADMAP queue 2); "
                 "pass variant='dense' to run float16 on plain convs"
             )
+        trunk, sched = _resolve_trunk(self.config, variant, dtype, op_dtype)
         tail = self.config.tail
         if tail == "auto":
             tail = packed_tail_env() or ("auto" if self.device.platform == "gpu" else "interleaved")
         self.storage_dtype, self.op_dtype, self.variant = dtype, op_dtype, variant
         self.bundle = load_model(
             parampath, modelpath, storage_dtype=dtype, op_dtype=op_dtype,
-            variant=variant, tail=tail,
+            variant=variant, tail=tail, trunk=trunk, sched=sched,
         )
-        self.tail = self.bundle.tail
+        self.tail, self.trunk, self.sched = self.bundle.tail, trunk, sched
+        if (
+            self.device.platform == "gpu"
+            and (trunk, sched) != ("per_rdb", "scatter")
+            and op_dtype != torch.bfloat16
+        ):
+            raise NotImplementedError(
+                f"trunk={trunk!r}, sched={sched!r} run on kernels with bfloat16 operands "
+                f"only, not {op_dtype} (ROADMAP queue 2: float32 instances of the RDB kernels)"
+            )
         self.scale = self.bundle.scale
         self._params = _to_device(self.bundle.params, self.device.torch_device)
         return 0

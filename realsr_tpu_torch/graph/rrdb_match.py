@@ -1,7 +1,7 @@
 """Structural matcher: recognize the RRDBNet idiom in a parsed ncnn graph.
 
 Counterpart of ``realsr_tpu/graph/rrdb_match.py`` with this package's spec
-and OIHW weights (what ``realsr_tpu.ncnn.bin.load_weights`` returns, and
+and OIHW weights (what ``realsr_tpu_torch.ncnn.bin.load_weights`` returns, and
 torch's own layout), so it imports no JAX.
 
 ncnn serializes the network as 999 layers (models/models-DF2K/x4.param:2)
@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from realsr_tpu_torch.models.rrdbnet import LRELU_SLOPE, RESIDUAL_SCALE, RRDBNetSpec
-from realsr_tpu.ncnn.param import Layer, ParamGraph
+from realsr_tpu_torch.ncnn.param import Layer, ParamGraph
 
 
 @dataclasses.dataclass
@@ -311,7 +311,7 @@ def extract_stacked_params(
 ) -> Dict[str, Any]:
     """Assemble the stacked OIHW parameter tree for rrdbnet_forward.
 
-    ``weights`` is :func:`realsr_tpu.ncnn.bin.load_weights`' OIHW dict.
+    ``weights`` is :func:`realsr_tpu_torch.ncnn.bin.load_weights`' OIHW dict.
     """
 
     def wb(name: str):

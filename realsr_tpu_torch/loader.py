@@ -13,14 +13,15 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from realsr_tpu.ncnn.bin import load_weights
-from realsr_tpu.ncnn.param import ParamGraph, parse_param_file
+from realsr_tpu_torch.ncnn.bin import load_weights
+from realsr_tpu_torch.ncnn.param import ParamGraph, parse_param_file
 from realsr_tpu_torch.graph.rrdb_match import extract_stacked_params, match_rrdbnet
 from realsr_tpu_torch.models.rrdbnet import (
     TAIL_MODES,
     RRDBNetSpec,
     repack_scatter,
     rrdbnet_forward,
+    trunk_mode_error,
 )
 
 # the tail forms that run on the fused tail kernel (ops/tail_kernel.py)
@@ -63,6 +64,8 @@ def load_model(
     op_dtype=None,
     variant: str = "dense",
     tail: str = "interleaved",
+    trunk: str = "per_rdb",
+    sched: str = "scatter",
 ) -> ModelBundle:
     """``variant``: 'dense' (the graph's concat-input convs), 'scatter'
     (weights regrouped by source, the same math) or 'cuda' (the trunk on the
@@ -73,7 +76,10 @@ def load_model(
     instance for the graph and ``op_dtype`` and 'interleaved' elsewhere.
     For the kernel tails the tail weights are packed here, once, into
     ``params["tail"]``; an explicit kernel tail that the graph or operand
-    type has no instance for raises."""
+    type has no instance for raises. ``trunk`` and ``sched``: the kernel
+    trunk's form (``models.rrdbnet.TRUNK_MODES``, ``SCHEDS``); the weights
+    are packed for ``sched``, and a combination the JAX package cannot run
+    raises ``ValueError``."""
     graph = parse_param_file(param_path)
     match = match_rrdbnet(graph)
     if match is None:
@@ -83,6 +89,9 @@ def load_model(
             "port does not have yet (ROADMAP queue 1)"
         )
     op_dtype = op_dtype if op_dtype is not None else storage_dtype
+    err = trunk_mode_error(variant, trunk, sched, storage_dtype, op_dtype)
+    if err:
+        raise ValueError(err)
     spec = match.spec
     err = kernel_tail_error(spec, op_dtype)
     if tail == "auto":
@@ -97,7 +106,7 @@ def load_model(
     elif variant == "cuda":
         from realsr_tpu_torch.ops.rdb_kernel import pack_rdb_params
 
-        packed = pack_rdb_params(params["rdb"], op_dtype)
+        packed = pack_rdb_params(params["rdb"], op_dtype, sched)
         n_rdb = spec.num_rrdb * spec.num_rdb_per_rrdb
         params = dict(params)
         params["rdb"] = {k: v.reshape(n_rdb, -1) for k, v in packed.items()}
@@ -112,7 +121,7 @@ def load_model(
     def forward(p, x):
         return rrdbnet_forward(
             p, x, spec, storage_dtype=storage_dtype, variant=variant,
-            op_dtype=op_dtype, tail=tail,
+            op_dtype=op_dtype, tail=tail, trunk=trunk, sched=sched,
         )
 
     return ModelBundle(forward, params, spec.scale, spec, graph, tail)

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -44,6 +44,45 @@ from realsr_tpu_torch.ops.resize import nearest_x2
 
 LRELU_SLOPE = 0.2
 RESIDUAL_SCALE = 0.2
+
+# The kernel trunk's alternative modes, off by default as in the JAX package
+# (its models/rrdbnet.py:54 and :68); EngineConfig(trunk="auto") reads them
+# at load. CHAINED_TRUNK runs the trunk on K3, the chained layout;
+# PAIRED_CARRY (mixed mode only) carries the state as bf16 hi + lo planes
+# on K4. Chained beats paired when both are set.
+CHAINED_TRUNK = False
+PAIRED_CARRY = False
+
+# rrdbnet_forward's trunk modes for variant 'cuda' ('per_rdb': K1 per RDB
+# with the RRDB residual in every third launch) and RDB schedules ('packed':
+# K5, for the per-RDB trunk only)
+TRUNK_MODES = ("per_rdb", "chained", "paired")
+SCHEDS = ("scatter", "packed")
+
+
+def trunk_mode_error(variant, trunk, sched, storage_dtype, op_dtype) -> Optional[str]:
+    """Why ``trunk`` / ``sched`` cannot run with this variant and precision
+    (a combination the JAX package cannot run either), or None. The modes
+    belong to the kernel trunk (variant 'cuda'); the packed schedule only to
+    its per-RDB form (JAX's chained, paired and resident kernels never take
+    it); the paired carry only to mixed mode (float32 state, bfloat16
+    operands)."""
+    if trunk not in TRUNK_MODES:
+        return f"unknown trunk {trunk!r}; expected one of {TRUNK_MODES}"
+    if sched not in SCHEDS:
+        return f"unknown sched {sched!r}; expected one of {SCHEDS}"
+    if (trunk, sched) == ("per_rdb", "scatter"):
+        return None
+    if variant != "cuda":
+        return f"trunk={trunk!r}, sched={sched!r} run on the RDB kernels (variant 'cuda'), not {variant!r}"
+    if sched == "packed" and trunk != "per_rdb":
+        return f"the packed schedule runs on the per-RDB trunk only, not trunk={trunk!r}"
+    if trunk == "paired" and (storage_dtype, op_dtype) != (torch.float32, torch.bfloat16):
+        return (
+            "the paired carry runs in mixed mode only (float32 state, bfloat16 operands), "
+            f"not {storage_dtype} / {op_dtype}"
+        )
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,13 +141,19 @@ def _bias(b, ref):
     return torch.as_tensor(b, device=ref.device).float()[:, None, None]
 
 
-def _rdb(x, p, storage_dtype, op_dtype=None):
-    """Residual dense block on NCHW ``x`` (storage dtype); returns the same."""
+def _rdb_c5(x, p, storage_dtype, op_dtype=None):
+    """The last conv of a residual dense block on NCHW ``x``: float32 c5,
+    with c1..c4 rounded to ``storage_dtype``."""
     feats = [x]
     for i in range(1, 5):
         c = conv3x3(torch.cat(feats, 1), p[f"w{i}"], p[f"b{i}"], LRELU_SLOPE, op_dtype)
         feats.append(c.to(storage_dtype))
-    c5 = conv3x3(torch.cat(feats, 1), p["w5"], p["b5"], None, op_dtype)
+    return conv3x3(torch.cat(feats, 1), p["w5"], p["b5"], None, op_dtype)
+
+
+def _rdb(x, p, storage_dtype, op_dtype=None):
+    """Residual dense block on NCHW ``x`` (storage dtype); returns the same."""
+    c5 = _rdb_c5(x, p, storage_dtype, op_dtype)
     return (RESIDUAL_SCALE * c5 + x.float()).to(storage_dtype)
 
 
@@ -376,6 +421,8 @@ def rrdbnet_forward(
     variant: str = "dense",
     op_dtype=None,
     tail: str = "interleaved",
+    trunk: str = "per_rdb",
+    sched: str = "scatter",
 ) -> torch.Tensor:
     """Normalized NHWC input in [0, 1] -> NHWC float32 (before denorm).
 
@@ -385,27 +432,43 @@ def rrdbnet_forward(
     ``{sw0..sw4, b1..b5}`` (repack_scatter) for 'scatter', and
     ``{w, b}`` stacked ``[num_rrdb * 3, ...]`` (ops.rdb_kernel.
     pack_rdb_params) for 'cuda', which runs the trunk on the fused RDB
-    kernel (the counterpart of the JAX package's 'pallas'); ``tail``: the
+    kernels (the counterpart of the JAX package's 'pallas'); ``tail``: the
     kernel tails' packed weights (ops.tail_kernel.pack_tail_params) for
     the ``tail`` modes 'kernel_hr' and 'kernel'.
 
     ``tail`` (:data:`TAIL_MODES`): 'interleaved' (the graph's nearest-x2 +
     conv form) or a packed-phase form (:func:`packed_tail` modes 0, 1, 2).
     The packed forms need two upsamplers (scale 4).
+
+    ``trunk`` (:data:`TRUNK_MODES`) and ``sched`` (:data:`SCHEDS`) pick the
+    kernel trunk's form for variant 'cuda': 'chained' (K3), 'paired' (K4,
+    mixed mode), or 'per_rdb' with ``sched`` 'scatter' (K1) or 'packed' (K5,
+    ``params["rdb"]`` packed with ``sched="packed"``). Combinations the JAX
+    package cannot run raise ``ValueError`` (:func:`trunk_mode_error`).
     """
+    od = op_dtype if op_dtype is not None else storage_dtype
+    err = trunk_mode_error(variant, trunk, sched, storage_dtype, od)
+    if err:
+        raise ValueError(err)
     if tail not in TAIL_MODES:
         raise ValueError(f"unknown tail {tail!r}; expected one of {TAIL_MODES}")
     if tail != "interleaved" and spec.num_upsample != 2:
         raise ValueError(f"the packed tail needs two upsamplers, the graph has {spec.num_upsample}")
-    od = op_dtype if op_dtype is not None else storage_dtype
     x = _nchw(x.to(storage_dtype))
     fea = conv3x3(x, params["conv_first"]["w"], params["conv_first"]["b"], None, od)
     fea = fea.to(storage_dtype)
 
     if variant == "cuda":
-        from realsr_tpu_torch.ops.rdb_kernel import rdb_trunk
+        from realsr_tpu_torch.ops import rdb_kernel as rk
 
-        body = _nchw(rdb_trunk(_nhwc(fea).contiguous(), params["rdb"]))
+        t0 = _nhwc(fea).contiguous()
+        if trunk == "chained":
+            body = rk.rdb_trunk_chained(t0, params["rdb"])
+        elif trunk == "paired":
+            body = rk.rdb_trunk_paired(t0, params["rdb"]).to(storage_dtype)
+        else:
+            body = rk.rdb_trunk(t0, params["rdb"], sched)
+        body = _nchw(body)
     elif variant in ("dense", "scatter"):
         rdb_fn = _rdb_scatter if variant == "scatter" else _rdb
         t = fea

@@ -13,7 +13,7 @@ import os
 import sys
 from typing import List, Optional, Tuple
 
-from realsr_tpu.utils.fsutils import install_root
+from realsr_tpu_torch.utils.fsutils import install_root
 
 _SYNTH_SEEDS = {"models-DF2K": 0, "models-DF2K_JPEG": 1}
 
@@ -41,8 +41,8 @@ def _candidate_dirs(model: str) -> List[str]:
 
 
 def _synth_bin(parampath: str, binpath: str, seed: int) -> None:
-    from realsr_tpu.ncnn.bin import write_weights
-    from realsr_tpu.ncnn.param import parse_param_file
+    from realsr_tpu_torch.ncnn.bin import write_weights
+    from realsr_tpu_torch.ncnn.param import parse_param_file
     from realsr_tpu_torch.ncnn.synth import synth_weights
 
     graph = parse_param_file(parampath)

@@ -13,7 +13,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
-from realsr_tpu.ncnn.param import NCNN_MAGIC, ParamGraph, parse_param
+from realsr_tpu_torch.ncnn.param import NCNN_MAGIC, ParamGraph, parse_param
 
 
 def make_rrdbnet_param_text(spec: RRDBNetSpec) -> str:
@@ -227,7 +227,7 @@ def make_model_dir(
     """Write <path>/<name>.param and .bin; returns their paths."""
     import os
 
-    from realsr_tpu.ncnn.bin import write_weights
+    from realsr_tpu_torch.ncnn.bin import write_weights
 
     os.makedirs(path, exist_ok=True)
     param_path = os.path.join(path, f"{name}.param")

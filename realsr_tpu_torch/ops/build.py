@@ -25,6 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, spills and shared memory per kernel, into BUILD_LOG
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -33,6 +34,8 @@ _LOCK = threading.Lock()  # guards _NAME_LOCKS
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
 # seconds the last nvcc run of each library took (0.0 when it was cached)
 BUILD_SECONDS: Dict[str, float] = {}
+# nvcc's output of that run (ptxas resource usage; "" when it was cached)
+BUILD_LOG: Dict[str, str] = {}
 
 
 def build_dir() -> str:
@@ -71,7 +74,7 @@ def load_library(name: str) -> ctypes.CDLL:
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
         so = os.path.join(out_dir, f"{name}-{digest.hexdigest()[:16]}.so")
-        BUILD_SECONDS[name] = 0.0
+        BUILD_SECONDS[name], BUILD_LOG[name] = 0.0, ""
         if not os.path.isfile(so):
             # build under a private name, then rename: a concurrent process
             # never loads a half-written library
@@ -88,6 +91,7 @@ def load_library(name: str) -> ctypes.CDLL:
                 )
             os.replace(tmp, so)
             BUILD_SECONDS[name] = time.perf_counter() - t0
+            BUILD_LOG[name] = proc.stdout + proc.stderr
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
         return lib

@@ -1,19 +1,30 @@
 """Fused residual dense block: the Python side of ``csrc/rdb_kernel.cu``.
 
-Counterpart of ``realsr_tpu/ops/rdb_kernel.py``: one CUDA kernel stands in
-for both ``_rdb_kernel`` (one RDB per call) and ``_rdb_resident_kernel`` (the
-whole trunk with the RRDB residual folded in). :func:`rdb_apply` launches it
-for one RDB, optionally with the RRDB residual ``0.2 * y + u`` in its
-epilogue; :func:`rdb_trunk` drives the 69-RDB trunk as 69 launches.
+Counterpart of ``realsr_tpu/ops/rdb_kernel.py``. One CUDA source holds the
+five TPU kernels' counterparts (see its header), each with a wrapper here:
+
+- :func:`rdb_apply` (K1 ``_rdb_kernel``, and K2 ``_rdb_resident_kernel``
+  through :func:`rdb_trunk`): one RDB, optionally with the RRDB residual
+  ``0.2 * y + u`` in its epilogue; the 69-RDB trunk is 69 launches;
+- :func:`rdb_apply_packed` (K5, the ``sched="packed"`` branch of
+  ``_make_rdb_compute``): one RDB in the K-packed schedule's five GEMM
+  rectangles, on weights re-cut by ``pack_rdb_params(sched="packed")``;
+- :func:`rdb_apply_chained` (K3, ``_rdb_kernel(chained=True)``): one RDB
+  that reads and writes the zero-aproned layout of :func:`to_chained`,
+  folding the residual where a device flag is 1; :func:`rdb_trunk_chained`
+  rotates three such buffers;
+- :func:`rdb_apply_paired` (K4, ``_rdb_kernel(paired=True)``): one RDB on a
+  state carried as bf16 ``hi + lo`` planes; :func:`rdb_trunk_paired`.
 
 Tensors are NHWC. The state dtype is ``x``'s dtype; the operand dtype is the
-packed weights' dtype (:func:`pack_rdb_params`). Supported pairs: float32 /
-float32 (CUDA cores, nf and gc multiples of 8), and float32 state with
-bfloat16 operands (mixed) or bfloat16 / bfloat16 (tensor cores, nf, gc = 64,
-32 or 32, 16).
+packed weights' dtype (:func:`pack_rdb_params`). K1 has two kernels: float32
+state and operands (CUDA cores, nf and gc multiples of 8), and bfloat16
+operands with float32 (mixed) or bfloat16 state (tensor cores, nf, gc = 64,
+32 or 32, 16). K3 and K5 exist for bfloat16 operands, K4 for mixed mode
+(float32 state as hi + lo, bfloat16 operands), at those two shapes.
 
-A tensor on the CPU takes the plain PyTorch version (:func:`rdb_reference`);
-a CUDA tensor launches the kernel or raises.
+A tensor on the CPU takes the plain PyTorch version (``*_reference``); a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,15 +32,22 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from realsr_tpu_torch.models.rrdbnet import RESIDUAL_SCALE, _rdb
+from realsr_tpu_torch.models.rrdbnet import (
+    RESIDUAL_SCALE,
+    _lrelu,
+    _rdb,
+    _rdb_c5,
+    operand,
+)
 
-# kernel launches since the last reset (set to 0 to reset)
-LAUNCHES = 0
+# kernel launches per wrapper since the last reset (set the values to 0)
+LAUNCHES = {"rdb_apply": 0, "rdb_apply_packed": 0, "rdb_apply_chained": 0, "rdb_apply_paired": 0}
 _COUNT_LOCK = threading.Lock()
 
 _DTYPE_PAIRS = {
@@ -39,77 +57,132 @@ _DTYPE_PAIRS = {
 }
 # (nf, gc) the tensor-core kernel is instantiated for
 _TC_SHAPES = ((64, 32), (32, 16))
+SCHEDS = ("scatter", "packed")
+# the chained layout: output patch side of its kernel, and the apron (the
+# halo of five 3x3 convs) around the image
+CHAIN_TILE, CHAIN_APRON = 16, 5
 
 
-@functools.lru_cache(maxsize=8)
-def _mma_perm(nf: int, gc: int) -> np.ndarray:
-    """Index map from the dense layout (each conv as ``[cin][3][3][cout]``)
-    to the tensor-core kernel's fragment order: ``packed = dense[perm]``.
+def _rects(sched: str):
+    """The weights' five GEMM rectangles as (sources, convs): sources are 0
+    (the block input x) and j (c_j), convs the outputs' convs 1..5.
+    'scatter': conv i over all its inputs. 'packed': the JAX package's
+    K-packed rectangles A {x} -> {c1, c2}, B {c1} -> {c2}, C {x, c1, c2} ->
+    {c3, c4, c5}, D {c3} -> {c4, c5}, E {c4} -> {c5}."""
+    if sched == "scatter":
+        return [(tuple(range(i)), (i,)) for i in range(1, 6)]
+    if sched == "packed":
+        return [((0,), (1, 2)), ((1,), (2,)), ((0, 1, 2), (3, 4, 5)), ((3,), (4, 5)), ((4,), (5,))]
+    raise ValueError(f"unknown sched {sched!r}; expected one of {SCHEDS}")
 
-    Per conv, k-steps run over (source, tap, 16-channel block) in the order
-    the kernel walks them; each k-step holds ``cout / 8`` mma.sync B
-    fragments of 32 lanes x 4 values: lane ``4 * g + t`` holds rows
-    ``2t, 2t + 1, 2t + 8, 2t + 9`` of column ``g``.
+
+@functools.lru_cache(maxsize=16)
+def _perm(nf: int, gc: int, sched: str, frag: bool) -> np.ndarray:
+    """Index map from the dense layout (each conv as ``[cin][3][3][cout]``,
+    back to back) to the kernel's: ``packed = dense[perm]``.
+
+    The rectangles (:func:`_rects`) follow each other. ``frag`` False: each
+    rectangle as ``[K][N]`` with K over (source, channel, tap), which for
+    'scatter' is the dense layout itself. ``frag`` True (tensor cores):
+    k-steps over (source, tap, 16-channel block) in the order the kernel
+    walks them; each k-step holds ``N / 8`` mma.sync B fragments of 32
+    lanes x 4 values: lane ``4 * g + t`` holds rows ``2t, 2t + 1, 2t + 8,
+    2t + 9`` of column ``g``.
     """
-    if nf % 16 or gc % 16:
-        raise ValueError(f"bfloat16 operands need nf, gc multiples of 16 (got {nf}, {gc})")
-    parts = []
-    off, cin = 0, nf
+    if frag and (nf % 16 or gc % 16):
+        raise ValueError(f"the fragment order needs nf, gc multiples of 16 (got {nf}, {gc})")
+
+    def cout(i):
+        return gc if i < 5 else nf
+
+    def cin(j):
+        return nf if j == 0 else gc
+
+    def kbase(j):
+        return 0 if j == 0 else nf + (j - 1) * gc
+
+    off, o = {}, 0
     for i in range(1, 6):
-        cout = gc if i < 5 else nf
-        nb, g, t, h, e = np.meshgrid(
-            *(np.arange(n) for n in (cout // 8, 8, 4, 2, 2)), indexing="ij"
-        )
-        co = (nb * 8 + g).ravel()
-        k = (h * 8 + t * 2 + e).ravel()
-        for j in range(i):
-            kbase, cj = (0, nf) if j == 0 else (nf + (j - 1) * gc, gc)
-            for tap in range(9):
-                for kb in range(cj // 16):
-                    parts.append(off + ((kbase + kb * 16 + k) * 9 + tap) * cout + co)
-        off += cin * 9 * cout
-        cin += gc
+        off[i] = o
+        o += (nf + (i - 1) * gc) * 9 * cout(i)
+    parts = []
+    for sources, convs in _rects(sched):
+        # output column n of the rectangle -> (its conv's offset, cout, co)
+        base = np.concatenate([np.full(cout(i), off[i]) for i in convs])
+        width = np.concatenate([np.full(cout(i), cout(i)) for i in convs])
+        co = np.concatenate([np.arange(cout(i)) for i in convs])
+        if frag:
+            nb, g, t, h, e = np.meshgrid(
+                *(np.arange(n) for n in (co.size // 8, 8, 4, 2, 2)), indexing="ij"
+            )
+            n = (nb * 8 + g).ravel()
+            k = (h * 8 + t * 2 + e).ravel()
+            for j in sources:
+                for tap in range(9):
+                    for kb in range(cin(j) // 16):
+                        parts.append(base[n] + ((kbase(j) + kb * 16 + k) * 9 + tap) * width[n] + co[n])
+        else:
+            for j in sources:
+                ci, tap, n = np.meshgrid(
+                    np.arange(cin(j)), np.arange(9), np.arange(co.size), indexing="ij"
+                )
+                parts.append((base[n] + ((kbase(j) + ci) * 9 + tap) * width[n] + co[n]).ravel())
     return np.concatenate(parts)
 
 
-@functools.lru_cache(maxsize=8)
-def _mma_perm_on(nf: int, gc: int, device: torch.device) -> torch.Tensor:
-    """:func:`_mma_perm` as an index tensor on ``device``."""
-    return torch.from_numpy(_mma_perm(nf, gc)).to(device)
+def _frag(dtype, nf: int, gc: int) -> bool:
+    """Whether packed weights of ``dtype`` are in fragment order: bfloat16
+    at channel counts a tensor-core kernel can take (multiples of 16; every
+    instance is). Other bfloat16 weights keep the float32 layout, which
+    only the plain versions read."""
+    return dtype == torch.bfloat16 and nf % 16 == 0 and gc % 16 == 0
 
 
-def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32):
+@functools.lru_cache(maxsize=16)
+def _perm_on(nf: int, gc: int, sched: str, frag: bool, device: torch.device) -> torch.Tensor:
+    """:func:`_perm` as an index tensor on ``device``."""
+    return torch.from_numpy(_perm(nf, gc, sched, frag)).to(device)
+
+
+def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: str = "scatter"):
     """Dense OIHW RDB params -> the kernel's layout.
 
     ``rdb``: ``w1..w5`` ``[..., cout, cin, 3, 3]`` and ``b1..b5``
     ``[..., cout]`` (numpy; any leading dims, e.g. the trunk's
     ``[num_rrdb, 3]``). Returns ``{"w": [..., K] op_dtype, "b": [..., 4gc+nf]
-    float32}`` as CPU tensors, where ``w`` holds the five convs back to back,
-    each as ``[cin][3][3][cout]`` for float32 operands, and in the
-    tensor-core fragment order (:func:`_mma_perm`) for bfloat16.
+    float32}`` as CPU tensors, where ``w`` holds the schedule's five
+    rectangles (:func:`_rects`) back to back, each as ``[K][N]`` for float32
+    operands, and in the tensor-core fragment order for bfloat16
+    (:func:`_perm`, :func:`_frag`). ``sched="packed"`` re-cuts the same weight values into
+    the K-packed schedule's rectangles, for :func:`rdb_apply_packed`.
     """
+    _rects(sched)
     ws, bs = [], []
     for i in range(1, 6):
         w = np.moveaxis(np.asarray(rdb[f"w{i}"], np.float32), -4, -1)
         ws.append(w.reshape(*w.shape[:-4], -1))
         bs.append(np.asarray(rdb[f"b{i}"], np.float32))
     w = np.concatenate(ws, -1)
-    if op_dtype == torch.bfloat16:
-        gc, nf = np.shape(rdb["w1"])[-4:-2]
-        w = w[..., _mma_perm(nf, gc)]
+    gc, nf = np.shape(rdb["w1"])[-4:-2]
+    frag = _frag(op_dtype, nf, gc)
+    if frag or sched != "scatter":
+        w = w[..., _perm(nf, gc, sched, frag)]
     return {
         "w": torch.from_numpy(np.ascontiguousarray(w)).to(op_dtype),
         "b": torch.from_numpy(np.concatenate(bs, -1)),
     }
 
 
-def unpack_rdb_params(p: Dict[str, torch.Tensor], nf: int) -> Dict[str, torch.Tensor]:
+def unpack_rdb_params(
+    p: Dict[str, torch.Tensor], nf: int, sched: str = "scatter"
+) -> Dict[str, torch.Tensor]:
     """Inverse of :func:`pack_rdb_params` for one RDB: OIHW tensors."""
     w, b = p["w"], p["b"]
     gc = (b.shape[-1] - nf) // 4
-    if w.dtype == torch.bfloat16:
+    frag = _frag(w.dtype, nf, gc)
+    if frag or sched != "scatter":
         dense = torch.empty_like(w)
-        dense[_mma_perm_on(nf, gc, w.device)] = w
+        dense[_perm_on(nf, gc, sched, frag, w.device)] = w
         w = dense
     out = {}
     off, cin = 0, nf
@@ -124,7 +197,7 @@ def unpack_rdb_params(p: Dict[str, torch.Tensor], nf: int) -> Dict[str, torch.Te
 
 
 def rdb_reference(x, p, storage_dtype, op_dtype, u=None):
-    """Plain PyTorch version of the kernel: one RDB on NHWC ``x``.
+    """Plain PyTorch version of K1: one RDB on NHWC ``x``.
 
     Operands are rounded to ``op_dtype`` and convolved in float32. With TF32
     off (:func:`~realsr_tpu_torch.models.rrdbnet.tf32`) on a GPU, it
@@ -132,11 +205,108 @@ def rdb_reference(x, p, storage_dtype, op_dtype, u=None):
     """
     w = unpack_rdb_params(p, x.shape[-1])
     y = _rdb(x.permute(0, 3, 1, 2), w, storage_dtype, op_dtype)
-    if u is not None:
-        y = (RESIDUAL_SCALE * y.float() + u.permute(0, 3, 1, 2).float()).to(
-            storage_dtype
-        )
+    return _nhwc_out(_residual(y, u, storage_dtype))
+
+
+def _residual(y, u, storage_dtype):
+    """The RRDB residual ``0.2 * y + u`` (NCHW ``y``, NHWC ``u``)."""
+    if u is None:
+        return y
+    return (RESIDUAL_SCALE * y.float() + u.permute(0, 3, 1, 2).float()).to(storage_dtype)
+
+
+def _nhwc_out(y):
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def rdb_packed_reference(x, p, storage_dtype, op_dtype, u=None):
+    """Plain PyTorch version of K5: one RDB on NHWC ``x`` in the K-packed
+    schedule, with the kernel's (and the JAX package's) grouping of the
+    sums: each rectangle is one conv over its concatenated sources, and its
+    bias or partial sum is added after. Rectangle C convolves
+    ``concat(x, c1, c2)`` with its K = 9 (nf + 2gc) weights."""
+    nf = x.shape[-1]
+    w = unpack_rdb_params(p, nf, "packed")
+    gc = w["b1"].shape[0]
+    b = p["b"].float()
+
+    def rect(srcs, sources, convs):
+        lo = [0 if j == 0 else nf + (j - 1) * gc for j in sources]
+        n = [nf if j == 0 else gc for j in sources]
+        wr = torch.cat(
+            [torch.cat([w[f"w{i}"][:, a : a + k] for a, k in zip(lo, n)], 1) for i in convs], 0
+        )
+        return F.conv2d(operand(torch.cat(srcs, 1), op_dtype), operand(wr, op_dtype), padding=1)
+
+    def bias(lo, hi):
+        return b[lo:hi][:, None, None]
+
+    xs = x.permute(0, 3, 1, 2)
+    pa = rect([xs], (0,), (1, 2))
+    c1 = _lrelu(pa[:, :gc] + bias(0, gc)).to(storage_dtype)
+    a2 = pa[:, gc:] + bias(gc, 2 * gc)
+    c2 = _lrelu(a2 + rect([c1], (1,), (2,))).to(storage_dtype)
+    pc = rect([xs, c1, c2], (0, 1, 2), (3, 4, 5))
+    c3 = _lrelu(pc[:, :gc] + bias(2 * gc, 3 * gc)).to(storage_dtype)
+    a4 = pc[:, gc : 2 * gc] + bias(3 * gc, 4 * gc)
+    a5 = pc[:, 2 * gc :] + bias(4 * gc, 4 * gc + nf)
+    pd = rect([c3], (3,), (4, 5))
+    c4 = _lrelu(a4 + pd[:, :gc]).to(storage_dtype)
+    a5 = a5 + pd[:, gc:]
+    c5 = a5 + rect([c4], (4,), (5,))
+    y = (RESIDUAL_SCALE * c5 + xs.float()).to(storage_dtype)
+    return _nhwc_out(_residual(y, u, storage_dtype))
+
+
+def to_chained(x: torch.Tensor) -> torch.Tensor:
+    """NHWC ``[B, H, W, nf]`` -> the chained layout ``[B, Hp + 10, Wp + 10,
+    nf]`` (Hp, Wp: H, W rounded up to :data:`CHAIN_TILE`) with the image at
+    row and column :data:`CHAIN_APRON` and zeros elsewhere."""
+    B, H, W, C = x.shape
+    A, T = CHAIN_APRON, CHAIN_TILE
+    out = x.new_zeros((B, -(-H // T) * T + 2 * A, -(-W // T) * T + 2 * A, C))
+    out[:, A : A + H, A : A + W] = x
+    return out
+
+
+def from_chained(t: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The image ``[B, H, W, nf]`` of a chained layout (a view)."""
+    A = CHAIN_APRON
+    return t[:, A : A + H, A : A + W]
+
+
+def rdb_chained_reference(x, p, u, flag, H, W, out, storage_dtype, op_dtype):
+    """Plain PyTorch version of K3: the RDB of chained ``x``'s image,
+    folding ``0.2 * y + u`` (``u`` chained too) where ``flag[0] == 1``,
+    written into ``out``'s image; the aprons are not touched."""
+    u_img = from_chained(u, H, W) if int(flag[0]) == 1 else None
+    y = rdb_reference(from_chained(x, H, W), p, storage_dtype, op_dtype, u_img)
+    from_chained(out, H, W).copy_(y)
+    return out
+
+
+def _split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``v`` -> (hi, lo) bf16 planes: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)
+
+
+def rdb_paired_reference(hi, lo, p, u=None):
+    """Plain PyTorch version of K4: one RDB on the state ``hi + lo`` (NHWC
+    bf16 planes) -> (hi', lo'). The convs read ``hi`` (mixed mode's operand,
+    c1..c4 in bf16); ``center = (0.2 * c5 + hi) + lo`` in float32 is split
+    again; ``u`` = (u_hi, u_lo) folds the RRDB residual ``0.2 * (hi' + lo')
+    + (u_hi + u_lo)`` before the split, as the JAX trunk sums it."""
+    w = unpack_rdb_params(p, hi.shape[-1])
+    h = hi.permute(0, 3, 1, 2)
+    c5 = _rdb_c5(h, w, torch.bfloat16, torch.bfloat16)
+    nchw = lambda t: t.permute(0, 3, 1, 2).float()  # noqa: E731
+    hi2, lo2 = _split((RESIDUAL_SCALE * c5 + h.float()) + nchw(lo))
+    if u is not None:
+        hi2, lo2 = _split(
+            RESIDUAL_SCALE * (hi2.float() + lo2.float()) + (nchw(u[0]) + nchw(u[1]))
+        )
+    return _nhwc_out(hi2), _nhwc_out(lo2)
 
 
 def _library():
@@ -145,8 +315,12 @@ def _library():
     lib = load_library("rdb_kernel")
     if not getattr(lib, "_realsr_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rdb_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-        lib.rdb_launch.restype = ci
+        lib.rdb_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        lib.rdb_launch_packed.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+        lib.rdb_launch_chained.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+        lib.rdb_launch_paired.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+        for f in (lib.rdb_launch, lib.rdb_launch_packed, lib.rdb_launch_chained, lib.rdb_launch_paired):
+            f.restype = ci
         lib.rdb_error_string.argtypes = [ci]
         lib.rdb_error_string.restype = ctypes.c_char_p
         lib._realsr_bound = True
@@ -166,64 +340,207 @@ def _check(name, t, device, dtype, numel=None, shape=None):
         raise ValueError(f"rdb_apply: {name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def rdb_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Tensor] = None):
-    """One RDB on NHWC ``x`` ``[B, H, W, nf]`` -> a new tensor like ``x``.
-
-    ``p``: one RDB of :func:`pack_rdb_params`. ``u`` (same shape and dtype as
-    ``x``): fold the RRDB residual ``0.2 * y + u`` into the output.
-    """
-    global LAUNCHES
-    w, b = p["w"], p["b"]
-    if x.device.type == "cpu":
-        return rdb_reference(x, p, x.dtype, w.dtype, u)
+def _cuda_operands(fn: str, x, w, b, tensor_cores: bool):
+    """Checks shared by the wrappers on a CUDA ``x`` ``[B, rows, cols, nf]``:
+    (nf, gc, (state_bf16, op_bf16))."""
     if x.device.type != "cuda":
-        raise ValueError(f"rdb_apply: unsupported device {x.device}")
+        raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dim() != 4:
-        raise ValueError(f"rdb_apply: x must be [B, H, W, nf], got {tuple(x.shape)}")
-    B, H, W, nf = x.shape
+        raise ValueError(f"{fn}: x must be [B, H, W, nf], got {tuple(x.shape)}")
+    nf = x.shape[-1]
     gc = (b.numel() - nf) // 4
     pair = _DTYPE_PAIRS.get((x.dtype, w.dtype))
     if pair is None:
-        raise ValueError(f"rdb_apply: no kernel for state {x.dtype} / operands {w.dtype}")
+        raise ValueError(f"{fn}: no kernel for state {x.dtype} / operands {w.dtype}")
+    if tensor_cores and w.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{fn}: the kernel has bfloat16 operands only, not {w.dtype} "
+            "(ROADMAP queue 2: float32 instances of the RDB kernels)"
+        )
     if nf % 8 or gc <= 0 or gc % 8 or b.numel() != nf + 4 * gc:
-        raise ValueError(f"rdb_apply: nf={nf}, gc={gc} must be positive multiples of 8")
+        raise ValueError(f"{fn}: nf={nf}, gc={gc} must be positive multiples of 8")
     if w.dtype == torch.bfloat16 and (nf, gc) not in _TC_SHAPES:
-        raise ValueError(f"rdb_apply: no tensor-core kernel for nf={nf}, gc={gc}")
+        raise ValueError(f"{fn}: no tensor-core kernel for nf={nf}, gc={gc}")
     k = 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
     _check("x", x, x.device, x.dtype)
     _check("w", w, x.device, w.dtype, numel=k)
     _check("b", b, x.device, torch.float32, numel=nf + 4 * gc)
+    return nf, gc, pair
+
+
+def _launched(fn: str, lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{fn} launch failed: {lib.rdb_error_string(err).decode()} ({what})")
+    with _COUNT_LOCK:
+        LAUNCHES[fn] += 1
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def rdb_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Tensor] = None):
+    """K1: one RDB on NHWC ``x`` ``[B, H, W, nf]`` -> a new tensor like ``x``.
+
+    ``p``: one RDB of :func:`pack_rdb_params`. ``u`` (same shape and dtype as
+    ``x``): fold the RRDB residual ``0.2 * y + u`` into the output.
+    """
+    w, b = p["w"], p["b"]
+    if x.device.type == "cpu":
+        return rdb_reference(x, p, x.dtype, w.dtype, u)
+    nf, gc, pair = _cuda_operands("rdb_apply", x, w, b, tensor_cores=False)
     if u is not None:
         _check("u", u, x.device, x.dtype, shape=x.shape)
+    B, H, W, _ = x.shape
     out = torch.empty_like(x)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.rdb_launch(
             x.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if u is None else u.data_ptr(), out.data_ptr(),
-            B, H, W, nf, gc, *pair,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            B, H, W, nf, gc, *pair, _stream(x),
         )
-    if err:
-        raise RuntimeError(
-            f"rdb_kernel launch failed: {lib.rdb_error_string(err).decode()} "
-            f"(B={B}, H={H}, W={W}, nf={nf}, gc={gc}, {x.dtype} / {w.dtype})"
-        )
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+    _launched("rdb_apply", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, {x.dtype} / {w.dtype}")
     return out
 
 
-def rdb_trunk(x: torch.Tensor, stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
+def rdb_apply_packed(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Tensor] = None):
+    """K5: :func:`rdb_apply` in the K-packed schedule; ``p``: one RDB of
+    ``pack_rdb_params(..., sched="packed")``."""
+    w, b = p["w"], p["b"]
+    if x.device.type == "cpu":
+        return rdb_packed_reference(x, p, x.dtype, w.dtype, u)
+    nf, gc, pair = _cuda_operands("rdb_apply_packed", x, w, b, tensor_cores=True)
+    if u is not None:
+        _check("u", u, x.device, x.dtype, shape=x.shape)
+    B, H, W, _ = x.shape
+    out = torch.empty_like(x)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.rdb_launch_packed(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            None if u is None else u.data_ptr(), out.data_ptr(),
+            B, H, W, nf, gc, pair[0], _stream(x),
+        )
+    _launched("rdb_apply_packed", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, {x.dtype}")
+    return out
+
+
+def rdb_apply_chained(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], u: torch.Tensor, flag: torch.Tensor,
+    H: int, W: int, out: torch.Tensor,
+) -> torch.Tensor:
+    """K3: one RDB on the chained layout (:func:`to_chained`) of an ``H x
+    W`` image: ``out``'s image becomes the RDB of ``x``'s, with the RRDB
+    residual ``0.2 * y + u`` where the int32 device scalar ``flag[0]`` is 1;
+    ``out``'s aprons are not written (zero stays zero). ``u`` may be ``out``
+    itself: each pixel reads its own ``u`` before it writes. Returns ``out``."""
+    w, b = p["w"], p["b"]
+    if x.device.type == "cpu":
+        return rdb_chained_reference(x, p, u, flag, H, W, out, x.dtype, w.dtype)
+    nf, gc, pair = _cuda_operands("rdb_apply_chained", x, w, b, tensor_cores=True)
+    B, rows, cols, _ = x.shape
+    A, T = CHAIN_APRON, CHAIN_TILE
+    if rows < -(-H // T) * T + 2 * A or cols < -(-W // T) * T + 2 * A:
+        raise ValueError(f"rdb_apply_chained: layout {tuple(x.shape)} too small for {H} x {W}")
+    _check("u", u, x.device, x.dtype, shape=x.shape)
+    _check("out", out, x.device, x.dtype, shape=x.shape)
+    if flag.device != x.device or flag.dtype != torch.int32 or flag.numel() < 1:
+        raise ValueError(f"rdb_apply_chained: flag must be an int32 tensor on {x.device}")
+    if out.data_ptr() == x.data_ptr():
+        raise ValueError("rdb_apply_chained: out must not be x (other blocks read its halo)")
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.rdb_launch_chained(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), u.data_ptr(), flag.data_ptr(),
+            out.data_ptr(), B, H, W, rows, cols, nf, gc, pair[0], _stream(x),
+        )
+    _launched("rdb_apply_chained", lib, err, f"B={B}, {H}x{W} in {rows}x{cols}, nf={nf}, {x.dtype}")
+    return out
+
+
+def rdb_apply_paired(
+    hi: torch.Tensor, lo: torch.Tensor, p: Dict[str, torch.Tensor],
+    u: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: one RDB on the state ``hi + lo`` (NHWC bf16 planes) -> (hi',
+    lo'); ``u`` = (u_hi, u_lo): fold the RRDB residual (see
+    :func:`rdb_paired_reference`)."""
+    w, b = p["w"], p["b"]
+    if hi.device.type == "cpu":
+        return rdb_paired_reference(hi, lo, p, u)
+    if hi.dtype != torch.bfloat16:
+        raise ValueError(f"rdb_apply_paired: hi is {hi.dtype}, expected bfloat16")
+    nf, gc, _ = _cuda_operands("rdb_apply_paired", hi, w, b, tensor_cores=True)
+    for name, t in (("lo", lo),) + (() if u is None else (("u_hi", u[0]), ("u_lo", u[1]))):
+        _check(name, t, hi.device, torch.bfloat16, shape=hi.shape)
+    B, H, W, _ = hi.shape
+    hi2, lo2 = torch.empty_like(hi), torch.empty_like(lo)
+    lib = _library()
+    with torch.cuda.device(hi.device):
+        err = lib.rdb_launch_paired(
+            hi.data_ptr(), lo.data_ptr(), w.data_ptr(), b.data_ptr(),
+            None if u is None else u[0].data_ptr(), None if u is None else u[1].data_ptr(),
+            hi2.data_ptr(), lo2.data_ptr(), B, H, W, nf, gc, _stream(hi),
+        )
+    _launched("rdb_apply_paired", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}")
+    return hi2, lo2
+
+
+def _rdb_k(stacked, k):
+    return {"w": stacked["w"][k], "b": stacked["b"][k]}
+
+
+def rdb_trunk(x: torch.Tensor, stacked: Dict[str, torch.Tensor], sched: str = "scatter") -> torch.Tensor:
     """The RRDB trunk: ``stacked["w"]`` / ``["b"]`` are ``[n_rdb, ...]``
     (:func:`pack_rdb_params` with the ``[num_rrdb, 3]`` lead dims merged).
     The RRDB residual ``0.2 * y + u`` folds into every third RDB, ``u`` being
-    the state that entered its RRDB (x4.param's Eltwise coeffs [0.2, 1.0])."""
-    t = x
-    u = x
+    the state that entered its RRDB (x4.param's Eltwise coeffs [0.2, 1.0]).
+    ``sched="packed"`` runs each RDB on K5 (:func:`rdb_apply_packed`)."""
+    apply = rdb_apply_packed if sched == "packed" else rdb_apply
+    t = u = x
     for k in range(stacked["w"].shape[0]):
         if k % 3 == 0:
             u = t
-        pk = {"w": stacked["w"][k], "b": stacked["b"][k]}
-        t = rdb_apply(t, pk, u if k % 3 == 2 else None)
+        t = apply(t, _rdb_k(stacked, k), u if k % 3 == 2 else None)
     return t
+
+
+@functools.lru_cache(maxsize=8)
+def _chain_flags(n: int, device: torch.device) -> torch.Tensor:
+    """int32 [n]: 1 where step k closes an RRDB (k % 3 == 2)."""
+    return torch.tensor([int(k % 3 == 2) for k in range(n)], dtype=torch.int32, device=device)
+
+
+def rdb_trunk_chained(x: torch.Tensor, stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The trunk on K3: three chained buffers rotate as the JAX resident
+    kernel rotates its planes. Buffer 0 holds the RRDB entry state ``u``;
+    step k reads buffer ``k % 3`` and writes ``(k + 1) % 3``, so each
+    RRDB-closing step writes ``0.2 * y + u`` back into buffer 0 in place.
+    The flags are one int32 device tensor. Returns the image of buffer 0,
+    as ``[B, H, W, nf]``."""
+    B, H, W, _ = x.shape
+    n = stacked["w"].shape[0]
+    if n % 3:
+        raise ValueError(f"the chained trunk needs whole RRDBs of 3 RDBs, got {n} RDBs")
+    bufs = [to_chained(x)]
+    bufs += [torch.zeros_like(bufs[0]) for _ in range(2)]
+    flags = _chain_flags(n, x.device)
+    for k in range(n):
+        rdb_apply_chained(
+            bufs[k % 3], _rdb_k(stacked, k), bufs[0], flags[k : k + 1], H, W, bufs[(k + 1) % 3]
+        )
+    return from_chained(bufs[0], H, W).contiguous()
+
+
+def rdb_trunk_paired(x: torch.Tensor, stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The trunk on K4: the float32 state ``x`` carried as bf16 ``hi + lo``
+    through every RDB, with the residual folded into each third; returns
+    ``hi + lo`` in float32."""
+    hi, lo = _split(x.float())
+    u = (hi, lo)
+    for k in range(stacked["w"].shape[0]):
+        if k % 3 == 0:
+            u = (hi, lo)
+        hi, lo = rdb_apply_paired(hi, lo, _rdb_k(stacked, k), u if k % 3 == 2 else None)
+    return hi.float() + lo.float()

@@ -129,18 +129,31 @@ def test_float16_with_kernel_variant_raises(tiny_model_dir):
 
 
 def test_port_never_imports_jax(tmp_path):
+    """An engine run and a CLI run on a directory (``-g -1``) import neither
+    jax nor any module of the JAX package."""
+    in_dir, out_dir = tmp_path / "in", tmp_path / "out"
+    in_dir.mkdir()
+    out_dir.mkdir()
+    for name, shape in (("a.png", (9, 7, 3)), ("b.png", (6, 10, 4))):
+        Image.fromarray(np.zeros(shape, np.uint8)).save(in_dir / name)
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
         import realsr_tpu_torch
+        from realsr_tpu_torch import cli
         from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
         from realsr_tpu_torch.ncnn.synth import make_model_dir
-        p, b = make_model_dir({str(tmp_path / "m")!r}, RRDBNetSpec(num_rrdb=1, nf=16, gc=8))
+        m = {str(tmp_path / "models-DF2K")!r}
+        p, b = make_model_dir(m, RRDBNetSpec(num_rrdb=1, nf=16, gc=8))
         e = realsr_tpu_torch.RealSR(gpuid=-1, config=realsr_tpu_torch.EngineConfig(tilesize=32))
         e.load(p, b)
         out = e.process(np.zeros((9, 7, 4), np.uint8))
         assert out.shape == (36, 28, 4), out.shape
+        rc = cli.main(["-i", {str(in_dir)!r}, "-o", {str(out_dir)!r}, "-m", m, "-g", "-1"])
+        assert rc == 0, rc
         assert "jax" not in sys.modules, "the port imported jax"
+        bad = sorted(n for n in sys.modules if n == "realsr_tpu" or n.startswith("realsr_tpu."))
+        assert not bad, f"the port imported the JAX package: {{bad}}"
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
@@ -150,3 +163,34 @@ def test_port_never_imports_jax(tmp_path):
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+    assert sorted(os.listdir(out_dir)) == ["a.png", "b.png"]
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "realsr_tpu_torch")):
+        files += [os.path.join(d, n) for n in sorted(names) if n.endswith(".py")]
+    return sorted(os.path.relpath(f, ROOT) for f in files)
+
+
+@pytest.mark.parametrize("rel", _port_sources())
+def test_port_source_imports_no_jax_package(rel):
+    """No statement of the port (nor of chip_smoke.py) imports jax or a
+    realsr_tpu module, even one that is imported lazily inside a function."""
+    import ast
+
+    with open(os.path.join(ROOT, rel), encoding="utf-8") as f:
+        tree = ast.parse(f.read(), rel)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            if top in ("jax", "jaxlib", "realsr_tpu"):
+                found.append(f"{rel}:{node.lineno} imports {n}")
+    assert not found, found

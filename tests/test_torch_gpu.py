@@ -16,7 +16,7 @@ from realsr_tpu_torch.ops import tail_kernel as TLK
 torch.set_num_threads(2)
 
 
-def _packed(nf, gc, op_dtype, seed=8, wstd=0.05):
+def _packed(nf, gc, op_dtype, seed=8, wstd=0.05, sched="scatter"):
     """One RDB's random OIHW weights, packed for the kernel."""
     rng = np.random.default_rng(seed)
     p = {}
@@ -24,7 +24,15 @@ def _packed(nf, gc, op_dtype, seed=8, wstd=0.05):
         cin, cout = nf + (i - 1) * gc, gc if i < 5 else nf
         p[f"w{i}"] = rng.normal(0, wstd, (cout, cin, 3, 3)).astype(np.float32)
         p[f"b{i}"] = rng.normal(0, 0.05, (cout,)).astype(np.float32)
-    return TK.pack_rdb_params(p, op_dtype)
+    return TK.pack_rdb_params(p, op_dtype, sched)
+
+
+def _state(cuda, shape, dtype, seed=7):
+    return torch.from_numpy(np.random.default_rng(seed).random(shape).astype(np.float32)).to(cuda, dtype)
+
+
+def _rel(got, want):
+    return (got.float() - want.float()).abs().max().item() / max(1.0, want.float().abs().max().item())
 
 
 @pytest.fixture
@@ -52,10 +60,10 @@ def test_kernel_matches_plain(cuda, state, op, nf, gc, tol):
     ).to(cuda, state)
     p = {k: v.to(cuda) for k, v in _packed(nf, gc, op).items()}
     for u in (None, x * 0.5):
-        launches = TK.LAUNCHES
+        launches = TK.LAUNCHES["rdb_apply"]
         got = TK.rdb_apply(x, p, u)
         torch.cuda.synchronize()
-        assert TK.LAUNCHES == launches + 1
+        assert TK.LAUNCHES["rdb_apply"] == launches + 1
         want = TK.rdb_reference(x, p, state, op, u)
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * max(1.0, want.float().abs().max().item())
@@ -110,3 +118,119 @@ def test_tail_kernel_has_no_float32_instance(cuda):
     x = torch.zeros((1, 6, 6, 256), device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
         TLK.up2_hr_last_packed(x, tp)
+
+
+# the trunk modes' kernels (K5 packed, K3 chained, K4 paired): a small and a
+# ragged shape, bf16 operands; mixed tolerance as K1's (bf16 flips of c1..c4)
+SHAPES = ((1, 12, 12), (2, 23, 17))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize(
+    "state,nf,gc,tol",
+    [(torch.float32, 32, 16, 1e-3), (torch.float32, 64, 32, 1e-3), (torch.bfloat16, 32, 16, 1e-2)],
+)
+def test_packed_kernel_matches_plain(cuda, shape, state, nf, gc, tol):
+    x = _state(cuda, (*shape, nf), state)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.bfloat16, sched="packed").items()}
+    for u in (None, x * 0.5):
+        launches = TK.LAUNCHES["rdb_apply_packed"]
+        got = TK.rdb_apply_packed(x, p, u)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["rdb_apply_packed"] == launches + 1
+        assert _rel(got, TK.rdb_packed_reference(x, p, state, torch.bfloat16, u)) <= tol
+        assert torch.equal(got, TK.rdb_apply_packed(x, p, u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("state,nf,gc", [(torch.float32, 32, 16), (torch.bfloat16, 64, 32)])
+def test_chained_kernel_matches_scatter_kernel(cuda, shape, state, nf, gc):
+    """K3 computes K1's arithmetic on the chained layout: its image is
+    bit-equal to K1's output, with and without the flagged residual, and its
+    aprons stay zero; against the plain version within K1's tolerance."""
+    B, H, W = shape
+    x = _state(cuda, (B, H, W, nf), state)
+    u = _state(cuda, (B, H, W, nf), state, seed=9)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.bfloat16).items()}
+    xc, uc = TK.to_chained(x), TK.to_chained(u)
+    for flag in (0, 1):
+        out = torch.zeros_like(xc)
+        f = torch.tensor([flag], dtype=torch.int32, device=cuda)
+        launches = TK.LAUNCHES["rdb_apply_chained"]
+        TK.rdb_apply_chained(xc, p, uc, f, H, W, out)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["rdb_apply_chained"] == launches + 1
+        img = TK.from_chained(out, H, W)
+        assert torch.equal(img, TK.rdb_apply(x, p, u if flag else None))
+        want = TK.rdb_chained_reference(xc, p, uc, f, H, W, torch.zeros_like(xc), state, torch.bfloat16)
+        assert _rel(out, want) <= (1e-3 if state == torch.float32 else 1e-2)
+        rest = out.clone()
+        TK.from_chained(rest, H, W).zero_()
+        assert not rest.any()  # nothing written outside the image
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_paired_kernel_matches_plain(cuda, shape, nf, gc):
+    """K4 on hi + lo planes, with and without the residual: hi + lo within
+    the mixed tolerance of the plain version's."""
+    x = _state(cuda, (*shape, nf), torch.float32)
+    hi, lo = TK._split(x)
+    uh, ul = TK._split(x * 0.5)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.bfloat16).items()}
+    for u in (None, (uh, ul)):
+        launches = TK.LAUNCHES["rdb_apply_paired"]
+        h2, l2 = TK.rdb_apply_paired(hi, lo, p, u)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["rdb_apply_paired"] == launches + 1
+        assert h2.dtype == l2.dtype == torch.bfloat16
+        wh, wl = TK.rdb_paired_reference(hi, lo, p, u)
+        assert _rel(h2.float() + l2.float(), wh.float() + wl.float()) <= 1e-3
+        # lo stays a rounding remainder of hi
+        assert (l2.float().abs() <= h2.float().abs() * 2.0**-8 + 1e-30).all()
+
+
+@pytest.mark.gpu
+def test_trunk_mode_kernels_have_no_float32_instance(cuda):
+    x = torch.zeros((1, 8, 8, 32), device=cuda)
+    p32 = {k: v.to(cuda) for k, v in _packed(32, 16, torch.float32).items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        TK.rdb_apply_packed(x, p32)
+    xc = TK.to_chained(x)
+    f = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        TK.rdb_apply_chained(xc, p32, xc, f, 8, 8, torch.zeros_like(xc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [dict(trunk="chained"), dict(sched="packed")])
+def test_float32_engine_on_a_trunk_mode_raises(cuda, tmp_path, cfg):
+    """The trunk modes' kernels have bfloat16 operands only: a float32
+    engine that asks for one raises instead of running another trunk."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=32, gc=16))
+    e = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32", **cfg))
+    with pytest.raises(NotImplementedError, match="bfloat16 operands only"):
+        e.load(*files)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trunk", ["chained", "paired"])
+def test_trunk_kernels_match_per_rdb_kernel(cuda, trunk):
+    """Six RDBs (two RRDBs) on K3 / K4 against the K1 trunk, mixed mode:
+    chained is bit-equal (the same arithmetic); paired within K1's mixed
+    tolerance (hi + lo carries ~16 bits where K1 carries float32)."""
+    x = _state(cuda, (2, 23, 17, 32), torch.float32)
+    stacked = {k: torch.stack([v] * 6).to(cuda) for k, v in _packed(32, 16, torch.bfloat16).items()}
+    want = TK.rdb_trunk(x, stacked)
+    fn = TK.rdb_trunk_chained if trunk == "chained" else TK.rdb_trunk_paired
+    got = fn(x, stacked)
+    if trunk == "chained":
+        assert torch.equal(got, want)
+    else:
+        assert _rel(got, want) <= 1e-3

@@ -105,7 +105,7 @@ def test_plain_trunk_matches_jax_resident():
 
     packed = [_packed(p, torch.float32) for p in ps]
     stacked = {k: torch.stack([d[k] for d in packed]) for k in ("w", "b")}
-    launches = TK.LAUNCHES
+    launches = dict(TK.LAUNCHES)
     got = TK.rdb_trunk(torch.from_numpy(x), stacked).numpy()
     np.testing.assert_allclose(got, want, atol=5e-5)
     assert TK.LAUNCHES == launches  # the plain version launches nothing
@@ -128,7 +128,7 @@ def test_mma_fragment_order():
     column g (output channel), for conv 1."""
     nf, gc = 32, 16
     w1 = np.arange(gc * nf * 9, dtype=np.float32).reshape(gc, nf, 3, 3)
-    perm = TK._mma_perm(nf, gc)
+    perm = TK._perm(nf, gc, "scatter", True)
     dense = np.moveaxis(w1, 0, -1).ravel()  # conv 1 as [cin][3][3][cout]
     frag = dense[perm[:128]].reshape(8, 4, 4)  # [g][t][4 values]
     for g in range(8):
