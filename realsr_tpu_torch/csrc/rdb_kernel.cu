@@ -1,11 +1,8 @@
-// Fused residual dense block (RDB) for Hopper (sm_90a).
+// Fused residual dense block (RDB) for Hopper (sm_90a): the mma.sync forms.
 //
 // Replaces, in realsr_tpu/ops/rdb_kernel.py:
-//   K1 _rdb_kernel (one RDB per call, rdb_apply) and K2 _rdb_resident_kernel
-//      (the trunk with the RRDB residual folded in): form kScatter; one
-//      launch computes one RDB over a batch of NHWC tiles and, given `u` (the
-//      RRDB entry state), folds the RRDB residual into its epilogue, so the
-//      69-RDB trunk is 69 launches (ops/rdb_kernel.py::rdb_trunk);
+//   K1 _rdb_kernel and K2 _rdb_resident_kernel for float32 operands only
+//      (fp32::rdb_kernel below; bf16 operands run on csrc/rdb_wgmma.cu);
 //   K3 _rdb_kernel(chained=True) (rdb_apply_chained): form kChained;
 //   K4 _rdb_kernel(paired=True) (rdb_apply_paired): form kPaired;
 //   K5 the sched="packed" branch of _make_rdb_compute: form kPacked.
@@ -28,7 +25,7 @@
 // MACs at T = 16 and 1.58x at T = 10.
 //
 // Two kernels, chosen by the operand type:
-// - bf16 operands (mixed and bfloat16 modes): tensor cores, template
+// - bf16 operands (mixed and bfloat16 modes), K3-K5: tensor cores, template
 //   tc::rdb_kernel<Form, state type, nf, gc>. Shared memory holds bf16
 //   planes, pixel-major with the channels of a pixel contiguous and their
 //   16-byte chunks XOR-swizzled by pixel, so ldmatrix reads the A tile (16
@@ -42,15 +39,13 @@
 //   (H100 SXM): 2 m-tiles per item 0.715 ms, 4 (2 in stage 5) 0.601 ms,
 //   one item per warp 0.554 ms.
 //   The forms:
-//   * kScatter: the five convs in turn (a gather "dense" schedule; the TPU's
-//     scatter regrouping exists for the MXU's 128-lane shapes).
-//   * kChained: the same arithmetic on the persistent layout
+//   * kChained: K1's arithmetic (the five convs in turn) on the persistent layout
 //     [B, Hp + 10, Wp + 10, nf] (Hp, Wp: H, W rounded up to T; the image at
 //     row and column 5). The aprons are zeroed once when the trunk allocates
 //     its three buffers, and the kernel writes centre pixels only, so they
 //     stay zero and the window load has no bounds test; c1..c4 are still
 //     masked to zero outside the image. The residual folds where the device
-//     flag *flag == 1. Its output is bit-equal to kScatter's.
+//     flag *flag == 1.
 //   * kPaired: the state as two bf16 planes, x = hi + lo. The window is hi,
 //     copied as bf16 (no f32 pass); lo is read at the centre only. Epilogue:
 //     center = (0.2 c5 + hi) + lo, hi' = bf16(center), lo' = bf16(center -
@@ -66,7 +61,7 @@
 //     a2 (c2's region) shares its bytes with a4 + a5, born after a2 dies; T
 //     = 12 makes planes + partials fit: 137,216 + 67,392 = 204,608 B at nf
 //     = 64, gc = 32 (each partial pixel row padded by 4 floats).
-// - f32 operands (float32 mode): CUDA cores, the kScatter arithmetic only.
+// - f32 operands (float32 mode): CUDA cores, K1's arithmetic only.
 //   Shared memory holds f32 planes (one per channel), which caps T at 10
 //   (216 KB). A thread item is a 2 x 2 pixel block times 8 output channels:
 //   per input channel it reads the 4 x 4 input patch once and the 9 x 8
@@ -139,11 +134,10 @@ namespace tc {
 constexpr int kWarps = kThreads / 32;
 constexpr int kPadF = 4;  // floats of padding per pixel of the packed partial sums (banks)
 
-// The four forms of the kernel, one template:
+// The three forms of the kernel, one template:
 enum Form {
-  kScatter,  // K1/K2: one RDB, the five convs in turn, optional RRDB residual
-  kChained,  // K3: the same on the zero-aproned layout, residual where *flag == 1
-  kPaired,   // K4: the state as bf16 hi + lo planes
+  kChained,  // K3: the five convs in turn on the zero-aproned layout, residual where *flag == 1
+  kPaired,   // K4: the same with the state as bf16 hi + lo planes
   kPacked,   // K5: the five rectangles of the K-packed schedule
 };
 
@@ -182,7 +176,7 @@ constexpr size_t smem_bytes() {
 }
 
 // Rectangle r (1..5) of the weights: K rows (sources x taps x channels) by N
-// outputs. Scatter: conv r over {x, c1..c_{r-1}}. Packed: A {x} -> {c1, a2},
+// outputs. Chained, paired: conv r over {x, c1..c_{r-1}}. Packed: A {x} -> {c1, a2},
 // B {c1} -> {c2}, C {x, c1, c2} -> {c3, a4, a5}, D {c3} -> {c4, a5},
 // E {c4} -> {c5}.
 template <int F, int NF, int GC>
@@ -728,22 +722,14 @@ int launch(const void* x, const void* w, const void* bias, const void* u, void* 
 
 extern "C" {
 
-// One RDB over B tiles (K1/K2). state_bf16 / op_bf16 select the state and
-// operand types (0 = float32, 1 = bfloat16): f32/f32 runs on CUDA cores (any
-// nf, gc that are multiples of 8); f32/bf16 and bf16/bf16 on tensor cores
-// (nf, gc = 64, 32 or 32, 16). Returns the cudaError_t of the launch.
-int rdb_launch(const void* x, const void* w, const void* bias, const void* u, void* out,
-               int B, int H, int W, int nf, int gc, int state_bf16, int op_bf16,
-               void* stream) {
+// One RDB over B tiles (K1/K2) with float32 state and operands, on CUDA
+// cores (any nf, gc that are multiples of 8). Returns the cudaError_t of the
+// launch.
+int rdb_launch_f32(const void* x, const void* w, const void* bias, const void* u, void* out,
+                   int B, int H, int W, int nf, int gc, void* stream) {
   if (nf % 8 || gc % 8 || B < 1 || B > 65535 || H < 1 || W < 1)
     return int(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!state_bf16 && !op_bf16) return fp32::launch(x, w, bias, u, out, B, H, W, nf, gc, s);
-  if (!op_bf16) return int(cudaErrorInvalidValue);
-  tc::Params p{x, nullptr, u, nullptr, out, nullptr, nullptr,
-               static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-               H, W, H, W, 0, 0};
-  return tc::launch_state<tc::kScatter>(p, B, nf, gc, state_bf16, s);
+  return fp32::launch(x, w, bias, u, out, B, H, W, nf, gc, static_cast<cudaStream_t>(stream));
 }
 
 // K5: one RDB in the K-packed schedule (bf16 operands, nf, gc = 64, 32 or

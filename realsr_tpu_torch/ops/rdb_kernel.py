@@ -1,11 +1,16 @@
-"""Fused residual dense block: the Python side of ``csrc/rdb_kernel.cu``.
+"""Fused residual dense block: the Python side of ``csrc/rdb_wgmma.cu`` and
+``csrc/rdb_kernel.cu``.
 
-Counterpart of ``realsr_tpu/ops/rdb_kernel.py``. One CUDA source holds the
-five TPU kernels' counterparts (see its header), each with a wrapper here:
+Counterpart of ``realsr_tpu/ops/rdb_kernel.py``. The five TPU kernels'
+counterparts (see the sources' headers), each with a wrapper here:
 
 - :func:`rdb_apply` (K1 ``_rdb_kernel``, and K2 ``_rdb_resident_kernel``
   through :func:`rdb_trunk`): one RDB, optionally with the RRDB residual
-  ``0.2 * y + u`` in its epilogue; the 69-RDB trunk is 69 launches;
+  ``0.2 * y + u`` in its epilogue; the 69-RDB trunk is 69 launches. bfloat16
+  operands run on ``rdb_wgmma.cu`` (wgmma, its patch side from
+  :func:`rdb_geometry`), which reads its window from a bfloat16 operand
+  plane: :func:`rdb_trunk` threads the one each launch writes beside its
+  float32 output (the "shadow") into the next;
 - :func:`rdb_apply_packed` (K5, the ``sched="packed"`` branch of
   ``_make_rdb_compute``): one RDB in the K-packed schedule's five GEMM
   rectangles, on weights re-cut by ``pack_rdb_params(sched="packed")``;
@@ -21,7 +26,8 @@ packed weights' dtype (:func:`pack_rdb_params`). K1 has two kernels: float32
 state and operands (CUDA cores, nf and gc multiples of 8), and bfloat16
 operands with float32 (mixed) or bfloat16 state (tensor cores, nf, gc = 64,
 32 or 32, 16). K3 and K5 exist for bfloat16 operands, K4 for mixed mode
-(float32 state as hi + lo, bfloat16 operands), at those two shapes.
+(float32 state as hi + lo, bfloat16 operands), at those two shapes; they
+stay on the mma.sync template of ``rdb_kernel.cu``.
 
 A tensor on the CPU takes the plain PyTorch version (``*_reference``); a
 CUDA tensor launches the kernel or raises.
@@ -30,6 +36,7 @@ CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import threading
 from typing import Dict, Optional, Tuple
@@ -55,8 +62,15 @@ _DTYPE_PAIRS = {
     (torch.float32, torch.bfloat16): (0, 1),
     (torch.bfloat16, torch.bfloat16): (1, 1),
 }
-# (nf, gc) the tensor-core kernel is instantiated for
+# (nf, gc) the tensor-core kernels are instantiated for
 _TC_SHAPES = ((64, 32), (32, 16))
+# patch sides the wgmma RDB kernel is instantiated for (rdb_wgmma.cu::launch_tile)
+WGMMA_TILES = (17, 12, 8)
+# rdb_geometry's price of one block beyond its MACs (the window's load, each
+# stage's pipeline fill, barrier and epilogue), in MACs: fitted to the
+# kernel's times at T = 17, 12 and 8 on 8 x 148^2 (chip_smoke.py phase 3)
+BLOCK_OVERHEAD_MACS = 20_000_000
+HALO = 5  # receptive field of an RDB's five 3x3 convs
 SCHEDS = ("scatter", "packed")
 # the chained layout: output patch side of its kernel, and the apron (the
 # halo of five 3x3 convs) around the image
@@ -76,18 +90,37 @@ def _rects(sched: str):
     raise ValueError(f"unknown sched {sched!r}; expected one of {SCHEDS}")
 
 
+def _step_order(order: str, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(n, k) of each element of one k-step (16 rows k x ``n_out`` columns
+    n of a rectangle) in the order the kernel reads them.
+
+    'mma': ``n_out / 8`` mma.sync B fragments of 32 lanes x 4 values: lane
+    ``4 * g + t`` holds rows ``2t, 2t + 1, 2t + 8, 2t + 9`` of column ``g``.
+    'wgmma': wgmma's canonical K-major layout without swizzle, as
+    rdb_wgmma.cu's matrix descriptor reads it: 8 x 8 core matrices (8 n, 8
+    consecutive k: 128 bytes), the two k halves of an 8-column group next to
+    each other (leading offset 128 bytes), the groups 256 bytes apart.
+    """
+    if order == "mma":
+        nb, g, t, h, e = np.meshgrid(*(np.arange(m) for m in (n_out // 8, 8, 4, 2, 2)), indexing="ij")
+        return (nb * 8 + g).ravel(), (h * 8 + t * 2 + e).ravel()
+    if order == "wgmma":
+        i = np.arange(16 * n_out)
+        return (i // 128) * 8 + (i // 8) % 8, ((i // 64) % 2) * 8 + i % 8
+    raise ValueError(f"unknown k-step order {order!r}")
+
+
 @functools.lru_cache(maxsize=16)
-def _perm(nf: int, gc: int, sched: str, frag: bool) -> np.ndarray:
+def _perm(nf: int, gc: int, sched: str, frag: bool, order: str = "mma") -> np.ndarray:
     """Index map from the dense layout (each conv as ``[cin][3][3][cout]``,
     back to back) to the kernel's: ``packed = dense[perm]``.
 
     The rectangles (:func:`_rects`) follow each other. ``frag`` False: each
     rectangle as ``[K][N]`` with K over (source, channel, tap), which for
     'scatter' is the dense layout itself. ``frag`` True (tensor cores):
-    k-steps over (source, tap, 16-channel block) in the order the kernel
-    walks them; each k-step holds ``N / 8`` mma.sync B fragments of 32
-    lanes x 4 values: lane ``4 * g + t`` holds rows ``2t, 2t + 1, 2t + 8,
-    2t + 9`` of column ``g``.
+    k-steps over (source, tap, 16-channel block) in the order the kernels
+    walk them, each k-step in :func:`_step_order` ``order`` ('mma' for the
+    mma.sync kernels K3-K5, 'wgmma' for rdb_wgmma.cu's K1).
     """
     if frag and (nf % 16 or gc % 16):
         raise ValueError(f"the fragment order needs nf, gc multiples of 16 (got {nf}, {gc})")
@@ -112,11 +145,7 @@ def _perm(nf: int, gc: int, sched: str, frag: bool) -> np.ndarray:
         width = np.concatenate([np.full(cout(i), cout(i)) for i in convs])
         co = np.concatenate([np.arange(cout(i)) for i in convs])
         if frag:
-            nb, g, t, h, e = np.meshgrid(
-                *(np.arange(n) for n in (co.size // 8, 8, 4, 2, 2)), indexing="ij"
-            )
-            n = (nb * 8 + g).ravel()
-            k = (h * 8 + t * 2 + e).ravel()
+            n, k = _step_order(order, co.size)
             for j in sources:
                 for tap in range(9):
                     for kb in range(cin(j) // 16):
@@ -139,9 +168,9 @@ def _frag(dtype, nf: int, gc: int) -> bool:
 
 
 @functools.lru_cache(maxsize=16)
-def _perm_on(nf: int, gc: int, sched: str, frag: bool, device: torch.device) -> torch.Tensor:
+def _perm_on(nf: int, gc: int, sched: str, frag: bool, order: str, device: torch.device) -> torch.Tensor:
     """:func:`_perm` as an index tensor on ``device``."""
-    return torch.from_numpy(_perm(nf, gc, sched, frag)).to(device)
+    return torch.from_numpy(_perm(nf, gc, sched, frag, order)).to(device)
 
 
 def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: str = "scatter"):
@@ -154,7 +183,10 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
     rectangles (:func:`_rects`) back to back, each as ``[K][N]`` for float32
     operands, and in the tensor-core fragment order for bfloat16
     (:func:`_perm`, :func:`_frag`). ``sched="packed"`` re-cuts the same weight values into
-    the K-packed schedule's rectangles, for :func:`rdb_apply_packed`.
+    the K-packed schedule's rectangles, for :func:`rdb_apply_packed`. Where
+    ``w`` is in fragment order for 'scatter', ``"wg"`` holds the same
+    weights in the wgmma kernel's order (``_perm(..., order="wgmma")``):
+    K1 reads ``wg``, K3 and K4 read ``w``.
     """
     _rects(sched)
     ws, bs = [], []
@@ -165,24 +197,29 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
     w = np.concatenate(ws, -1)
     gc, nf = np.shape(rdb["w1"])[-4:-2]
     frag = _frag(op_dtype, nf, gc)
+    out = {}
+    if frag and sched == "scatter":
+        wg = w[..., _perm(nf, gc, sched, True, "wgmma")]
+        out["wg"] = torch.from_numpy(np.ascontiguousarray(wg)).to(op_dtype)
     if frag or sched != "scatter":
         w = w[..., _perm(nf, gc, sched, frag)]
-    return {
-        "w": torch.from_numpy(np.ascontiguousarray(w)).to(op_dtype),
-        "b": torch.from_numpy(np.concatenate(bs, -1)),
-    }
+    out["w"] = torch.from_numpy(np.ascontiguousarray(w)).to(op_dtype)
+    out["b"] = torch.from_numpy(np.concatenate(bs, -1))
+    return out
 
 
 def unpack_rdb_params(
-    p: Dict[str, torch.Tensor], nf: int, sched: str = "scatter"
+    p: Dict[str, torch.Tensor], nf: int, sched: str = "scatter", key: str = "w"
 ) -> Dict[str, torch.Tensor]:
-    """Inverse of :func:`pack_rdb_params` for one RDB: OIHW tensors."""
-    w, b = p["w"], p["b"]
+    """Inverse of :func:`pack_rdb_params` for one RDB: OIHW tensors, from
+    ``p[key]`` (``"wg"``: the wgmma kernel's copy)."""
+    w, b = p[key], p["b"]
     gc = (b.shape[-1] - nf) // 4
     frag = _frag(w.dtype, nf, gc)
     if frag or sched != "scatter":
         dense = torch.empty_like(w)
-        dense[_perm_on(nf, gc, sched, frag, w.device)] = w
+        order = "wgmma" if key == "wg" else "mma"
+        dense[_perm_on(nf, gc, sched, frag, order, w.device)] = w
         w = dense
     out = {}
     off, cin = 0, nf
@@ -196,15 +233,21 @@ def unpack_rdb_params(
     return out
 
 
-def rdb_reference(x, p, storage_dtype, op_dtype, u=None):
+def rdb_reference(x, p, storage_dtype, op_dtype, u=None, xs=None):
     """Plain PyTorch version of K1: one RDB on NHWC ``x``.
 
     Operands are rounded to ``op_dtype`` and convolved in float32. With TF32
     off (:func:`~realsr_tpu_torch.models.rrdbnet.tf32`) on a GPU, it
     differs from the kernel on the same inputs only in the order of the sums.
+    ``xs``: ``x`` already rounded to ``op_dtype`` (the operand plane
+    :func:`rdb_trunk` threads); the convs read it, the residual reads ``x``.
     """
     w = unpack_rdb_params(p, x.shape[-1])
-    y = _rdb(x.permute(0, 3, 1, 2), w, storage_dtype, op_dtype)
+    if xs is None:
+        y = _rdb(x.permute(0, 3, 1, 2), w, storage_dtype, op_dtype)
+    else:
+        c5 = _rdb_c5(xs.permute(0, 3, 1, 2).float(), w, storage_dtype, op_dtype)
+        y = (RESIDUAL_SCALE * c5 + x.permute(0, 3, 1, 2).float()).to(storage_dtype)
     return _nhwc_out(_residual(y, u, storage_dtype))
 
 
@@ -309,22 +352,88 @@ def rdb_paired_reference(hi, lo, p, u=None):
     return _nhwc_out(hi2), _nhwc_out(lo2)
 
 
-def _library():
-    from realsr_tpu_torch.ops.build import load_library
+@dataclasses.dataclass(frozen=True)
+class RdbGeometry:
+    """The wgmma RDB kernel's grid for one chunk (:func:`rdb_geometry`)."""
 
-    lib = load_library("rdb_kernel")
+    tile: int  # output patch side T
+    patches: Tuple[int, int]  # patch rows and columns of one image
+    blocks: int  # patches x images: one block each, one block per SM
+    waves: float  # blocks / SMs
+    fill: float  # blocks / (whole waves x SMs)
+    mac_factor: float  # MACs the blocks issue / the RDB's MACs
+
+
+def block_macs(tile: int, nf: int, gc: int) -> int:
+    """MACs one block issues: each stage's region in 64-row tiles, times
+    its K (9 taps x its input channels) and N (gc or nf)."""
+    total = 0
+    for r in range(1, 6):
+        side = tile + 2 * HALO - 2 * r
+        rows = -(-side * side // 64) * 64
+        total += rows * 9 * (nf + (r - 1) * gc) * (gc if r < 5 else nf)
+    return total
+
+
+def rdb_macs_per_pixel(nf: int, gc: int) -> int:
+    return 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
+
+
+def rdb_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
+    """The patch side of :data:`WGMMA_TILES` that finishes ``B`` tiles of
+    ``H x W`` soonest on ``sms`` SMs, one block per SM: the fewest whole
+    waves times a block's price (the MACs it issues plus
+    :data:`BLOCK_OVERHEAD_MACS`; the larger side on a tie). At 8 x 148^2 on
+    132 SMs: T = 17, 648 blocks in 4.91 waves."""
+    best = None
+    for tile in sorted(WGMMA_TILES, reverse=True):
+        py, px = -(-H // tile), -(-W // tile)
+        blocks = B * py * px
+        waves = -(-blocks // sms)
+        cost = waves * (block_macs(tile, nf, gc) + BLOCK_OVERHEAD_MACS)
+        if best is None or cost < best[0]:
+            best = (cost, tile, (py, px), blocks, waves)
+    _, tile, patches, blocks, waves = best
+    return RdbGeometry(
+        tile=tile, patches=patches, blocks=blocks, waves=blocks / sms,
+        fill=blocks / (waves * sms),
+        mac_factor=blocks * block_macs(tile, nf, gc) / (B * H * W * rdb_macs_per_pixel(nf, gc)),
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bind(lib, fns):
     if not getattr(lib, "_realsr_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rdb_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp]
-        lib.rdb_launch_packed.argtypes = [vp] * 5 + [ci] * 6 + [vp]
-        lib.rdb_launch_chained.argtypes = [vp] * 6 + [ci] * 8 + [vp]
-        lib.rdb_launch_paired.argtypes = [vp] * 8 + [ci] * 5 + [vp]
-        for f in (lib.rdb_launch, lib.rdb_launch_packed, lib.rdb_launch_chained, lib.rdb_launch_paired):
+        for name, (n_ptr, n_int) in fns.items():
+            f = getattr(lib, name)
+            f.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
             f.restype = ci
         lib.rdb_error_string.argtypes = [ci]
         lib.rdb_error_string.restype = ctypes.c_char_p
         lib._realsr_bound = True
     return lib
+
+
+def _library():
+    """rdb_kernel.cu: K1 for float32 operands, and K3-K5."""
+    from realsr_tpu_torch.ops.build import load_library
+
+    return _bind(load_library("rdb_kernel"), {
+        "rdb_launch_f32": (5, 5), "rdb_launch_packed": (5, 6),
+        "rdb_launch_chained": (6, 8), "rdb_launch_paired": (8, 5),
+    })
+
+
+def _wgmma_library():
+    """rdb_wgmma.cu: K1/K2 for bfloat16 operands."""
+    from realsr_tpu_torch.ops.build import load_library
+
+    return _bind(load_library("rdb_wgmma"), {"rdb_wgmma_launch": (7, 7)})
 
 
 def _check(name, t, device, dtype, numel=None, shape=None):
@@ -361,7 +470,7 @@ def _cuda_operands(fn: str, x, w, b, tensor_cores: bool):
         raise ValueError(f"{fn}: nf={nf}, gc={gc} must be positive multiples of 8")
     if w.dtype == torch.bfloat16 and (nf, gc) not in _TC_SHAPES:
         raise ValueError(f"{fn}: no tensor-core kernel for nf={nf}, gc={gc}")
-    k = 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
+    k = rdb_macs_per_pixel(nf, gc)
     _check("x", x, x.device, x.dtype)
     _check("w", w, x.device, w.dtype, numel=k)
     _check("b", b, x.device, torch.float32, numel=nf + 4 * gc)
@@ -388,6 +497,8 @@ def rdb_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Ten
     w, b = p["w"], p["b"]
     if x.device.type == "cpu":
         return rdb_reference(x, p, x.dtype, w.dtype, u)
+    if w.dtype == torch.bfloat16:
+        return _rdb_wgmma(x, _operand_plane(x, w.dtype), p, u, shadow=False)[0]
     nf, gc, pair = _cuda_operands("rdb_apply", x, w, b, tensor_cores=False)
     if u is not None:
         _check("u", u, x.device, x.dtype, shape=x.shape)
@@ -395,13 +506,54 @@ def rdb_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Ten
     out = torch.empty_like(x)
     lib = _library()
     with torch.cuda.device(x.device):
-        err = lib.rdb_launch(
+        err = lib.rdb_launch_f32(
             x.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if u is None else u.data_ptr(), out.data_ptr(),
-            B, H, W, nf, gc, *pair, _stream(x),
+            B, H, W, nf, gc, _stream(x),
         )
     _launched("rdb_apply", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, {x.dtype} / {w.dtype}")
     return out
+
+
+def _operand_plane(x: torch.Tensor, op_dtype) -> Optional[torch.Tensor]:
+    """The bfloat16 operand plane of the state ``x`` that the wgmma kernel
+    reads its window from: ``x`` itself in bfloat16 mode, else ``x``
+    rounded to bfloat16 (as the plain version rounds it); None for other
+    operand types."""
+    if op_dtype != torch.bfloat16:
+        return None
+    return x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+
+
+def _rdb_wgmma(x, xs, p, u, shadow: bool, tile: Optional[int] = None):
+    """K1 on the card with bfloat16 operands: (the new state, its bfloat16
+    operand plane or None). ``xs``: ``x``'s operand plane; ``shadow``:
+    write bf16(out) beside a float32 ``out``; ``tile``: a patch side of
+    :data:`WGMMA_TILES` in place of :func:`rdb_geometry`'s choice."""
+    w, b = p["w"], p["b"]
+    nf, gc, pair = _cuda_operands("rdb_apply", x, w, b, tensor_cores=True)
+    if "wg" not in p:
+        raise ValueError("rdb_apply: p has no 'wg' weights (pack_rdb_params with bfloat16 operands)")
+    _check("wg", p["wg"], x.device, torch.bfloat16, numel=w.numel())
+    _check("xs", xs, x.device, torch.bfloat16, shape=x.shape)
+    if u is not None:
+        _check("u", u, x.device, x.dtype, shape=x.shape)
+    B, H, W, _ = x.shape
+    if tile is None:
+        tile = rdb_geometry(B, H, W, nf, gc, _sm_count(x.device)).tile
+    elif tile not in WGMMA_TILES:
+        raise ValueError(f"rdb_apply: no kernel for patch side {tile}; built for {WGMMA_TILES}")
+    out = torch.empty_like(x)
+    sh = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) if shadow else None
+    lib = _wgmma_library()
+    with torch.cuda.device(x.device):
+        err = lib.rdb_wgmma_launch(
+            xs.data_ptr(), x.data_ptr(), p["wg"].data_ptr(), b.data_ptr(),
+            None if u is None else u.data_ptr(), out.data_ptr(), None if sh is None else sh.data_ptr(),
+            B, H, W, nf, gc, pair[0], tile, _stream(x),
+        )
+    _launched("rdb_apply", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, T={tile}, {x.dtype}")
+    return out, sh
 
 
 def rdb_apply_packed(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Tensor] = None):
@@ -488,21 +640,44 @@ def rdb_apply_paired(
 
 
 def _rdb_k(stacked, k):
-    return {"w": stacked["w"][k], "b": stacked["b"][k]}
+    return {name: v[k] for name, v in stacked.items()}
+
+
+def _rdb_step(x, xs, p, u, keep: bool):
+    """One RDB of :func:`rdb_trunk` on ``x`` and its operand plane ``xs``:
+    (the new state, its operand plane if ``keep``, else None)."""
+    w = p["w"]
+    if x.device.type == "cpu":
+        y = rdb_reference(x, p, x.dtype, w.dtype, u, xs)
+        return y, (_operand_plane(y, w.dtype) if keep else None)
+    if w.dtype != torch.bfloat16:
+        return rdb_apply(x, p, u), None
+    out, sh = _rdb_wgmma(x, xs, p, u, shadow=keep and x.dtype != torch.bfloat16)
+    return out, (out if x.dtype == torch.bfloat16 else sh)
 
 
 def rdb_trunk(x: torch.Tensor, stacked: Dict[str, torch.Tensor], sched: str = "scatter") -> torch.Tensor:
-    """The RRDB trunk: ``stacked["w"]`` / ``["b"]`` are ``[n_rdb, ...]``
-    (:func:`pack_rdb_params` with the ``[num_rrdb, 3]`` lead dims merged).
-    The RRDB residual ``0.2 * y + u`` folds into every third RDB, ``u`` being
-    the state that entered its RRDB (x4.param's Eltwise coeffs [0.2, 1.0]).
-    ``sched="packed"`` runs each RDB on K5 (:func:`rdb_apply_packed`)."""
-    apply = rdb_apply_packed if sched == "packed" else rdb_apply
+    """The RRDB trunk: ``stacked["w"]`` / ``["b"]`` (and ``["wg"]``) are
+    ``[n_rdb, ...]`` (:func:`pack_rdb_params` with the ``[num_rrdb, 3]`` lead
+    dims merged). The RRDB residual ``0.2 * y + u`` folds into every third
+    RDB, ``u`` being the state that entered its RRDB (x4.param's Eltwise
+    coeffs [0.2, 1.0]). With bfloat16 operands the state's bfloat16 operand
+    plane is cast once from ``x`` and then written by each RDB beside its
+    output for the next. ``sched="packed"`` runs each RDB on K5
+    (:func:`rdb_apply_packed`)."""
+    n = stacked["w"].shape[0]
     t = u = x
-    for k in range(stacked["w"].shape[0]):
+    if sched == "packed":
+        for k in range(n):
+            if k % 3 == 0:
+                u = t
+            t = rdb_apply_packed(t, _rdb_k(stacked, k), u if k % 3 == 2 else None)
+        return t
+    xs = _operand_plane(x, stacked["w"].dtype)
+    for k in range(n):
         if k % 3 == 0:
             u = t
-        t = apply(t, _rdb_k(stacked, k), u if k % 3 == 2 else None)
+        t, xs = _rdb_step(t, xs, _rdb_k(stacked, k), u if k % 3 == 2 else None, k + 1 < n)
     return t
 
 

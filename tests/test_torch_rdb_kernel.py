@@ -111,12 +111,21 @@ def test_plain_trunk_matches_jax_resident():
     assert TK.LAUNCHES == launches  # the plain version launches nothing
 
 
-@pytest.mark.parametrize("nf,gc,op", [(16, 8, torch.float32), (32, 16, torch.bfloat16)])
-def test_pack_unpack_roundtrip(nf, gc, op):
+@pytest.mark.parametrize(
+    "nf,gc,op,key",
+    [
+        (16, 8, torch.float32, "w"),
+        (32, 16, torch.bfloat16, "w"),  # mma.sync fragment order (K3-K5)
+        (32, 16, torch.bfloat16, "wg"),  # wgmma order (K1)
+        (64, 32, torch.bfloat16, "wg"),
+    ],
+)
+def test_pack_unpack_roundtrip(nf, gc, op, key):
     p = params_from_jax({"rdb": _mk_params(nf, gc, seed=2)})["rdb"]
     packed = TK.pack_rdb_params(p, op)
-    assert packed["w"].shape == (9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5)),)
-    back = TK.unpack_rdb_params(packed, nf)
+    assert packed[key].shape == (9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5)),)
+    assert ("wg" in packed) == (op == torch.bfloat16)
+    back = TK.unpack_rdb_params(packed, nf, key=key)
     for k, v in p.items():
         want = torch.from_numpy(v).to(op if k.startswith("w") else torch.float32)
         np.testing.assert_array_equal(back[k].float().numpy(), want.float().numpy())
@@ -136,6 +145,106 @@ def test_mma_fragment_order():
             rows = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
             np.testing.assert_array_equal(frag[g, t], w1[g, rows, 0, 0])
     assert np.array_equal(np.sort(perm), np.arange(perm.size))
+
+
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_wgmma_slice_order(nf, gc):
+    """Spot-check the wgmma kernel's B layout: a k16 slice of N outputs is
+    K-major without swizzle, element (n, k) at (n // 8) * 128 + (k // 8) *
+    64 + (n % 8) * 8 + k % 8; the slices follow (conv, source, tap,
+    16-channel block). Checked: conv 1's first slice (x, tap 0, channels
+    0..15), conv 2's slice of source c1 at tap 4, and conv 5's last slice."""
+    ws = {i: np.arange(i * 10**6, i * 10**6 + (gc if i < 5 else nf) * (nf + (i - 1) * gc) * 9,
+                       dtype=np.float64).reshape(gc if i < 5 else nf, nf + (i - 1) * gc, 3, 3)
+          for i in range(1, 6)}
+    perm = TK._perm(nf, gc, "scatter", True, "wgmma")
+    dense = np.concatenate([np.moveaxis(ws[i], 0, -1).ravel() for i in range(1, 6)])
+    packed = dense[perm]
+    n_steps = [9 * (nf + (i - 1) * gc) // 16 for i in range(1, 6)]
+    starts = np.cumsum([0] + [s * 16 * (gc if i < 4 else nf) for i, s in enumerate(n_steps)])
+
+    def slice_at(conv, step):
+        n_out = gc if conv < 5 else nf
+        o = starts[conv - 1] + step * 16 * n_out
+        return packed[o : o + 16 * n_out]
+
+    def check(conv, step, cin0, tap):
+        got = slice_at(conv, step)
+        n_out = gc if conv < 5 else nf
+        for n in range(n_out):
+            for k in range(16):
+                idx = (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+                assert got[idx] == ws[conv][n, cin0 + k, tap // 3, tap % 3], (conv, step, n, k)
+
+    check(1, 0, 0, 0)
+    # conv 2: x takes 9 taps x nf / 16 steps, then c1 (channels nf..) tap by tap
+    check(2, 9 * nf // 16 + 4 * (gc // 16), nf, 4)
+    # conv 5's last step: c4's last 16 channels at tap 8
+    check(5, n_steps[4] - 1, nf + 4 * gc - 16, 8)
+    assert np.array_equal(np.sort(perm), np.arange(perm.size))
+
+
+# shapes for rdb_geometry: the main path's chunk, single and ragged tiles,
+# sides below every patch side, one pixel
+GEOMETRY_SHAPES = [(8, 148, 148), (1, 148, 148), (8, 148, 52), (2, 23, 17), (1, 5, 7), (3, 1, 40), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("B,H,W", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("nf,gc,sms", [(64, 32, 132), (32, 16, 16)])
+def test_rdb_geometry_matches_brute_force(B, H, W, nf, gc, sms):
+    """rdb_geometry against a block-by-block count: each block's five
+    regions rounded up to 64-row tiles times K x N, the blocks, the waves on
+    ``sms`` SMs, and the patch side that minimises waves x block price."""
+    useful = B * H * W * 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
+
+    def count(tile):
+        blocks, macs = 0, 0
+        for _ in range(B):
+            for _y in range(0, H, tile):
+                for _x in range(0, W, tile):
+                    blocks += 1
+                    for r in range(1, 6):
+                        side = tile + 10 - 2 * r
+                        rows = -(-(side * side) // 64) * 64
+                        macs += rows * 9 * (nf + (r - 1) * gc) * (gc if r < 5 else nf)
+        return blocks, macs
+
+    prices = {}
+    for tile in TK.WGMMA_TILES:
+        blocks, macs = count(tile)
+        waves = -(-blocks // sms)
+        prices[tile] = waves * (macs // blocks + TK.BLOCK_OVERHEAD_MACS)
+    best = min(prices.values())
+    want = max(t for t, c in prices.items() if c == best)
+    geo = TK.rdb_geometry(B, H, W, nf, gc, sms)
+    blocks, macs = count(want)
+    assert geo.tile == want
+    assert geo.patches == (-(-H // want), -(-W // want))
+    assert geo.blocks == blocks
+    assert geo.waves == pytest.approx(blocks / sms)
+    assert geo.fill == pytest.approx(blocks / (-(-blocks // sms) * sms))
+    assert geo.mac_factor == pytest.approx(macs / useful)
+    if (B, H, W, nf, sms) == (8, 148, 148, 64, 132):
+        assert (geo.tile, geo.blocks) == (17, 648)
+
+
+def test_plain_trunk_threads_operand_plane():
+    """Mixed mode on the CPU: rdb_trunk threads each RDB's bfloat16 operand
+    plane into the next (the plain path's counterpart of the kernel's
+    shadow), and equals the trunk of lone rdb_apply calls, which round x
+    themselves, exactly."""
+    H, W, gc = 9, 11, 16
+    ps = [_mk_params(NF, gc, seed=10 + s, wstd=0.05) for s in range(6)]
+    packed = [_packed(p, torch.bfloat16) for p in ps]
+    stacked = {k: torch.stack([d[k] for d in packed]) for k in packed[0]}
+    x = torch.from_numpy(np.random.default_rng(2).random((2, H, W, NF)).astype(np.float32))
+    t = u = x
+    for k in range(6):
+        if k % 3 == 0:
+            u = t
+        t = TK.rdb_apply(t, {n: v[k] for n, v in stacked.items()}, u if k % 3 == 2 else None)
+    got = TK.rdb_trunk(x, stacked)
+    assert torch.equal(got, t)
 
 
 def test_rdb_apply_cpu_takes_plain_version():
