@@ -5,17 +5,20 @@ Phases (each prints its lines; any failure exits non-zero):
 1. card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
 2. build: the fused RDB and tail kernels from ``realsr_tpu_torch/csrc``, one
    nvcc for each source, started together (``rdb_wgmma.cu``: K1/K2 for bf16
-   operands; ``rdb_kernel.cu``: K1 for float32 operands and K3-K5), with
-   each RDB kernel's registers and spills from ``-Xptxas -v`` and the count
-   of wgmma (HGMMA), TMA and bulk-copy instructions in K1's SASS;
+   operands; ``rdb_kernel.cu``: K1 for float32 operands and K3-K5;
+   ``tail_kernel.cu``: K6/K7), with each kernel's registers and spills from
+   ``-Xptxas -v`` and the count of wgmma (HGMMA), TMA and bulk-copy
+   instructions in K1's and the tail's SASS;
 3. the RDB kernel against its plain PyTorch version at the main path's shape
    (8 tiles of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): the
    wgmma kernel's patch geometry, one RDB in mixed and float32 mode, the
    69-RDB trunk with the RRDB residual, with CUDA-event times of both, and
    the mixed RDB at each patch side the kernel is built for;
 3b. the tail kernels K6 (up2 + HRconv + conv_last) and K7 (HRconv +
-   conv_last) against their plain versions at the same shape and at a
-   ragged 2 x 37 x 21, with CUDA-event times;
+   conv_last) against their plain versions at the same shape, at a ragged
+   2 x 37 x 21 and at 9 x 37 x 37 (4x sides no multiple of the patch
+   shape), with the tail's patch geometry and CUDA-event times, also at
+   each patch shape the kernel is built for;
 3c. the trunk's alternative modes' kernels at the phase-3 shape, mixed:
    K5 (the K-packed schedule) and K4 (the paired bf16 carry) for one RDB
    against their plain versions, K4's 69-RDB trunk against the plain paired
@@ -89,7 +92,9 @@ PSNR_SLACK = 1.0
 SAME_MIN = 0.999  # float32 kernel vs float32 plain: share of equal u8 values
 STEADY_HW = (768, 1024)  # phase 6 image
 TAILS = ("interleaved", "packed", "kernel_hr", "kernel")  # models.rrdbnet.TAIL_MODES
-TAIL_SHAPES = ((B, SIDE, SIDE), (2, 37, 21))  # phase 3b: the main path's, and ragged
+# phase 3b: the main path's; ragged 16 x 16 patches; more 12 x 28 patches than
+# SMs, none whole at the right and bottom edges
+TAIL_SHAPES = ((B, SIDE, SIDE), (2, 37, 21), (9, 37, 37))
 # the trunk's alternative modes: engine config, the rrdbnet module flag or
 # REALSR_TPU_SCHED value that selects it through the CLI, its launch count
 MODES = {
@@ -115,7 +120,7 @@ def bound(macs: float, moved: int) -> tuple:
 
 def ptxas_rows(log: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) per entry
-    function of an ``nvcc -Xptxas -v`` log of either RDB source."""
+    function of an ``nvcc -Xptxas -v`` log of a kernel source."""
     import re
 
     forms = {"0": "K3", "1": "K4", "2": "K5"}
@@ -124,7 +129,10 @@ def ptxas_rows(log: str) -> list:
         name = part.split("'", 1)[0]
         m = re.search(r"tc10rdb_kernelILi(\d)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
         w = re.search(r"rdb_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
-        if m:
+        t = re.search(r"tail_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
+        if t:
+            label = f"{'K6' if t.group(3) == '1' else 'K7'} {t.group(1)}x{t.group(2)}"
+        elif m:
             label = f"{forms[m.group(1)]} {'f32' if m.group(2) == 'f' else 'bf16'} state {m.group(3)}/{m.group(4)}"
         elif w:
             label = (f"K1 wgmma T={w.group(1)} {'f32' if w.group(2) == 'f' else 'bf16'} state "
@@ -402,7 +410,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{s} {build.BUILD_SECONDS[s]:.2f} s" for s in sources) + f") {card}",
           flush=True)
-    for src in ("rdb_wgmma", "rdb_kernel"):
+    for src in sources:
         if build.BUILD_LOG[src]:
             rows = ptxas_rows(build.BUILD_LOG[src])
             check(all(r[1] > 0 for r in rows), f"ptxas log without register counts: {rows}")
@@ -416,6 +424,10 @@ def main() -> int:
     check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UBLKCP"] > 0,
           f"rdb_wgmma.cu: SASS without wgmma / TMA / bulk copies: {ops}")
     print("SASS rdb_wgmma.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()),
+          flush=True)
+    ops = sass_counts("tail_kernel")
+    check(ops["HGMMA"] > 0 and ops["UBLKCP"] > 0, f"tail_kernel.cu: SASS without wgmma / bulk copies: {ops}")
+    print("SASS tail_kernel.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()),
           flush=True)
 
     dev = torch.device("cuda", 0)
@@ -506,10 +518,21 @@ def main() -> int:
         bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
         tp16 = {k: v.to(dev) for k, v in bundle.params["tail"].items()}
         tp32 = {k: v.to(dev) for k, v in tk.pack_tail_params(bundle.params, torch.float32).items()}
-        for b_, h_, w_ in TAIL_SHAPES:
-            # post-lrelu activations, as up1 and up2 leave them
-            p1 = np.abs(rng.normal(0.0, 0.5, (b_, h_ + 1, w_ + 1, 4 * NF)))
-            p2 = np.abs(rng.normal(0.0, 0.5, (b_, h_, w_, 16 * NF)))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for up, label in ((True, "K6"), (False, "K7")):
+            for b_, h_, w_ in TAIL_SHAPES:
+                g = tk.tail_geometry(b_, h_, w_, up, sms)
+                print(f"tail geometry {label} B={b_} {h_}x{w_} -> {4 * h_}x{4 * w_}: patch {g.tile[0]}x{g.tile[1]}, "
+                      f"{g.patches[0]}x{g.patches[1]} patches per tile, {g.blocks} patches on {g.grid} persistent "
+                      f"blocks = {g.waves:.3f} waves (fill {100 * g.fill:.1f} %), issued MACs "
+                      f"{g.mac_factor:.3f}x the tail's", flush=True)
+        for n_shape, (b_, h_, w_) in enumerate(TAIL_SHAPES):
+            # post-lrelu activations, as up1 and up2 leave them; shapes past
+            # the first two draw from their own generator, so that the images
+            # phases 4 and 5 draw from rng do not depend on the shapes here
+            src = rng if n_shape < 2 else np.random.default_rng(n_shape)
+            p1 = np.abs(src.normal(0.0, 0.5, (b_, h_ + 1, w_ + 1, 4 * NF)))
+            p2 = np.abs(src.normal(0.0, 0.5, (b_, h_, w_, 16 * NF)))
             for label, fn, arr in (("K6", "up2_hr_last_packed", p1), ("K7", "hr_last_packed", p2)):
                 xin = torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
                 timed = (b_, h_, w_) == TAIL_SHAPES[0]
@@ -523,6 +546,21 @@ def main() -> int:
                     results[(label, "mixed")] = (err, ms, pms)
                     # the input, the packed tail weights, the [B, 4H, 4W, 3] f32 output
                     results[(label, "io")] = nbytes(xin, *tp16.values()) + b_ * 16 * h_ * w_ * 3 * 4
+                    # the patch shape alone: the kernel at each shape it is built for
+                    up = label == "K6"
+                    with tf32(False):
+                        exact = getattr(tk, fn.replace("_packed", "_reference"))(xin.float(), tp32)
+                    for tile in tk.TAIL_TILES:
+                        e_t = rel_err(tk._launch(fn, xin, tp16, up, tile), exact)[0]
+                        check(e_t <= max(2 * e_p, 1e-3),
+                              f"{label} at {tile}: max|kernel - f32 plain| {e_t} > max(2 x {e_p}, 1e-3)")
+                        t_ms = cuda_ms(lambda: tk._launch(fn, xin, tp16, up, tile), 2, 10)
+                        n_t = b_ * -(-4 * h_ // tile[0]) * -(-4 * w_ // tile[1])
+                        f_t = n_t * tk.tail_block_macs(*tile, up) / (b_ * 16 * h_ * w_ * tk.tail_macs_per_pixel(up))
+                        print(f"tail {label} at patch {tile[0]}x{tile[1]}: {n_t} patches, issued MACs "
+                              f"{f_t:.3f}x the tail's; vs float32 plain {e_t:.3e}; kernel {t_ms:.3f} ms "
+                              f"{card}", flush=True)
+                    del exact
                 del xin
         del bundle, tp16, tp32
         torch.cuda.empty_cache()
@@ -859,10 +897,10 @@ def main() -> int:
          "realsr_tpu/ops/rdb_kernel.py:595", mode_launches["rdb_apply_paired"], rdb_macs),
         ("K5", "rdb_kernel (tc::rdb_kernel<kPacked>: rdb_apply_packed)",
          "realsr_tpu/ops/rdb_kernel.py:216", mode_launches["rdb_apply_packed"], rdb_macs),
-        ("K6", "tail_kernel (up2_hr_last_packed)", "realsr_tpu/ops/tail_kernel.py:103", k6_cli,
-         tail_px * (13 * NF * NF + 9 * NF * 3)),
-        ("K7", "tail_kernel (hr_last_packed)", "realsr_tpu/ops/tail_kernel.py:329", k7,
-         tail_px * (9 * NF * NF + 9 * NF * 3)),
+        ("K6", "tail_kernel (tail_kernel<TH, TW, true>: wgmma, up2_hr_last_packed)",
+         "realsr_tpu/ops/tail_kernel.py:103", k6_cli, tail_px * tk.tail_macs_per_pixel(True)),
+        ("K7", "tail_kernel (tail_kernel<TH, TW, false>: wgmma, hr_last_packed)",
+         "realsr_tpu/ops/tail_kernel.py:329", k7, tail_px * tk.tail_macs_per_pixel(False)),
     ):
         err, ms, pms = results[(("rdb", "mixed") if key == "K1" else ("trunk", "mixed")
                                 if key == "K2" else (key, "mixed"))]

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``<build dir>/<name>-<hash>.so`` for ``sm_90a`` (Hopper) at first use;
-the hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one loads in milliseconds. A plain C interface keeps PyTorch's
+the hash covers the source, every header in ``csrc/`` and the flags, so an
+edited source or header rebuilds and an unchanged one loads in
+milliseconds. A plain C interface keeps PyTorch's
 headers out of the build (seconds, not minutes). The build directory is
 ``realsr_tpu_torch/_build`` unless ``REALSR_TPU_TORCH_BUILD`` names another.
 
@@ -59,6 +60,18 @@ def _nvcc() -> str:
     )
 
 
+def source_digest(name: str) -> str:
+    """The build hash of ``csrc/<name>.cu``: its bytes, those of every
+    ``csrc/*.cuh`` it may include (by name), and the nvcc flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
     Thread-safe; calls for different names build concurrently."""
@@ -69,11 +82,9 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
-        so = os.path.join(out_dir, f"{name}-{digest.hexdigest()[:16]}.so")
+        so = os.path.join(out_dir, f"{name}-{source_digest(name)}.so")
         BUILD_SECONDS[name], BUILD_LOG[name] = 0.0, ""
         if not os.path.isfile(so):
             # build under a private name, then rename: a concurrent process

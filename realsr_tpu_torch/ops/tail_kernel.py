@@ -9,8 +9,10 @@ Both return the 4x image ``[B, 4H, 4W, 3]`` in float32, interleaved.
 The kernel is fixed at the graph's tail shape, nf = 64 and 3 outputs, and
 has bfloat16 operands only (ROADMAP queue 2 holds float32 instances). Its
 weights are packed once at load (:func:`pack_tail_params`): the JAX
-package's matrices (:func:`pack_tail_weights`, :func:`up2_weights`) in
-mma.sync B-fragment order.
+package's matrices (:func:`pack_tail_weights`, :func:`up2_weights`) as
+wgmma's k16 slices, conv_last in the JAX kernel's W9-packed form. The
+kernel walks patches of the 4x output whose shape :func:`tail_geometry`
+picks per call.
 
 A tensor on the CPU takes the plain PyTorch version (the packed tail's
 matmul stages, :func:`up2_hr_last_reference`, :func:`hr_last_reference`);
@@ -20,9 +22,9 @@ a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
+import dataclasses
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -36,11 +38,16 @@ from realsr_tpu_torch.models.rrdbnet import (
     up2_matrices,
     up2_phases,
 )
+from realsr_tpu_torch.ops.rdb_kernel import _sm_count, _step_order
 
 NF = 64  # the tail's channels (x4.param: HRconv 64 -> 64, conv_last 64 -> 3)
 OUTC = 3
-TC = 8  # conv_last's outputs padded to one n-block of mma.sync
+TC = 8  # conv_last's outputs padded to 8 (the JAX package's w9 and b3)
+W9N = 32  # the kernel's W9-packed conv_last columns: 9 taps x 3 outputs, padded
 NPH = 16  # 4x4 output phases
+# (TH, TW) 4x patch shapes the kernel is built for (tail_kernel.cu::launch_tile)
+TAIL_TILES = ((16, 16), (12, 28))
+SMEM_LIMIT = 232_448  # shared memory of one block on the H100
 
 # kernel launches per wrapper since the last reset (set the values to 0)
 LAUNCHES = {"up2_hr_last_packed": 0, "hr_last_packed": 0}
@@ -71,59 +78,159 @@ def pack_tail_weights(w_hr, b_hr, w_last, b_last):
     return w1, np.asarray(b_hr, np.float32).reshape(nf, 1), w9, b3
 
 
-@functools.lru_cache(maxsize=8)
-def _frag_perm(k: int, n: int) -> np.ndarray:
-    """Index map from a dense row-major ``[k, n]`` matrix (K x N) to the
-    kernel's fragment order, ``packed = dense.ravel()[perm]``: k-steps of
-    16 rows, each holding ``n / 8`` mma.sync B fragments of 32 lanes x 4
-    values; lane ``4 g + t`` holds rows ``2t, 2t + 1, 2t + 8, 2t + 9`` of
-    column ``g``."""
-    ks, nb, g, t, h, e = np.meshgrid(
-        *(np.arange(s) for s in (k // 16, n // 8, 8, 4, 2, 2)), indexing="ij"
-    )
-    return ((ks * 16 + h * 8 + t * 2 + e) * n + nb * 8 + g).ravel()
+def _wg_pack(dense: np.ndarray) -> np.ndarray:
+    """A dense ``[K, N]`` matrix (K a multiple of 16) -> its ``K / 16`` k16
+    slices in wgmma's K-major layout without swizzle, back to back, as the
+    kernel's B descriptor reads them (``rdb_kernel._step_order("wgmma")``):
+    8 x 8 core matrices (8 columns, 8 consecutive k), the two k halves of an
+    8-column group next to each other, the groups 256 bytes apart."""
+    k, n = dense.shape
+    cols, rows = _step_order("wgmma", n)
+    return dense.reshape(k // 16, 16, n)[:, rows, cols].ravel()
 
 
-def _frag(dense: np.ndarray, op_dtype) -> torch.Tensor:
-    perm = _frag_perm(*dense.shape)
-    return torch.from_numpy(np.ascontiguousarray(dense.ravel()[perm])).to(op_dtype)
-
-
-def _unfrag(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    dense = torch.empty_like(packed)
-    dense[torch.from_numpy(_frag_perm(k, n)).to(packed.device)] = packed
+def _wg_unpack(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`_wg_pack`: ``[k, n]``."""
+    cols, rows = (torch.from_numpy(a).to(packed.device) for a in _step_order("wgmma", n))
+    dense = torch.empty((k // 16, 16, n), dtype=packed.dtype, device=packed.device)
+    dense[:, rows, cols] = packed.reshape(k // 16, 16 * n)
     return dense.reshape(k, n)
+
+
+def _w9_columns(w9: np.ndarray) -> np.ndarray:
+    """The JAX package's conv_last ``w9`` ``[9 * TC, 64]`` -> the W9-packed
+    product's ``[64, W9N]``: column ``tap * 3 + o`` holds output ``o``'s
+    weights of tap ``tap``; columns from 27 on are zero."""
+    t = w9.reshape(9, TC, NF)[:, :OUTC].transpose(2, 0, 1).reshape(NF, 9 * OUTC)
+    return np.pad(t, ((0, 0), (0, W9N - 9 * OUTC)))
 
 
 def pack_tail_params(params: Dict[str, np.ndarray], op_dtype=torch.bfloat16):
     """The graph's OIHW ``up``, ``hr`` and ``last`` groups -> the kernels'
-    operands as CPU tensors: ``w2`` (the four up2 tap-sum matrices), ``w1``
-    (HRconv) and ``w9`` (conv_last, outputs padded to 8), each K x N in
-    fragment order at ``op_dtype``, with float32 biases ``b2`` ``[64]``,
-    ``b1`` ``[64]`` and ``b3`` ``[8]``. The tap sums are taken in float32,
-    then rounded, as the JAX package does."""
+    operands as CPU tensors at ``op_dtype``, each in :func:`_wg_pack`'s
+    layout: ``w2`` the up2 tap sums as two passes ``c`` of ``[256, 128]``
+    (sub-phases ``(c, 0) | (c, 1)`` side by side, 64 columns each); ``w1``
+    HRconv ``[576, 64]``; ``w9`` conv_last in W9-packed form ``[64, 32]``
+    (:func:`_w9_columns`). Float32 biases ``b2`` ``[64]``, ``b1`` ``[64]``
+    and ``b3`` ``[8]``. The tap sums are taken in float32, then rounded, as
+    the JAX package does."""
     w2, b2 = up2_weights(params["up"]["w"][1], params["up"]["b"][1])
     w1, b1, w9, b3 = pack_tail_weights(
         params["hr"]["w"], params["hr"]["b"], params["last"]["w"], params["last"]["b"]
     )
-    w9_kn = w9.reshape(9, TC, NF).transpose(0, 2, 1).reshape(9 * NF, TC)
+    passes = [np.concatenate([w2[2 * c].T, w2[2 * c + 1].T], 1) for c in (0, 1)]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(op_dtype)  # noqa: E731
     return {
-        "w2": torch.cat([_frag(np.ascontiguousarray(w.T), op_dtype) for w in w2]),
+        "w2": t(np.concatenate([_wg_pack(w) for w in passes])),
         "b2": torch.from_numpy(b2.ravel().copy()),
-        "w1": _frag(np.ascontiguousarray(w1.T), op_dtype),
+        "w1": t(_wg_pack(np.ascontiguousarray(w1.T))),
         "b1": torch.from_numpy(b1.ravel().copy()),
-        "w9": _frag(w9_kn, op_dtype),
+        "w9": t(_wg_pack(_w9_columns(w9))),
         "b3": torch.from_numpy(b3.ravel().copy()),
     }
 
 
 def _dense(tp):
-    """:func:`pack_tail_params` -> dense K x N matrices (the operand type)."""
-    w2 = tp["w2"].reshape(4, -1)
+    """:func:`pack_tail_params` -> the dense K x N matrices of the plain
+    versions (the operand type): ``w2`` ``[4, 256, 64]`` (entry ``2c + d``),
+    ``w1`` ``[576, 64]`` and ``w9`` ``[576, TC]`` (rows tap-major x cin)."""
+    w2 = [_wg_unpack(w, 4 * NF, 2 * NF) for w in tp["w2"].reshape(2, -1)]
+    w9 = _wg_unpack(tp["w9"], NF, W9N)[:, : 9 * OUTC].reshape(NF, 9, OUTC).permute(1, 0, 2)
     return (
-        torch.stack([_unfrag(w, 4 * NF, NF) for w in w2]),
-        _unfrag(tp["w1"], 9 * NF, NF),
-        _unfrag(tp["w9"], 9 * NF, TC),
+        torch.stack([w2[c][:, d * NF : (d + 1) * NF] for c in (0, 1) for d in (0, 1)]),
+        _wg_unpack(tp["w1"], 9 * NF, NF),
+        torch.nn.functional.pad(w9, (0, TC - OUTC)).reshape(9 * NF, TC),
+    )
+
+
+def conv_last_w9(z: torch.Tensor, w9: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's conv_last in the JAX kernel's
+    W9-packed form: ``z`` ``[B, h, w, 64]`` (NHWC, zero padded by one pixel
+    outside) and ``w9`` ``[64, W9N]`` (:func:`_w9_columns`) -> ``[B, h, w,
+    3]`` float32. One K = 64 product per z pixel, ``T = z . w9``, then each
+    output pixel sums its nine shifted T values of the three outputs, in tap
+    order, onto ``b3``."""
+    T = torch.matmul(z.float(), w9.float())
+    Tp = torch.nn.functional.pad(T, (0, 0, 1, 1, 1, 1))
+    h, w = z.shape[1], z.shape[2]
+    out = b3.float()[:OUTC].expand(*T.shape[:-1], OUTC)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        out = out + Tp[:, dy : dy + h, dx : dx + w, tap * OUTC : (tap + 1) * OUTC]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TailGeometry:
+    """The tail kernel's grid for one call (:func:`tail_geometry`)."""
+
+    tile: Tuple[int, int]  # the 4x patch shape (TH, TW)
+    patches: Tuple[int, int]  # patch rows and columns of one tile's 4x output
+    blocks: int  # patches x tiles
+    grid: int  # persistent blocks: min(blocks, SMs), one per SM
+    waves: float  # blocks / SMs: patches per SM
+    fill: float  # blocks / (whole waves x SMs)
+    mac_factor: float  # MACs the patches issue / the tail's MACs
+
+
+def _regions(th: int, tw: int) -> Dict[str, int]:
+    """Pixels of a patch's regions (tail_kernel.cu::Geo): z with conv_last's
+    halo, P2 with HRconv's on top, one up2 sub-phase, the 2x window."""
+    q = (th + 4) // 2 * ((tw + 4) // 2)
+    return {"z": (th + 2) * (tw + 2), "p2": (th + 4) * (tw + 4), "sub": q,
+            "win": ((th + 4) // 2 + 2) * ((tw + 4) // 2 + 2)}
+
+
+def tail_smem_bytes(th: int, tw: int, with_up2: bool = True) -> int:
+    """Shared memory of one block (tail_kernel.cu::Layout), planes of
+    128-byte pixels: K6 the window, z, P2 and two 32 KB weight slots; K7 z,
+    two P2 buffers and two 16 KB slots; 8 bytes per barrier."""
+    r = _regions(th, tw)
+    if with_up2:
+        return 128 * (r["win"] + r["z"] + r["p2"]) + 2 * 32_768 + 8 * (2 * 2 + 2)
+    return 128 * (r["z"] + 2 * r["p2"]) + 2 * 16_384 + 8 * (2 * 2 + 2 * 2)
+
+
+def tail_block_macs(th: int, tw: int, with_up2: bool = True) -> int:
+    """MACs one patch issues: each stage's rows in 64-row tiles times its
+    K and N (up2: 4 sub-phases x 256 x 64; HRconv 576 x 64; conv_last's W9
+    product 64 x 32)."""
+    r = _regions(th, tw)
+    rows = lambda n: -(-n // 64) * 64  # noqa: E731
+    up2 = 4 * rows(r["sub"]) * 4 * NF * NF if with_up2 else 0
+    return up2 + rows(r["z"]) * (9 * NF * NF + NF * W9N)
+
+
+def tail_macs_per_pixel(with_up2: bool = True) -> int:
+    """The tail's MACs per 4x output pixel."""
+    return (4 * NF * NF if with_up2 else 0) + 9 * NF * NF + 9 * NF * OUTC
+
+
+def tail_geometry(B: int, H: int, W: int, with_up2: bool = True, sms: int = 132) -> TailGeometry:
+    """The patch shape of :data:`TAIL_TILES` that finishes ``B`` tiles of
+    ``H x W`` base pixels (``4H x 4W`` output) soonest on ``sms`` SMs, one
+    persistent block per SM: the fewest rounds of patches per SM times the
+    MACs a patch issues (the first listed on a tie), among the shapes whose
+    block fits in :data:`SMEM_LIMIT`. The kernel's times at both shapes on
+    8 x 148^2 (chip_smoke.py phase 3b) fit time per round ~ MACs per patch
+    with no fixed cost per patch. At 8 x 148^2 on 132 SMs: 12 x 28, 8,800
+    patches."""
+    best = None
+    for th, tw in TAIL_TILES:
+        if tail_smem_bytes(th, tw, with_up2) > SMEM_LIMIT:
+            continue
+        py, px = -(-4 * H // th), -(-4 * W // tw)
+        blocks = B * py * px
+        cost = -(-blocks // sms) * tail_block_macs(th, tw, with_up2)
+        if best is None or cost < best[0]:
+            best = (cost, (th, tw), (py, px), blocks)
+    _, tile, patches, blocks = best
+    rounds = -(-blocks // sms)
+    return TailGeometry(
+        tile=tile, patches=patches, blocks=blocks, grid=min(blocks, sms), waves=blocks / sms,
+        fill=blocks / (rounds * sms),
+        mac_factor=blocks * tail_block_macs(*tile, with_up2)
+        / (B * 16 * H * W * tail_macs_per_pixel(with_up2)),
     )
 
 
@@ -157,7 +264,7 @@ def _library():
     lib = load_library("tail_kernel")
     if not getattr(lib, "_realsr_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tail_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+        lib.tail_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         lib.tail_launch.restype = ci
         lib.tail_error_string.argtypes = [ci]
         lib.tail_error_string.restype = ctypes.c_char_p
@@ -176,7 +283,7 @@ def _check(fn, name, t, device, dtype, numel):
         raise ValueError(f"{fn}: {name} has {t.numel()} elements, expected {numel}")
 
 
-def _launch(fn, x, tp, with_up2):
+def _launch(fn, x, tp, with_up2, tile=None):
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -191,24 +298,29 @@ def _launch(fn, x, tp, with_up2):
     if H < 1 or W < 1:
         raise ValueError(f"{fn}: empty tile {tuple(x.shape)}")
     _check(fn, "x", x, x.device, torch.bfloat16, x.numel())
-    sizes = {"w1": 9 * NF * NF, "b1": NF, "w9": 9 * NF * TC, "b3": TC}
+    sizes = {"w1": 9 * NF * NF, "b1": NF, "w9": NF * W9N, "b3": TC}
     if with_up2:
         sizes.update(w2=4 * 4 * NF * NF, b2=NF)
     for k, n in sizes.items():
         _check(fn, k, tp[k], x.device, torch.float32 if k[0] == "b" else torch.bfloat16, n)
+    sms = _sm_count(x.device)
+    if tile is None:
+        tile = tail_geometry(B, H, W, with_up2, sms).tile
+    elif tile not in TAIL_TILES:
+        raise ValueError(f"{fn}: no kernel for patch shape {tile}; built for {TAIL_TILES}")
     out = torch.empty((B, 4 * H, 4 * W, OUTC), dtype=torch.float32, device=x.device)
     lib = _library()
     ptr = lambda k: tp[k].data_ptr() if k in sizes else None  # noqa: E731
     with torch.cuda.device(x.device):
         err = lib.tail_launch(
             x.data_ptr(), ptr("w2"), ptr("b2"), ptr("w1"), ptr("b1"), ptr("w9"), ptr("b3"),
-            out.data_ptr(), B, H, W, int(with_up2),
+            out.data_ptr(), B, H, W, int(with_up2), *tile, sms,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(
             f"tail_kernel launch failed: {lib.tail_error_string(err).decode()} "
-            f"({fn}, B={B}, H={H}, W={W})"
+            f"({fn}, B={B}, H={H}, W={W}, patch {tile[0]}x{tile[1]})"
         )
     with _COUNT_LOCK:
         LAUNCHES[fn] += 1

@@ -1,0 +1,55 @@
+"""The port's kernel build cache (``realsr_tpu_torch/ops/build.py``): which
+bytes a built library's name depends on. Runs without nvcc."""
+
+import shutil
+
+from realsr_tpu_torch.ops import build
+
+
+def _copy_csrc(tmp_path, monkeypatch):
+    d = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, d)
+    monkeypatch.setattr(build, "CSRC", str(d))
+    return d
+
+
+def test_digest_covers_the_source_every_header_and_the_flags(tmp_path, monkeypatch):
+    """An edit to the source, to any header of csrc/ (tail_kernel.cu and
+    rdb_wgmma.cu include hopper.cuh), or to the flags names another library;
+    an edit to another source does not."""
+    d = _copy_csrc(tmp_path, monkeypatch)
+    assert (d / "hopper.cuh").is_file()
+    first = {n: build.source_digest(n) for n in ("tail_kernel", "rdb_wgmma", "rdb_kernel")}
+    assert build.source_digest("tail_kernel") == first["tail_kernel"]  # stable
+
+    with open(d / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: build.source_digest(n) for n in first}
+    assert all(after[n] != first[n] for n in first)
+
+    with open(d / "rdb_kernel.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert build.source_digest("rdb_kernel") != after["rdb_kernel"]
+    assert build.source_digest("tail_kernel") == after["tail_kernel"]
+
+    (d / "new.cuh").write_text("#pragma once\n")
+    assert build.source_digest("tail_kernel") != after["tail_kernel"]
+
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build.source_digest("rdb_kernel") != after["rdb_kernel"]
+
+
+def test_library_name_uses_the_digest(tmp_path, monkeypatch):
+    """load_library looks for <name>-<digest>.so in the build directory and
+    loads a library that is already there without building it."""
+    _copy_csrc(tmp_path, monkeypatch)
+    out = tmp_path / "build"
+    out.mkdir()
+    monkeypatch.setenv("REALSR_TPU_TORCH_BUILD", str(out))
+    so = out / f"tail_kernel-{build.source_digest('tail_kernel')}.so"
+    so.write_bytes(b"")
+    loaded = []
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: loaded.append(path) or path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    assert build.load_library("tail_kernel") == str(so)
+    assert loaded == [str(so)] and build.BUILD_SECONDS["tail_kernel"] == 0.0

@@ -126,12 +126,14 @@ def _tail_operands(cuda, op_dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_up2", [True, False])
-@pytest.mark.parametrize("B,H,W", [(1, 5, 7), (2, 37, 21)])
+@pytest.mark.parametrize("B,H,W", [(1, 5, 7), (2, 37, 21), (1, 1, 1), (9, 37, 37)])
 def test_tail_kernel_matches_plain(cuda, with_up2, B, H, W):
-    """K6 (with_up2) and K7 on odd, non-square tiles (ragged 16 x 16
-    patches): the kernel's error against the float32 plain tail is at most
-    max(2 x the plain bf16 version's, 1e-3), the JAX suite's rule for its
-    tail kernel; two runs are bit-equal; one launch is counted per call."""
+    """K6 (with_up2) and K7 on odd, non-square tiles (ragged patches), a
+    single base pixel, and a batch of more patches than the card has SMs
+    (persistent blocks take several, 12 x 28 patches): the kernel's error
+    against the float32 plain tail is at most max(2 x the plain bf16
+    version's, 1e-3), the JAX suite's rule for its tail kernel; two runs are
+    bit-equal; one launch is counted per call."""
     fn, ref = (
         (TLK.up2_hr_last_packed, TLK.up2_hr_last_reference)
         if with_up2

@@ -107,21 +107,123 @@ def test_phase_split_and_packed_weights_bit_equal_jax():
         np.testing.assert_array_equal(g, np.asarray(wnt))
 
 
-def test_fragment_order_round_trips():
-    """The kernel's operands unpack to the JAX matrices (bf16-rounded)."""
+@pytest.mark.parametrize("name", ["w2", "w1", "w9"])
+def test_wgmma_layout_round_trips(name):
+    """The kernel's operands, k16 slices in wgmma's layout (w9 in W9-packed
+    columns), unpack bit-equal to the JAX package's matrices (bf16-rounded);
+    b3 stays the JAX package's padded bias."""
     params = _tail_params(64, seed=41)
     p = TR.params_from_jax(params)
     tp = TK.pack_tail_params(p, torch.bfloat16)
-    w2, w1, w9 = TK._dense(tp)
-    w2_np, _ = TK.up2_weights(p["up"]["w"][1], p["up"]["b"][1])
-    w1_np, _, w9_np, b3 = TK.pack_tail_weights(
-        p["hr"]["w"], p["hr"]["b"], p["last"]["w"], p["last"]["b"]
+    dense = dict(zip(("w2", "w1", "w9"), TK._dense(tp)))
+    kj = R._phase_split(jnp.asarray(params["up"]["w"][1]))
+    w2_jax = jnp.stack([
+        jnp.concatenate([kj[c][d][s, t] for s in (0, 1) for t in (0, 1)], 0)
+        for c in (0, 1)
+        for d in (0, 1)
+    ])  # [4, 256, 64]: rows tap-major x cin
+    w1_j, _, w9_j, b3_j = JTK.pack_tail_weights(
+        params["hr"]["w"], params["hr"]["b"], params["last"]["w"], params["last"]["b"],
+        dtype=np.float32,
     )
-    bf = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)  # noqa: E731
-    assert torch.equal(w2, bf(np.transpose(w2_np, (0, 2, 1))))
-    assert torch.equal(w1, bf(w1_np.T))
-    assert torch.equal(w9, bf(w9_np.reshape(9, 8, 64).transpose(0, 2, 1).reshape(576, 8)))
-    assert tp["b3"].tolist() == b3.ravel().tolist()
+    want = {
+        "w2": np.asarray(w2_jax),
+        "w1": np.asarray(w1_j).T,
+        "w9": np.asarray(w9_j).reshape(9, 8, 64).transpose(0, 2, 1).reshape(576, 8),
+    }[name]
+    assert torch.equal(dense[name], torch.from_numpy(np.array(want)).to(torch.bfloat16))
+    assert tp[name].numel() == {"w2": 4 * 256 * 64, "w1": 576 * 64, "w9": 64 * TK.W9N}[name]
+    assert tp["b3"].tolist() == np.asarray(b3_j).ravel().tolist()
+
+
+def test_wgmma_layout_is_k16_slices():
+    """Spot check of one element per slice position: element (k, n) of k16
+    slice s sits at s * 16 N + (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8
+    + k % 8 (8 x 8 core matrices, the k halves side by side)."""
+    dense = np.arange(32 * 24, dtype=np.float32).reshape(32, 24)
+    packed = TK._wg_pack(dense)
+    for s in range(2):
+        for k in range(16):
+            for n in range(24):
+                at = s * 16 * 24 + (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+                assert packed[at] == dense[16 * s + k, n]
+    assert torch.equal(TK._wg_unpack(torch.from_numpy(packed), 32, 24), torch.from_numpy(dense))
+
+
+def test_w9_conv_last_equals_plain_conv_last_f32():
+    """The kernel's W9-packed conv_last (one K = 64 product per z pixel, then
+    nine shifted sums) against the plain version's K = 576 conv, float32."""
+    params = _tail_params(64, seed=42)
+    p = TR.params_from_jax(params)
+    tp = TK.pack_tail_params(p, torch.float32)
+    _, _, w9 = TK._dense(tp)
+    z = torch.from_numpy(
+        np.abs(np.random.default_rng(43).normal(0, 0.5, (2, 13, 22, 64))).astype(np.float32)
+    )
+    want = TR._nhwc(TR.conv3x3(TR._nchw(z), p["last"]["w"], p["last"]["b"]))
+    w9c = TK._wg_unpack(tp["w9"], 64, TK.W9N)
+    got = TK.conv_last_w9(z, w9c, tp["b3"])
+    assert got.shape == want.shape == (2, 13, 22, 3)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert w9.shape == (576, 8)
+
+
+@pytest.mark.parametrize("tail,kernel", [("kernel", 2), ("kernel_hr", 1)])
+def test_w9_form_of_kernel_tails_matches_jax_kernels(tail, kernel):
+    """K6 and K7 with conv_last in the kernel's W9-packed form (P2 and z from
+    the plain version, float32) against JAX's Pallas kernels in interpret
+    mode, within the plain versions' tolerance."""
+    params = _tail_params(64, seed=15)
+    fea, body = _inputs(64, (2, 7, 9), seed=16)
+    want = _jax_tail(params, fea, body, 64, kernel=kernel)
+    spec = TR.RRDBNetSpec(num_rrdb=1, nf=64, gc=32)
+    p = TR.params_from_jax(params)
+    tp = TK.pack_tail_params(p, torch.float32)
+    w2, w1, _ = TK._dense(tp)
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)  # noqa: E731
+    trunk = TR.conv3x3(nchw(body), p["trunk"]["w"], p["trunk"]["b"])
+    fea_t = TR._nhwc(nchw(fea) + trunk)
+    y1 = TR.up1_phases(fea_t, torch.as_tensor(p["up"]["w"][0]), torch.as_tensor(p["up"]["b"][0]),
+                       torch.float32, torch.float32)
+    P2 = TR.up2_phases(TR.p1_phases(y1, 64), w2, tp["b2"], torch.float32, torch.float32)
+    z = TR.interleave_phases(TR.conv_phases(P2, w1, tp["b1"], TR.LRELU_SLOPE, torch.float32, torch.float32))
+    got = TK.conv_last_w9(z, TK._wg_unpack(tp["w9"], 64, TK.W9N), tp["b3"]).numpy()
+    assert got.shape == want.shape == (2, 28, 36, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 148, 148), (2, 37, 21), (1, 5, 7), (1, 1, 1)])
+@pytest.mark.parametrize("with_up2", [True, False])
+def test_tail_geometry_fits_and_covers(B, H, W, with_up2):
+    """The chosen patch shape is built, fits one block's shared memory and
+    tiles the 4x output with no patch row or column left empty; its grid is
+    at most one block per SM; its cost is the least of the shapes."""
+    g = TK.tail_geometry(B, H, W, with_up2)
+    th, tw = g.tile
+    assert g.tile in TK.TAIL_TILES and th % 2 == 0 and tw % 2 == 0
+    assert TK.tail_smem_bytes(th, tw, with_up2) <= TK.SMEM_LIMIT
+    py, px = g.patches
+    assert py * th >= 4 * H > (py - 1) * th and px * tw >= 4 * W > (px - 1) * tw
+    assert g.blocks == B * py * px and g.grid == min(g.blocks, 132)
+    assert 0 < g.fill <= 1 and g.mac_factor >= 1
+
+    def cost(t):
+        blocks = B * -(-4 * H // t[0]) * -(-4 * W // t[1])
+        return -(-blocks // 132) * TK.tail_block_macs(*t, with_up2)
+
+    assert cost(g.tile) == min(cost(t) for t in TK.TAIL_TILES)
+    if (B, H, W) == (8, 148, 148):
+        assert g.tile == (12, 28) and g.blocks == 8800
+
+
+def test_tail_block_macs_count_the_stages():
+    """tail_block_macs against the stages counted by hand at 16 x 16: up2 4
+    sub-phases of 10 x 10 pixels in 2 tiles, HRconv and conv_last over 18 x
+    18 z pixels in 6 tiles."""
+    assert TK.tail_block_macs(16, 16) == 4 * 128 * 256 * 64 + 384 * (576 * 64 + 64 * 32)
+    assert TK.tail_block_macs(16, 16, False) == 384 * (576 * 64 + 64 * 32)
+    assert TK.tail_smem_bytes(16, 16) == 128 * (12 * 12 + 18 * 18 + 20 * 20) + 2 * 32768 + 48
+    assert TK.tail_smem_bytes(16, 16, False) == 128 * (18 * 18 + 2 * 20 * 20) + 2 * 16384 + 64
 
 
 @pytest.mark.parametrize("H,W", [(7, 9), (8, 8), (5, 12)])

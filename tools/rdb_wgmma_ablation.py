@@ -44,15 +44,14 @@ from realsr_tpu_torch.ops import rdb_kernel as rk  # noqa: E402
 SRC = os.path.join(build.CSRC, "rdb_wgmma.cu")
 OUT = os.path.join(build.build_dir(), "ablation")
 B, SIDE, NF, GC = 8, 148, 64, 32
-PROLOGUE = """    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kProducerRegs));\n"""
 VARIANTS = {
     "final": [],
     "chunk1": [("constexpr int kChunk = 3;\nconstexpr int kSlots = 2;", "constexpr int kChunk = 1;\nconstexpr int kSlots = 6;")],
     "chunk2": [("constexpr int kChunk = 3;\nconstexpr int kSlots = 2;", "constexpr int kChunk = 2;\nconstexpr int kSlots = 3;")],
     "no_setmaxnreg": [
         ("constexpr int kThreads = (kConsumers + 1) * 128;", "constexpr int kThreads = kConsumers * 128 + 32;"),
-        (PROLOGUE, ""),
-        ("""  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n""", ""),
+        ("    setmaxnreg_producer();\n", ""),
+        ("  setmaxnreg_consumer();\n", ""),
     ],
     "no_prefetch": [("    prefetch_l2(static_cast<const TS*>(p.x) + o, row_bytes);\n"
                      "    if (p.u != nullptr) prefetch_l2(static_cast<const TS*>(p.u) + o, row_bytes);\n", "")],
@@ -61,8 +60,14 @@ VARIANTS = {
 }
 
 
+def inline_headers(src: str) -> str:
+    """The source with each ``#include "x.cuh"`` replaced by csrc/x.cuh, so
+    that a substitution may reach the shared helpers too."""
+    return re.sub(r'#include "(\w+\.cuh)"', lambda m: open(os.path.join(build.CSRC, m.group(1))).read(), src)
+
+
 def compile_variant(name: str) -> dict:
-    src = open(SRC).read()
+    src = inline_headers(open(SRC).read())
     for old, new in VARIANTS[name]:
         if old not in src:
             raise SystemExit(f"{name}: the source no longer holds {old[:60]!r}")
