@@ -5,10 +5,11 @@ Phases (each prints its lines; any failure exits non-zero):
 1. card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
 2. build: the fused RDB and tail kernels from ``realsr_tpu_torch/csrc``, one
    nvcc for each source, started together (``rdb_wgmma.cu``: K1/K2 for bf16
-   operands; ``rdb_kernel.cu``: K1 for float32 operands and K3-K5;
-   ``tail_kernel.cu``: K6/K7), with each kernel's registers and spills from
-   ``-Xptxas -v`` and the count of wgmma (HGMMA), TMA and bulk-copy
-   instructions in K1's and the tail's SASS;
+   operands; ``rdb_modes_wgmma.cu``: K4 and K5 on K1's wgmma machinery;
+   ``rdb_kernel.cu``: K1 for float32 operands and K3; ``tail_kernel.cu``:
+   K6/K7), with each kernel's registers and spills from ``-Xptxas -v`` (no
+   wgmma kernel may spill) and the count of wgmma (HGMMA), TMA and
+   bulk-copy instructions in the wgmma sources' SASS;
 3. the RDB kernel against its plain PyTorch version at the main path's shape
    (8 tiles of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): the
    wgmma kernel's patch geometry, one RDB in mixed and float32 mode, the
@@ -19,12 +20,15 @@ Phases (each prints its lines; any failure exits non-zero):
    2 x 37 x 21 and at 9 x 37 x 37 (4x sides no multiple of the patch
    shape), with the tail's patch geometry and CUDA-event times, also at
    each patch shape the kernel is built for;
-3c. the trunk's alternative modes' kernels at the phase-3 shape, mixed:
-   K5 (the K-packed schedule) and K4 (the paired bf16 carry) for one RDB
-   against their plain versions, K4's 69-RDB trunk against the plain paired
-   trunk, K3 (the chained layout) for one RDB against its plain version and
-   K1, and its 69-RDB trunk against the K1 trunk; CUDA-event times of each,
-   of its plain version and of K1 at the same shape;
+3c. the trunk's alternative modes' kernels, mixed: K5 (the K-packed
+   schedule) and K4 (the paired bf16 carry) for one RDB against their plain
+   versions at the phase-3 shape and at a ragged 2 x 37 x 21, at the patch
+   side their geometry picks and at each side they are built for, bit-equal
+   over two runs, with K5's geometry; their 69-RDB trunks against the plain
+   trunk of their mode and the K1 trunk; K3 (the chained layout) for one
+   RDB against its plain version and K1, and its 69-RDB trunk against the
+   K1 trunk; CUDA-event times of each, of its plain version and of K1 at
+   the same shape;
 4. the main path: ``realsr_tpu_torch.cli.main`` on three images with the
    committed DF2K graph (23 RRDB, nf = 64, gc = 32) and synthesized weights,
    checking the outputs and that the trunk and the tail ran on the kernels
@@ -40,6 +44,7 @@ Phases (each prints its lines; any failure exits non-zero):
    image with a natural 1/f spectrum; the float32
    kernel against float32 plain by identical u8 pixels; a mixed engine's
    output bit-equal before and after a float32 engine ran in the process;
+   a float16 engine on ``variant="auto"`` running plain convs;
 6. steady state: device-resident ``RealSR.process_device`` on one 1024 x 768
    image for each tail form, trunk mode and engine mode, TTA on a smaller
    one, and the device time of one profiled image by kernel group.
@@ -90,11 +95,17 @@ TRUNK_TOL = 1e-3
 PSNR_BAND = 50.0
 PSNR_SLACK = 1.0
 SAME_MIN = 0.999  # float32 kernel vs float32 plain: share of equal u8 values
+# float16 engine vs float32 plain: float16 keeps 11 significant bits, more
+# than mixed mode's bfloat16 operands (46 dB on the 1/f image), so a working
+# route lands near or above that; 30 dB catches a broken one
+F16_MIN_DB = 30.0
 STEADY_HW = (768, 1024)  # phase 6 image
 TAILS = ("interleaved", "packed", "kernel_hr", "kernel")  # models.rrdbnet.TAIL_MODES
 # phase 3b: the main path's; ragged 16 x 16 patches; more 12 x 28 patches than
 # SMs, none whole at the right and bottom edges
 TAIL_SHAPES = ((B, SIDE, SIDE), (2, 37, 21), (9, 37, 37))
+# phase 3c, K4 and K5: the main path's chunk and a ragged one
+MODE_SHAPES = ((B, SIDE, SIDE), (2, 37, 21))
 # the trunk's alternative modes: engine config, the rrdbnet module flag or
 # REALSR_TPU_SCHED value that selects it through the CLI, its launch count
 MODES = {
@@ -123,20 +134,22 @@ def ptxas_rows(log: str) -> list:
     function of an ``nvcc -Xptxas -v`` log of a kernel source."""
     import re
 
-    forms = {"0": "K3", "1": "K4", "2": "K5"}
     rows = []
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'", 1)[0]
-        m = re.search(r"tc10rdb_kernelILi(\d)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
-        w = re.search(r"rdb_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        m = re.search(r"tc10rdb_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        w = re.search(r"(rdb|packed)_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        k4 = re.search(r"paired_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
         t = re.search(r"tail_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
         if t:
             label = f"{'K6' if t.group(3) == '1' else 'K7'} {t.group(1)}x{t.group(2)}"
         elif m:
-            label = f"{forms[m.group(1)]} {'f32' if m.group(2) == 'f' else 'bf16'} state {m.group(3)}/{m.group(4)}"
+            label = f"K3 {'f32' if m.group(1) == 'f' else 'bf16'} state {m.group(2)}/{m.group(3)}"
         elif w:
-            label = (f"K1 wgmma T={w.group(1)} {'f32' if w.group(2) == 'f' else 'bf16'} state "
-                     f"{w.group(3)}/{w.group(4)}")
+            label = (f"{'K1' if w.group(1) == 'rdb' else 'K5'} wgmma T={w.group(2)} "
+                     f"{'f32' if w.group(3) == 'f' else 'bf16'} state {w.group(4)}/{w.group(5)}")
+        elif k4:
+            label = f"K4 wgmma T={k4.group(1)} {k4.group(2)}/{k4.group(3)}"
         elif "fp3210rdb_kernel" in name:
             label = "K1 float32 (CUDA cores)"
         else:
@@ -277,14 +290,16 @@ def run_cli(cli, rk, tk, args, env=None, flag=None):
     return (wall, *counts)
 
 
-def plain_trunk(rk, x, stacked):
-    """The trunk through the plain RDB (rk.rdb_trunk's schedule)."""
+def plain_trunk(rk, x, stacked, ref=None):
+    """The trunk through the plain RDB ``ref`` (rk.rdb_reference, or
+    rk.rdb_packed_reference for the packed schedule; rk.rdb_trunk's order)."""
+    ref = ref or rk.rdb_reference
     t = u = x
     for k in range(stacked["w"].shape[0]):
         if k % 3 == 0:
             u = t
         pk = {"w": stacked["w"][k], "b": stacked["b"][k]}
-        t = rk.rdb_reference(t, pk, x.dtype, pk["w"].dtype, u if k % 3 == 2 else None)
+        t = ref(t, pk, x.dtype, pk["w"].dtype, u if k % 3 == 2 else None)
     return t
 
 
@@ -403,7 +418,7 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, started together -----------------
     t0 = time.perf_counter()
-    sources = ("rdb_wgmma", "rdb_kernel", "tail_kernel")
+    sources = ("rdb_wgmma", "rdb_modes_wgmma", "rdb_kernel", "tail_kernel")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))
     print(f"build: {', '.join(f'{s}.cu' for s in sources)} -> {build.build_dir()} in "
@@ -420,11 +435,13 @@ def main() -> int:
             if serial:
                 print(f"ptxas {src}.cu: {len(serial)} notes of wgmma serialization, e.g. {serial[0][:200]}",
                       flush=True)
-    ops = sass_counts("rdb_wgmma")
-    check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UBLKCP"] > 0,
-          f"rdb_wgmma.cu: SASS without wgmma / TMA / bulk copies: {ops}")
-    print("SASS rdb_wgmma.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()),
-          flush=True)
+            if src in ("rdb_wgmma", "rdb_modes_wgmma", "tail_kernel"):
+                check(all(st == 0 and ld == 0 for _, _, st, ld in rows), f"{src}.cu: a wgmma kernel spills: {rows}")
+    for src in ("rdb_wgmma", "rdb_modes_wgmma"):
+        ops = sass_counts(src)
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UBLKCP"] > 0,
+              f"{src}.cu: SASS without wgmma / TMA / bulk copies: {ops}")
+        print(f"SASS {src}.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()), flush=True)
     ops = sass_counts("tail_kernel")
     check(ops["HGMMA"] > 0 and ops["UBLKCP"] > 0, f"tail_kernel.cu: SASS without wgmma / bulk copies: {ops}")
     print("SASS tail_kernel.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()),
@@ -574,56 +591,100 @@ def main() -> int:
         p0 = rk._rdb_k(stacked, 0)
         q0 = rk._rdb_k(stacked_q, 0)
         hi, lo = rk._split(x)
+        xs = x.to(torch.bfloat16)
         xc = rk.to_chained(x)
         flag0 = torch.zeros(1, dtype=torch.int32, device=dev)
         out_c = torch.zeros_like(xc)
         tol = RDB_TOL["mixed"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for b_, h_, w_ in MODE_SHAPES:
+            g = rk.packed_geometry(b_, h_, w_, NF, GC, sms)
+            print(f"packed geometry (K5) B={b_} {h_}x{w_}: patch side T={g.tile}, {g.patches[0]}x{g.patches[1]} "
+                  f"patches per tile, {g.blocks} blocks = {g.waves:.3f} waves (fill {100 * g.fill:.1f} %), issued "
+                  f"MACs {g.mac_factor:.3f}x the RDB's (K1/K4 at T={rk.rdb_geometry(b_, h_, w_, NF, GC, sms).tile}: "
+                  f"{rk.rdb_geometry(b_, h_, w_, NF, GC, sms).mac_factor:.3f}x)", flush=True)
         with tf32(False):
-            k1_ms = cuda_ms(lambda: rk.rdb_apply(x, p0), 2, 10)
+            k1_ms = cuda_ms(lambda: rk._rdb_wgmma(x, xs, p0, None, False), 2, 10)
             k1_trunk = rk.rdb_trunk(x, stacked)
             k1_trunk_ms = cuda_ms(lambda: rk.rdb_trunk(x, stacked), 1, 1)
 
-            # K5: one RDB in the K-packed schedule
-            got = rk.rdb_apply_packed(x, q0)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, rk.rdb_packed_reference(x, q0, torch.float32, torch.bfloat16))
-            check(bool(torch.isfinite(got).all()) and rel <= tol,
-                  f"K5 packed RDB: max|kernel-plain| {err} (rel {rel}) > {tol}")
-            check(torch.equal(got, rk.rdb_apply_packed(x, q0)), "K5: two runs differ")
-            ms = cuda_ms(lambda: rk.rdb_apply_packed(x, q0), 2, 10)
-            pms = cuda_ms(lambda: rk.rdb_packed_reference(x, q0, torch.float32, torch.bfloat16), 2, 10)
-            print(f"K5 packed rdb mixed: B={B} {SIDE}x{SIDE}: max_abs_err {err:.3e} (rel {rel:.3e} "
-                  f"<= {tol}), two runs bit-equal; kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 "
-                  f"{k1_ms:.3f} ms (TF32 off) {card}", flush=True)
-            results[("K5", "mixed")] = (err, ms, pms)
-            results[("K5", "io")] = nbytes(x, q0["w"], q0["b"], got)
+            # K5 and K4 for one RDB: each shape, each patch side, against plain
+            for n_shape, (b_, h_, w_) in enumerate(MODE_SHAPES):
+                xm = x if n_shape == 0 else torch.from_numpy(
+                    np.random.default_rng(10 + n_shape).normal(0.0, 0.5, (b_, h_, w_, NF)).astype(np.float32)).to(dev)
+                xms, (hm, lm) = xm.to(torch.bfloat16), rk._split(xm)
+                want_q = rk.rdb_packed_reference(xm, q0, torch.float32, torch.bfloat16)
+                want_h, want_l = rk.rdb_paired_reference(hm, lm, p0)
+                want_p = want_h.float() + want_l.float()
+                # (the kernel's call at a patch side, its output as one f32 state)
+                for key, tiles, call, state, want in (
+                    ("K5", rk.PACKED_TILES, lambda t: rk._rdb_wgmma(xm, xms, q0, None, False, t, packed=True)[0],
+                     lambda out: out, want_q),
+                    ("K4", rk.WGMMA_TILES, lambda t: rk.rdb_apply_paired(hm, lm, p0, tile=t),
+                     lambda out: out[0].float() + out[1].float(), want_p),
+                ):
+                    for tile in (None, *tiles):
+                        got = state(call(tile))
+                        torch.cuda.synchronize()
+                        err, rel = rel_err(got, want)
+                        side = f"T={tile}" if tile else "the geometry's T"
+                        check(bool(torch.isfinite(got).all()) and rel <= tol,
+                              f"{key} B={b_} {h_}x{w_} at {side}: max|kernel-plain| {err} (rel {rel}) > {tol}")
+                        check(torch.equal(got, state(call(tile))),
+                              f"{key} B={b_} {h_}x{w_} at {side}: two runs differ")
+                        if n_shape == 0:
+                            t_ms = cuda_ms(lambda: call(tile), 2, 10)
+                            print(f"{key} rdb mixed B={b_} {h_}x{w_} at {side}: max_abs_err {err:.3e} (rel {rel:.3e} "
+                                  f"<= {tol}), two runs bit-equal; kernel {t_ms:.3f} ms {card}", flush=True)
+                            if tile is None:
+                                results[(key, "mixed")] = (err, t_ms, float("nan"))
+                        else:
+                            print(f"{key} rdb mixed B={b_} {h_}x{w_} at {side}: max_abs_err {err:.3e} "
+                                  f"(rel {rel:.3e} <= {tol}), two runs bit-equal {card}", flush=True)
+                del xm, xms, hm, lm, want_q, want_h, want_l, want_p
 
-            # K4: one RDB on hi + lo, then the 69-RDB trunk
-            gh, gl = rk.rdb_apply_paired(hi, lo, p0)
-            torch.cuda.synchronize()
-            wh, wl = rk.rdb_paired_reference(hi, lo, p0)
-            err, rel = rel_err(gh.float() + gl.float(), wh.float() + wl.float())
-            check(bool(torch.isfinite(gh.float() + gl.float()).all()) and rel <= tol,
-                  f"K4 paired RDB: max|kernel-plain| {err} (rel {rel}) > {tol}")
-            ms = cuda_ms(lambda: rk.rdb_apply_paired(hi, lo, p0), 2, 10)
-            pms = cuda_ms(lambda: rk.rdb_paired_reference(hi, lo, p0), 2, 10)
-            print(f"K4 paired rdb: B={B} {SIDE}x{SIDE}, hi + lo bf16: max_abs_err {err:.3e} (rel "
-                  f"{rel:.3e} <= {tol}); kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 {k1_ms:.3f} ms "
+            # K5: the times at the main shape, and the 69-RDB packed trunk
+            pms = cuda_ms(lambda: rk.rdb_packed_reference(x, q0, torch.float32, torch.bfloat16), 2, 10)
+            err, ms, _ = results[("K5", "mixed")]
+            results[("K5", "mixed")] = (err, ms, pms)
+            results[("K5", "io")] = nbytes(x, xs, q0["wg"], q0["b"], x)
+            print(f"K5 packed rdb mixed: B={B} {SIDE}x{SIDE}: kernel {ms:.3f} ms at "
+                  f"T={rk.packed_geometry(B, SIDE, SIDE, NF, GC, sms).tile}, plain {pms:.3f} ms, K1 {k1_ms:.3f} ms "
                   f"(TF32 off) {card}", flush=True)
+            got = rk.rdb_trunk(x, stacked_q, "packed")
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, plain_trunk(rk, x, stacked_q, rk.rdb_packed_reference))
+            e_k1, rel_k1 = rel_err(got, k1_trunk)
+            check(bool(torch.isfinite(got).all()) and rel <= TRUNK_TOL and rel_k1 <= TRUNK_TOL,
+                  f"K5 trunk: relative max diff to the plain packed trunk {rel}, to the K1 trunk {rel_k1} "
+                  f"> {TRUNK_TOL}")
+            check(torch.equal(got, rk.rdb_trunk(x, stacked_q, "packed")), "K5 trunk: two runs differ")
+            ms = cuda_ms(lambda: rk.rdb_trunk(x, stacked_q, "packed"), 1, 1)
+            print(f"K5 packed trunk: 69 RDB: max_abs_err {err:.3e} vs the plain packed trunk (rel {rel:.3e} <= "
+                  f"{TRUNK_TOL}), {e_k1:.3e} vs the K1 trunk (rel {rel_k1:.3e} <= {TRUNK_TOL}), two runs bit-equal; "
+                  f"kernel {ms:.3f} ms, K1 trunk {k1_trunk_ms:.3f} ms (TF32 off) {card}", flush=True)
+
+            # K4: the times at the main shape, and the 69-RDB paired trunk
+            gh, gl = rk.rdb_apply_paired(hi, lo, p0)
+            pms = cuda_ms(lambda: rk.rdb_paired_reference(hi, lo, p0), 2, 10)
+            err, ms, _ = results[("K4", "mixed")]
             results[("K4", "mixed")] = (err, ms, pms)
-            results[("K4", "io")] = nbytes(hi, lo, p0["w"], p0["b"], gh, gl)
+            results[("K4", "io")] = nbytes(hi, lo, p0["wg"], p0["b"], gh, gl)
+            print(f"K4 paired rdb: B={B} {SIDE}x{SIDE}, hi + lo bf16: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                  f"K1 {k1_ms:.3f} ms (TF32 off) {card}", flush=True)
             got = rk.rdb_trunk_paired(x, stacked)
             torch.cuda.synchronize()
             err, rel = rel_err(got, plain_paired_trunk(rk, x, stacked))
             e_k1, rel_k1 = rel_err(got, k1_trunk)
-            check(bool(torch.isfinite(got).all()) and rel <= TRUNK_TOL,
-                  f"K4 trunk: relative max diff to the plain paired trunk {rel} > {TRUNK_TOL}")
+            check(bool(torch.isfinite(got).all()) and rel <= TRUNK_TOL and rel_k1 <= TRUNK_TOL,
+                  f"K4 trunk: relative max diff to the plain paired trunk {rel}, to the K1 trunk {rel_k1} "
+                  f"> {TRUNK_TOL}")
             check(torch.equal(got, rk.rdb_trunk_paired(x, stacked)), "K4 trunk: two runs differ")
             ms = cuda_ms(lambda: rk.rdb_trunk_paired(x, stacked), 1, 1)
             pms = cuda_ms(lambda: plain_paired_trunk(rk, x, stacked), 1, 1)
             print(f"K4 paired trunk: 69 RDB: max_abs_err {err:.3e} vs the plain paired trunk (rel "
-                  f"{rel:.3e} <= {TRUNK_TOL}), {e_k1:.3e} vs the K1 trunk (rel {rel_k1:.3e}); "
-                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 trunk {k1_trunk_ms:.3f} ms "
+                  f"{rel:.3e} <= {TRUNK_TOL}), {e_k1:.3e} vs the K1 trunk (rel {rel_k1:.3e} <= {TRUNK_TOL}), "
+                  f"two runs bit-equal; kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 trunk {k1_trunk_ms:.3f} ms "
                   f"(TF32 off) {card}", flush=True)
 
             # K3: one RDB on the chained layout, then the 69-RDB trunk; K1's
@@ -655,7 +716,7 @@ def main() -> int:
         results[("K1", "io")] = nbytes(x, p0["w"], p0["b"], x)
         results[("K2", "io")] = nbytes(x, stacked["w"], stacked["b"], x)
         n_rdb = stacked["w"].shape[0]
-        del bundle, stacked, stacked_q, p0, q0, hi, lo, gh, gl, wh, wl, xc, out_c, got, want, k1_trunk
+        del bundle, stacked, stacked_q, p0, q0, hi, lo, gh, gl, xs, xc, out_c, got, want, k1_trunk
         del x
         torch.cuda.empty_cache()
 
@@ -772,6 +833,22 @@ def main() -> int:
               f"max diff {dmax}; TF32 flags {flags}")
         print(f"TF32 scope: mixed engine output bit-equal before and after a float32 engine "
               f"loaded and ran; process flags unchanged {flags} {card}", flush=True)
+
+        # float16 on "auto" takes plain convs, as the JAX engine's float16
+        # takes its conv path; an explicit "cuda" raises (no kernel instance)
+        f16 = RealSR(gpuid=0, config=EngineConfig(storage="float16"))
+        f16.load(mparam, mbin)
+        out16 = f16.process(images["a.png"])
+        db16 = psnr(out16, ref_a)
+        check(f16.variant == "dense" and out16.shape == ref_a.shape and db16 >= F16_MIN_DB,
+              f"float16 engine: variant {f16.variant}, output {out16.shape}, {db16:.2f} dB vs float32")
+        try:
+            RealSR(gpuid=0, config=EngineConfig(storage="float16", variant="cuda")).load(mparam, mbin)
+            fail("float16 with variant='cuda' loaded; it has no kernel instance")
+        except NotImplementedError:
+            pass
+        print(f"float16 engine, variant auto -> {f16.variant}: 1/f image vs float32 plain {db16:.2f} dB "
+              f"(>= {F16_MIN_DB}); variant='cuda' raises {card}", flush=True)
 
         plain_mixed = RealSR(gpuid=0, config=EngineConfig(variant="dense", tail="interleaved"))
         plain_mixed.load(mparam, mbin)
@@ -891,11 +968,11 @@ def main() -> int:
          "realsr_tpu/ops/rdb_kernel.py:263", launches, rdb_macs),
         ("K2", "rdb_wgmma (69-RDB trunk: rdb_trunk)", "realsr_tpu/ops/rdb_kernel.py:758",
          launches, n_rdb * rdb_macs),
-        ("K3", "rdb_kernel (tc::rdb_kernel<kChained>: rdb_apply_chained)",
+        ("K3", "rdb_kernel (tc::rdb_kernel<state, nf, gc>: mma.sync, rdb_apply_chained)",
          "realsr_tpu/ops/rdb_kernel.py:675", mode_launches["rdb_apply_chained"], rdb_macs),
-        ("K4", "rdb_kernel (tc::rdb_kernel<kPaired>: rdb_apply_paired)",
+        ("K4", "rdb_modes_wgmma (paired_kernel<T, nf, gc>: wgmma, rdb_apply_paired)",
          "realsr_tpu/ops/rdb_kernel.py:595", mode_launches["rdb_apply_paired"], rdb_macs),
-        ("K5", "rdb_kernel (tc::rdb_kernel<kPacked>: rdb_apply_packed)",
+        ("K5", "rdb_modes_wgmma (packed_kernel<T, state, nf, gc>: wgmma, rdb_apply_packed)",
          "realsr_tpu/ops/rdb_kernel.py:216", mode_launches["rdb_apply_packed"], rdb_macs),
         ("K6", "tail_kernel (tail_kernel<TH, TW, true>: wgmma, up2_hr_last_packed)",
          "realsr_tpu/ops/tail_kernel.py:103", k6_cli, tail_px * tk.tail_macs_per_pixel(True)),
@@ -905,8 +982,8 @@ def main() -> int:
         err, ms, pms = results[(("rdb", "mixed") if key == "K1" else ("trunk", "mixed")
                                 if key == "K2" else (key, "mixed"))]
         b_ms, b_by = bound(macs, results[(key, "io")])
-        src = {"K1": "rdb_wgmma.cu", "K2": "rdb_wgmma.cu", "K6": "tail_kernel.cu",
-               "K7": "tail_kernel.cu"}.get(key, "rdb_kernel.cu")
+        src = {"K1": "rdb_wgmma.cu", "K2": "rdb_wgmma.cu", "K3": "rdb_kernel.cu", "K4": "rdb_modes_wgmma.cu",
+               "K5": "rdb_modes_wgmma.cu"}.get(key, "tail_kernel.cu")
         kernels.append({
             "name": f"{key} {kname}", "route": "cuda", "source": f"realsr_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,

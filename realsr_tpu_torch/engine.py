@@ -44,9 +44,11 @@ class EngineConfig:
     # "auto" (mixed on CUDA, float32 on the CPU) | "float32" | "mixed" |
     # "bfloat16" | "float16"
     storage: str = "auto"
-    # RDB conv formulation: "auto" (the fused CUDA kernel on a GPU, plain
-    # convs on the CPU) | "dense" | "scatter" | "cuda". The kernel has no
-    # float16 instance: float16 needs an explicit "dense" or "scatter".
+    # RDB conv formulation: "auto" | "dense" | "scatter" | "cuda". "auto"
+    # (_resolve_variant) is the fused CUDA kernel on a GPU and plain convs
+    # on the CPU; float16, which the kernel has no instance for, takes plain
+    # convs on a GPU too, as the JAX engine takes its conv path. An explicit
+    # "cuda" with float16 raises.
     variant: str = "auto"
     # tail form (models.rrdbnet.TAIL_MODES): "auto" | "interleaved" |
     # "packed" | "kernel_hr" (K7) | "kernel" (K6). "auto" reads
@@ -91,6 +93,15 @@ def _resolve_precision(storage: str, device: Device) -> tuple:
     if storage not in _PRECISION:
         raise ValueError(f"unknown storage mode {storage!r}")
     return _PRECISION[storage]
+
+
+def _resolve_variant(variant: str, platform: str, dtype) -> str:
+    """``variant`` with "auto" resolved: "cuda" on a GPU, except for float16
+    storage, which gets "dense" (the JAX engine's float16 runs on its conv
+    path, realsr_tpu/engine.py:259-270); "dense" on the CPU."""
+    if variant != "auto":
+        return variant
+    return "cuda" if platform == "gpu" and dtype != torch.float16 else "dense"
 
 
 def packed_tail_env() -> Optional[str]:
@@ -162,10 +173,10 @@ class RealSR:
     Each chunk's forward runs under :func:`~realsr_tpu_torch.models.rrdbnet.
     tf32`: TF32 off for float32 operands (the JAX package's
     ``Precision.HIGHEST``), on for bfloat16 and float16 ones, restored after.
-    The flags are process-global while a chunk runs, so two engines of
-    different operand types driven from two threads at once can race on
-    them; the CLI never builds such a pair (all its engines share one
-    precision setting).
+    The flags are process-global while a chunk runs, so the scope is shared
+    between threads: the CLI's proc threads on one engine (same setting) run
+    their chunks concurrently, and a chunk of an engine of the other operand
+    type waits until none of them holds the scope.
     """
 
     def __init__(
@@ -211,9 +222,7 @@ class RealSR:
         trunk form the variant or precision cannot run (``ValueError``) or
         has no instance for on the card (``NotImplementedError``)."""
         dtype, op_dtype = _resolve_precision(self.config.storage, self.device)
-        variant = self.config.variant
-        if variant == "auto":
-            variant = "cuda" if self.device.platform == "gpu" else "dense"
+        variant = _resolve_variant(self.config.variant, self.device.platform, dtype)
         if variant == "cuda" and dtype == torch.float16:
             raise NotImplementedError(
                 "the fused RDB kernel has no float16 instance (ROADMAP queue 2); "

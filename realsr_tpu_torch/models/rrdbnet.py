@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -102,18 +103,59 @@ class RRDBNetSpec:
         return 2**self.num_upsample
 
 
+def _set_tf32(allowed: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = allowed
+    torch.backends.cuda.matmul.allow_tf32 = allowed
+
+
+# tf32's shared state, under one condition variable: each holding thread's
+# stack of settings (innermost last), and the flags saved when the first
+# holder entered. Whenever two threads hold scopes, every scope held has the
+# same setting, so the flags in force are that setting.
+_TF32_COND = threading.Condition()
+_TF32_HELD: Dict[int, List[bool]] = {}
+_TF32_SAVED: List[tuple] = []
+
+
+def _tf32_may_enter(me: int, allowed: bool) -> bool:
+    if all(t == me for t in _TF32_HELD):
+        return True  # no other holder: any setting, nested or not
+    return all(s == allowed for stack in _TF32_HELD.values() for s in stack)
+
+
 @contextlib.contextmanager
 def tf32(allowed: bool):
     """Set whether cuDNN convs and CUDA matmuls may use TF32 inside the
-    block, and restore both flags on exit. torch has no per-call switch, so
-    the flags are process-global while the block runs."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allowed
-    torch.backends.cuda.matmul.allow_tf32 = allowed
+    block. torch has no per-call switch, so the flags are process-global
+    while a block runs, and the scope is shared between threads: a thread
+    enters when no other thread holds a scope, or when every scope held has
+    the setting it wants (two proc threads of one engine run concurrently);
+    otherwise it waits. A thread alone may nest the other setting; two
+    threads that each hold a scope and each wait to nest the other setting
+    wait for each other for ever, so nest the other setting in one thread
+    only (the engine nests none). On exit the flags return to the enclosing
+    scope's setting, and to the flags saved on the first entry when the
+    last holder leaves."""
+    me = threading.get_ident()
+    with _TF32_COND:
+        _TF32_COND.wait_for(lambda: _tf32_may_enter(me, allowed))
+        if not _TF32_HELD:
+            _TF32_SAVED[:] = [(torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)]
+        _TF32_HELD.setdefault(me, []).append(allowed)
+        _set_tf32(allowed)
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        with _TF32_COND:
+            stack = _TF32_HELD[me]
+            stack.pop()
+            if stack:
+                _set_tf32(stack[-1])
+            else:
+                del _TF32_HELD[me]
+                if not _TF32_HELD:
+                    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = _TF32_SAVED.pop()
+            _TF32_COND.notify_all()
 
 
 def operand(t: torch.Tensor, op_dtype) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Fused residual dense block: the Python side of ``csrc/rdb_wgmma.cu`` and
-``csrc/rdb_kernel.cu``.
+"""Fused residual dense block: the Python side of ``csrc/rdb_wgmma.cu``,
+``csrc/rdb_modes_wgmma.cu`` and ``csrc/rdb_kernel.cu``.
 
 Counterpart of ``realsr_tpu/ops/rdb_kernel.py``. The five TPU kernels'
 counterparts (see the sources' headers), each with a wrapper here:
@@ -13,21 +13,26 @@ counterparts (see the sources' headers), each with a wrapper here:
   float32 output (the "shadow") into the next;
 - :func:`rdb_apply_packed` (K5, the ``sched="packed"`` branch of
   ``_make_rdb_compute``): one RDB in the K-packed schedule's five GEMM
-  rectangles, on weights re-cut by ``pack_rdb_params(sched="packed")``;
+  rectangles, on weights re-cut by ``pack_rdb_params(sched="packed")``, on
+  ``rdb_modes_wgmma.cu`` (K1's wgmma machinery, its patch side from
+  :func:`packed_geometry`); ``rdb_trunk(sched="packed")`` threads the
+  operand plane as for K1;
 - :func:`rdb_apply_chained` (K3, ``_rdb_kernel(chained=True)``): one RDB
   that reads and writes the zero-aproned layout of :func:`to_chained`,
   folding the residual where a device flag is 1; :func:`rdb_trunk_chained`
   rotates three such buffers;
 - :func:`rdb_apply_paired` (K4, ``_rdb_kernel(paired=True)``): one RDB on a
-  state carried as bf16 ``hi + lo`` planes; :func:`rdb_trunk_paired`.
+  state carried as bf16 ``hi + lo`` planes, on ``rdb_modes_wgmma.cu`` (K1's
+  stages, its window read from ``hi``, K1's patch side);
+  :func:`rdb_trunk_paired`.
 
 Tensors are NHWC. The state dtype is ``x``'s dtype; the operand dtype is the
 packed weights' dtype (:func:`pack_rdb_params`). K1 has two kernels: float32
 state and operands (CUDA cores, nf and gc multiples of 8), and bfloat16
 operands with float32 (mixed) or bfloat16 state (tensor cores, nf, gc = 64,
 32 or 32, 16). K3 and K5 exist for bfloat16 operands, K4 for mixed mode
-(float32 state as hi + lo, bfloat16 operands), at those two shapes; they
-stay on the mma.sync template of ``rdb_kernel.cu``.
+(float32 state as hi + lo, bfloat16 operands), at those two shapes; K3
+stays on the mma.sync template of ``rdb_kernel.cu``.
 
 A tensor on the CPU takes the plain PyTorch version (``*_reference``); a
 CUDA tensor launches the kernel or raises.
@@ -64,8 +69,15 @@ _DTYPE_PAIRS = {
 }
 # (nf, gc) the tensor-core kernels are instantiated for
 _TC_SHAPES = ((64, 32), (32, 16))
-# patch sides the wgmma RDB kernel is instantiated for (rdb_wgmma.cu::launch_tile)
+# patch sides the wgmma RDB kernel is instantiated for (rdb_wgmma.cu::launch_tile;
+# K4 too, rdb_modes_wgmma.cu::paired_tile)
 WGMMA_TILES = (17, 12, 8)
+# K5's patch sides (rdb_modes_wgmma.cu::packed_tile): its f32 partial sums
+# cap the side at 12 (packed_smem_bytes)
+PACKED_TILES = (12, 8)
+# K5's shared memory (rdb_modes_wgmma.cu::PackedLayout): floats of padding
+# per pixel row of the partial sums, and k16 slices of rectangle C per ring slot
+PACKED_PAD_F, PACKED_SLICES = 4, 3
 # rdb_geometry's price of one block beyond its MACs (the window's load, each
 # stage's pipeline fill, barrier and epilogue), in MACs: fitted to the
 # kernel's times at T = 17, 12 and 8 on 8 x 148^2 (chip_smoke.py phase 3)
@@ -120,7 +132,8 @@ def _perm(nf: int, gc: int, sched: str, frag: bool, order: str = "mma") -> np.nd
     'scatter' is the dense layout itself. ``frag`` True (tensor cores):
     k-steps over (source, tap, 16-channel block) in the order the kernels
     walk them, each k-step in :func:`_step_order` ``order`` ('mma' for the
-    mma.sync kernels K3-K5, 'wgmma' for rdb_wgmma.cu's K1).
+    mma.sync kernel K3 and the plain versions, 'wgmma' for the wgmma kernels
+    K1, K4 and K5).
     """
     if frag and (nf % 16 or gc % 16):
         raise ValueError(f"the fragment order needs nf, gc multiples of 16 (got {nf}, {gc})")
@@ -185,8 +198,9 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
     (:func:`_perm`, :func:`_frag`). ``sched="packed"`` re-cuts the same weight values into
     the K-packed schedule's rectangles, for :func:`rdb_apply_packed`. Where
     ``w`` is in fragment order for 'scatter', ``"wg"`` holds the same
-    weights in the wgmma kernel's order (``_perm(..., order="wgmma")``):
-    K1 reads ``wg``, K3 and K4 read ``w``.
+    weights in the wgmma kernels' order (``_perm(..., order="wgmma")``):
+    K1, K4 and (with ``sched="packed"``) K5 read ``wg``; K3 and the plain
+    versions read ``w``.
     """
     _rects(sched)
     ws, bs = [], []
@@ -198,7 +212,7 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
     gc, nf = np.shape(rdb["w1"])[-4:-2]
     frag = _frag(op_dtype, nf, gc)
     out = {}
-    if frag and sched == "scatter":
+    if frag:
         wg = w[..., _perm(nf, gc, sched, True, "wgmma")]
         out["wg"] = torch.from_numpy(np.ascontiguousarray(wg)).to(op_dtype)
     if frag or sched != "scatter":
@@ -212,7 +226,7 @@ def unpack_rdb_params(
     p: Dict[str, torch.Tensor], nf: int, sched: str = "scatter", key: str = "w"
 ) -> Dict[str, torch.Tensor]:
     """Inverse of :func:`pack_rdb_params` for one RDB: OIHW tensors, from
-    ``p[key]`` (``"wg"``: the wgmma kernel's copy)."""
+    ``p[key]`` (``"wg"``: the wgmma kernels' copy)."""
     w, b = p[key], p["b"]
     gc = (b.shape[-1] - nf) // 4
     frag = _frag(w.dtype, nf, gc)
@@ -262,12 +276,14 @@ def _nhwc_out(y):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def rdb_packed_reference(x, p, storage_dtype, op_dtype, u=None):
+def rdb_packed_reference(x, p, storage_dtype, op_dtype, u=None, xs=None):
     """Plain PyTorch version of K5: one RDB on NHWC ``x`` in the K-packed
     schedule, with the kernel's (and the JAX package's) grouping of the
     sums: each rectangle is one conv over its concatenated sources, and its
     bias or partial sum is added after. Rectangle C convolves
-    ``concat(x, c1, c2)`` with its K = 9 (nf + 2gc) weights."""
+    ``concat(x, c1, c2)`` with its K = 9 (nf + 2gc) weights. ``xs``: ``x``
+    already rounded to ``op_dtype`` (the operand plane :func:`rdb_trunk`
+    threads); the convs read it, the residual reads ``x``."""
     nf = x.shape[-1]
     w = unpack_rdb_params(p, nf, "packed")
     gc = w["b1"].shape[0]
@@ -284,7 +300,8 @@ def rdb_packed_reference(x, p, storage_dtype, op_dtype, u=None):
     def bias(lo, hi):
         return b[lo:hi][:, None, None]
 
-    xs = x.permute(0, 3, 1, 2)
+    xn = x.permute(0, 3, 1, 2)
+    xs = xn if xs is None else xs.permute(0, 3, 1, 2)
     pa = rect([xs], (0,), (1, 2))
     c1 = _lrelu(pa[:, :gc] + bias(0, gc)).to(storage_dtype)
     a2 = pa[:, gc:] + bias(gc, 2 * gc)
@@ -297,7 +314,7 @@ def rdb_packed_reference(x, p, storage_dtype, op_dtype, u=None):
     c4 = _lrelu(a4 + pd[:, :gc]).to(storage_dtype)
     a5 = a5 + pd[:, gc:]
     c5 = a5 + rect([c4], (4,), (5,))
-    y = (RESIDUAL_SCALE * c5 + xs.float()).to(storage_dtype)
+    y = (RESIDUAL_SCALE * c5 + xn.float()).to(storage_dtype)
     return _nhwc_out(_residual(y, u, storage_dtype))
 
 
@@ -354,7 +371,8 @@ def rdb_paired_reference(hi, lo, p, u=None):
 
 @dataclasses.dataclass(frozen=True)
 class RdbGeometry:
-    """The wgmma RDB kernel's grid for one chunk (:func:`rdb_geometry`)."""
+    """A wgmma RDB kernel's grid for one chunk (:func:`rdb_geometry`,
+    :func:`packed_geometry`)."""
 
     tile: int  # output patch side T
     patches: Tuple[int, int]  # patch rows and columns of one image
@@ -364,41 +382,82 @@ class RdbGeometry:
     mac_factor: float  # MACs the blocks issue / the RDB's MACs
 
 
+def _region_rows(tile: int, r: int) -> int:
+    """Rows of region r (1..5) of a patch, in whole 64-row m-tiles."""
+    side = tile + 2 * HALO - 2 * r
+    return -(-side * side // 64) * 64
+
+
 def block_macs(tile: int, nf: int, gc: int) -> int:
-    """MACs one block issues: each stage's region in 64-row tiles, times
-    its K (9 taps x its input channels) and N (gc or nf)."""
+    """MACs one block of K1 (and K4) issues: each stage's region in 64-row
+    tiles, times its K (9 taps x its input channels) and N (gc or nf)."""
+    return sum(
+        _region_rows(tile, r) * 9 * (nf + (r - 1) * gc) * (gc if r < 5 else nf) for r in range(1, 6)
+    )
+
+
+def packed_block_macs(tile: int, nf: int, gc: int) -> int:
+    """MACs one block of K5 issues: each rectangle (:func:`_rects`
+    'packed') over its first output's region in 64-row tiles, times its K
+    and N (68.42 M at T = 12, nf = 64, gc = 32)."""
     total = 0
-    for r in range(1, 6):
-        side = tile + 2 * HALO - 2 * r
-        rows = -(-side * side // 64) * 64
-        total += rows * 9 * (nf + (r - 1) * gc) * (gc if r < 5 else nf)
+    for sources, convs in _rects("packed"):
+        k = 9 * sum(nf if j == 0 else gc for j in sources)
+        n = sum(gc if i < 5 else nf for i in convs)
+        total += _region_rows(tile, convs[0]) * k * n
     return total
+
+
+def packed_smem_bytes(tile: int, nf: int, gc: int) -> int:
+    """Shared memory of one K5 block (rdb_modes_wgmma.cu::PackedLayout):
+    K1's bf16 planes (the window, c1..c4), the f32 partial sums (a2 on c2's
+    region; a4 and a5 on c4's and the output's, in the same bytes), two ring
+    slots of :data:`PACKED_SLICES` k16 slices of rectangle C, five barriers
+    and the base's alignment to 1024 bytes."""
+    side = [tile + 2 * HALO - 2 * j for j in range(6)]
+    planes = 2 * nf * side[0] ** 2 + sum(2 * gc * s * s for s in side[1:5])
+    a2 = 4 * side[2] ** 2 * (gc + PACKED_PAD_F)
+    a45 = 4 * (side[4] ** 2 * (gc + PACKED_PAD_F) + side[5] ** 2 * (nf + PACKED_PAD_F))
+    return planes + max(a2, a45) + 2 * PACKED_SLICES * (2 * gc + nf) * 32 + 8 * 5 + 1024
 
 
 def rdb_macs_per_pixel(nf: int, gc: int) -> int:
     return 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
 
 
-def rdb_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
-    """The patch side of :data:`WGMMA_TILES` that finishes ``B`` tiles of
-    ``H x W`` soonest on ``sms`` SMs, one block per SM: the fewest whole
-    waves times a block's price (the MACs it issues plus
-    :data:`BLOCK_OVERHEAD_MACS`; the larger side on a tie). At 8 x 148^2 on
-    132 SMs: T = 17, 648 blocks in 4.91 waves."""
+def _geometry(tiles, macs, B: int, H: int, W: int, nf: int, gc: int, sms: int) -> RdbGeometry:
+    """The patch side of ``tiles`` that finishes ``B`` tiles of ``H x W``
+    soonest on ``sms`` SMs, one block per SM: the fewest whole waves times a
+    block's price (``macs(tile, nf, gc)`` plus :data:`BLOCK_OVERHEAD_MACS`;
+    the larger side on a tie)."""
     best = None
-    for tile in sorted(WGMMA_TILES, reverse=True):
+    for tile in sorted(tiles, reverse=True):
         py, px = -(-H // tile), -(-W // tile)
         blocks = B * py * px
         waves = -(-blocks // sms)
-        cost = waves * (block_macs(tile, nf, gc) + BLOCK_OVERHEAD_MACS)
+        cost = waves * (macs(tile, nf, gc) + BLOCK_OVERHEAD_MACS)
         if best is None or cost < best[0]:
             best = (cost, tile, (py, px), blocks, waves)
     _, tile, patches, blocks, waves = best
     return RdbGeometry(
         tile=tile, patches=patches, blocks=blocks, waves=blocks / sms,
         fill=blocks / (waves * sms),
-        mac_factor=blocks * block_macs(tile, nf, gc) / (B * H * W * rdb_macs_per_pixel(nf, gc)),
+        mac_factor=blocks * macs(tile, nf, gc) / (B * H * W * rdb_macs_per_pixel(nf, gc)),
     )
+
+
+def rdb_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
+    """K1's (and K4's) patch side of :data:`WGMMA_TILES` for ``B`` tiles of
+    ``H x W`` (:func:`_geometry`, :func:`block_macs`). At 8 x 148^2 on 132
+    SMs: T = 17, 648 blocks in 4.91 waves."""
+    return _geometry(WGMMA_TILES, block_macs, B, H, W, nf, gc, sms)
+
+
+def packed_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
+    """K5's patch side of :data:`PACKED_TILES` (:func:`_geometry`,
+    :func:`packed_block_macs`). At 8 x 148^2 on 132 SMs: T = 12, 1,352
+    blocks in 10.24 waves, 2.203x the RDB's MACs issued."""
+    return _geometry(PACKED_TILES, packed_block_macs, B, H, W, nf, gc, sms)
 
 
 @functools.lru_cache(maxsize=8)
@@ -420,13 +479,10 @@ def _bind(lib, fns):
 
 
 def _library():
-    """rdb_kernel.cu: K1 for float32 operands, and K3-K5."""
+    """rdb_kernel.cu: K1 for float32 operands, and K3."""
     from realsr_tpu_torch.ops.build import load_library
 
-    return _bind(load_library("rdb_kernel"), {
-        "rdb_launch_f32": (5, 5), "rdb_launch_packed": (5, 6),
-        "rdb_launch_chained": (6, 8), "rdb_launch_paired": (8, 5),
-    })
+    return _bind(load_library("rdb_kernel"), {"rdb_launch_f32": (5, 5), "rdb_launch_chained": (6, 8)})
 
 
 def _wgmma_library():
@@ -434,6 +490,13 @@ def _wgmma_library():
     from realsr_tpu_torch.ops.build import load_library
 
     return _bind(load_library("rdb_wgmma"), {"rdb_wgmma_launch": (7, 7)})
+
+
+def _modes_library():
+    """rdb_modes_wgmma.cu: K4 and K5."""
+    from realsr_tpu_torch.ops.build import load_library
+
+    return _bind(load_library("rdb_modes_wgmma"), {"rdb_paired_launch": (8, 6), "rdb_packed_launch": (7, 7)})
 
 
 def _check(name, t, device, dtype, numel=None, shape=None):
@@ -525,57 +588,66 @@ def _operand_plane(x: torch.Tensor, op_dtype) -> Optional[torch.Tensor]:
     return x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
 
 
-def _rdb_wgmma(x, xs, p, u, shadow: bool, tile: Optional[int] = None):
-    """K1 on the card with bfloat16 operands: (the new state, its bfloat16
-    operand plane or None). ``xs``: ``x``'s operand plane; ``shadow``:
-    write bf16(out) beside a float32 ``out``; ``tile``: a patch side of
-    :data:`WGMMA_TILES` in place of :func:`rdb_geometry`'s choice."""
-    w, b = p["w"], p["b"]
-    nf, gc, pair = _cuda_operands("rdb_apply", x, w, b, tensor_cores=True)
+def _wg_weights(fn: str, p, x, numel: int) -> torch.Tensor:
+    """``p["wg"]``, checked: the wgmma kernels' copy of the weights."""
     if "wg" not in p:
-        raise ValueError("rdb_apply: p has no 'wg' weights (pack_rdb_params with bfloat16 operands)")
-    _check("wg", p["wg"], x.device, torch.bfloat16, numel=w.numel())
+        raise ValueError(f"{fn}: p has no 'wg' weights (pack_rdb_params with bfloat16 operands)")
+    _check("wg", p["wg"], x.device, torch.bfloat16, numel=numel)
+    return p["wg"]
+
+
+def _patch_side(fn: str, tile: Optional[int], tiles, geometry, x, nf: int, gc: int) -> int:
+    """``tile`` checked against the patch sides a kernel is built for, or
+    ``geometry``'s choice for ``x``'s chunk."""
+    if tile is None:
+        B, H, W, _ = x.shape
+        return geometry(B, H, W, nf, gc, _sm_count(x.device)).tile
+    if tile not in tiles:
+        raise ValueError(f"{fn}: no kernel for patch side {tile}; built for {tiles}")
+    return tile
+
+
+def _rdb_wgmma(x, xs, p, u, shadow: bool, tile: Optional[int] = None, packed: bool = False):
+    """K1 (or K5 when ``packed``) on the card with bfloat16 operands: (the
+    new state, its bfloat16 operand plane or None). ``xs``: ``x``'s operand
+    plane; ``shadow``: write bf16(out) beside a float32 ``out``; ``tile``: a
+    patch side of :data:`WGMMA_TILES` (K5: :data:`PACKED_TILES`) in place
+    of :func:`rdb_geometry`'s (:func:`packed_geometry`'s) choice."""
+    fn = "rdb_apply_packed" if packed else "rdb_apply"
+    w, b = p["w"], p["b"]
+    nf, gc, pair = _cuda_operands(fn, x, w, b, tensor_cores=True)
+    wg = _wg_weights(fn, p, x, w.numel())
     _check("xs", xs, x.device, torch.bfloat16, shape=x.shape)
     if u is not None:
         _check("u", u, x.device, x.dtype, shape=x.shape)
     B, H, W, _ = x.shape
-    if tile is None:
-        tile = rdb_geometry(B, H, W, nf, gc, _sm_count(x.device)).tile
-    elif tile not in WGMMA_TILES:
-        raise ValueError(f"rdb_apply: no kernel for patch side {tile}; built for {WGMMA_TILES}")
+    if packed:
+        tile = _patch_side(fn, tile, PACKED_TILES, packed_geometry, x, nf, gc)
+        lib = _modes_library()
+        launch = lib.rdb_packed_launch
+    else:
+        tile = _patch_side(fn, tile, WGMMA_TILES, rdb_geometry, x, nf, gc)
+        lib = _wgmma_library()
+        launch = lib.rdb_wgmma_launch
     out = torch.empty_like(x)
     sh = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) if shadow else None
-    lib = _wgmma_library()
     with torch.cuda.device(x.device):
-        err = lib.rdb_wgmma_launch(
-            xs.data_ptr(), x.data_ptr(), p["wg"].data_ptr(), b.data_ptr(),
+        err = launch(
+            xs.data_ptr(), x.data_ptr(), wg.data_ptr(), b.data_ptr(),
             None if u is None else u.data_ptr(), out.data_ptr(), None if sh is None else sh.data_ptr(),
             B, H, W, nf, gc, pair[0], tile, _stream(x),
         )
-    _launched("rdb_apply", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, T={tile}, {x.dtype}")
+    _launched(fn, lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, T={tile}, {x.dtype}")
     return out, sh
 
 
 def rdb_apply_packed(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Tensor] = None):
     """K5: :func:`rdb_apply` in the K-packed schedule; ``p``: one RDB of
     ``pack_rdb_params(..., sched="packed")``."""
-    w, b = p["w"], p["b"]
+    w = p["w"]
     if x.device.type == "cpu":
         return rdb_packed_reference(x, p, x.dtype, w.dtype, u)
-    nf, gc, pair = _cuda_operands("rdb_apply_packed", x, w, b, tensor_cores=True)
-    if u is not None:
-        _check("u", u, x.device, x.dtype, shape=x.shape)
-    B, H, W, _ = x.shape
-    out = torch.empty_like(x)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.rdb_launch_packed(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            None if u is None else u.data_ptr(), out.data_ptr(),
-            B, H, W, nf, gc, pair[0], _stream(x),
-        )
-    _launched("rdb_apply_packed", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, {x.dtype}")
-    return out
+    return _rdb_wgmma(x, _operand_plane(x, w.dtype), p, u, shadow=False, packed=True)[0]
 
 
 def rdb_apply_chained(
@@ -613,29 +685,33 @@ def rdb_apply_chained(
 
 def rdb_apply_paired(
     hi: torch.Tensor, lo: torch.Tensor, p: Dict[str, torch.Tensor],
-    u: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    u: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, tile: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: one RDB on the state ``hi + lo`` (NHWC bf16 planes) -> (hi',
     lo'); ``u`` = (u_hi, u_lo): fold the RRDB residual (see
-    :func:`rdb_paired_reference`)."""
+    :func:`rdb_paired_reference`). The kernel reads its window from ``hi``
+    itself; ``tile``: a patch side of :data:`WGMMA_TILES` in place of
+    :func:`rdb_geometry`'s choice."""
     w, b = p["w"], p["b"]
     if hi.device.type == "cpu":
         return rdb_paired_reference(hi, lo, p, u)
     if hi.dtype != torch.bfloat16:
         raise ValueError(f"rdb_apply_paired: hi is {hi.dtype}, expected bfloat16")
     nf, gc, _ = _cuda_operands("rdb_apply_paired", hi, w, b, tensor_cores=True)
+    wg = _wg_weights("rdb_apply_paired", p, hi, w.numel())
     for name, t in (("lo", lo),) + (() if u is None else (("u_hi", u[0]), ("u_lo", u[1]))):
         _check(name, t, hi.device, torch.bfloat16, shape=hi.shape)
+    tile = _patch_side("rdb_apply_paired", tile, WGMMA_TILES, rdb_geometry, hi, nf, gc)
     B, H, W, _ = hi.shape
     hi2, lo2 = torch.empty_like(hi), torch.empty_like(lo)
-    lib = _library()
+    lib = _modes_library()
     with torch.cuda.device(hi.device):
-        err = lib.rdb_launch_paired(
-            hi.data_ptr(), lo.data_ptr(), w.data_ptr(), b.data_ptr(),
+        err = lib.rdb_paired_launch(
+            hi.data_ptr(), lo.data_ptr(), wg.data_ptr(), b.data_ptr(),
             None if u is None else u[0].data_ptr(), None if u is None else u[1].data_ptr(),
-            hi2.data_ptr(), lo2.data_ptr(), B, H, W, nf, gc, _stream(hi),
+            hi2.data_ptr(), lo2.data_ptr(), B, H, W, nf, gc, tile, _stream(hi),
         )
-    _launched("rdb_apply_paired", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}")
+    _launched("rdb_apply_paired", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, T={tile}")
     return hi2, lo2
 
 
@@ -643,16 +719,18 @@ def _rdb_k(stacked, k):
     return {name: v[k] for name, v in stacked.items()}
 
 
-def _rdb_step(x, xs, p, u, keep: bool):
+def _rdb_step(x, xs, p, u, keep: bool, sched: str):
     """One RDB of :func:`rdb_trunk` on ``x`` and its operand plane ``xs``:
     (the new state, its operand plane if ``keep``, else None)."""
     w = p["w"]
+    packed = sched == "packed"
     if x.device.type == "cpu":
-        y = rdb_reference(x, p, x.dtype, w.dtype, u, xs)
+        ref = rdb_packed_reference if packed else rdb_reference
+        y = ref(x, p, x.dtype, w.dtype, u, xs)
         return y, (_operand_plane(y, w.dtype) if keep else None)
     if w.dtype != torch.bfloat16:
-        return rdb_apply(x, p, u), None
-    out, sh = _rdb_wgmma(x, xs, p, u, shadow=keep and x.dtype != torch.bfloat16)
+        return (rdb_apply_packed if packed else rdb_apply)(x, p, u), None
+    out, sh = _rdb_wgmma(x, xs, p, u, shadow=keep and x.dtype != torch.bfloat16, packed=packed)
     return out, (out if x.dtype == torch.bfloat16 else sh)
 
 
@@ -664,20 +742,15 @@ def rdb_trunk(x: torch.Tensor, stacked: Dict[str, torch.Tensor], sched: str = "s
     coeffs [0.2, 1.0]). With bfloat16 operands the state's bfloat16 operand
     plane is cast once from ``x`` and then written by each RDB beside its
     output for the next. ``sched="packed"`` runs each RDB on K5
-    (:func:`rdb_apply_packed`)."""
+    (:func:`rdb_apply_packed`), ``stacked`` packed with that schedule."""
+    _rects(sched)
     n = stacked["w"].shape[0]
     t = u = x
-    if sched == "packed":
-        for k in range(n):
-            if k % 3 == 0:
-                u = t
-            t = rdb_apply_packed(t, _rdb_k(stacked, k), u if k % 3 == 2 else None)
-        return t
     xs = _operand_plane(x, stacked["w"].dtype)
     for k in range(n):
         if k % 3 == 0:
             u = t
-        t, xs = _rdb_step(t, xs, _rdb_k(stacked, k), u if k % 3 == 2 else None, k + 1 < n)
+        t, xs = _rdb_step(t, xs, _rdb_k(stacked, k), u if k % 3 == 2 else None, k + 1 < n, sched)
     return t
 
 

@@ -194,3 +194,174 @@ def test_port_source_imports_no_jax_package(rel):
             if top in ("jax", "jaxlib", "realsr_tpu"):
                 found.append(f"{rel}:{node.lineno} imports {n}")
     assert not found, found
+
+
+@pytest.mark.parametrize("storage", ["float32", "mixed", "bfloat16", "float16"])
+@pytest.mark.parametrize("platform", ["gpu", "cpu"])
+def test_resolve_variant(platform, storage):
+    """"auto" is the kernel on a GPU except for float16, which takes plain
+    convs there as the JAX engine's float16 takes its conv path; plain convs
+    on the CPU; an explicit variant is kept as it is."""
+    from realsr_tpu_torch.engine import _PRECISION, _resolve_variant
+
+    dtype = _PRECISION[storage][0]
+    want = "cuda" if platform == "gpu" and storage != "float16" else "dense"
+    assert _resolve_variant("auto", platform, dtype) == want
+    for explicit in ("dense", "scatter", "cuda"):
+        assert _resolve_variant(explicit, platform, dtype) == explicit
+
+
+def _tf32_thread(target):
+    """Run ``target`` in a daemon thread; (thread, errors it raised)."""
+    import threading
+
+    errors = []
+
+    def run():
+        try:
+            target()
+        except BaseException as e:  # noqa: BLE001 - reported by the test
+            errors.append(e)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, errors
+
+
+@pytest.fixture
+def tf32_flags():
+    """The TF32 flags as (cudnn, matmul); restored after the test."""
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)  # noqa: E731
+    saved = flags()
+    yield flags
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_tf32_scope_opposite_settings_wait(tf32_flags):
+    """A thread that wants the other setting waits until the holder leaves,
+    and each reads its own setting inside its scope (the race of two proc
+    threads restoring each other's flags is gone)."""
+    import threading
+
+    from realsr_tpu_torch.models.rrdbnet import tf32
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    a_in, a_go, b_in = threading.Event(), threading.Event(), threading.Event()
+    seen = {}
+
+    def a():
+        with tf32(False):
+            a_in.set()
+            assert a_go.wait(10)
+            seen["a"] = tf32_flags()
+
+    def b():
+        assert a_in.wait(10)
+        with tf32(True):
+            b_in.set()
+            seen["b"] = tf32_flags()
+
+    ta, ea = _tf32_thread(a)
+    tb, eb = _tf32_thread(b)
+    assert a_in.wait(10)
+    assert not b_in.wait(0.3), "the second thread entered while the first held the other setting"
+    a_go.set()
+    ta.join(10)
+    tb.join(10)
+    assert not ta.is_alive() and not tb.is_alive() and not ea and not eb, (ea, eb)
+    assert seen == {"a": (False, False), "b": (True, True)}
+    assert tf32_flags() == (True, False)
+
+
+def test_tf32_scope_same_setting_concurrent(tf32_flags):
+    """Two threads with the same setting hold the scope at once: both reach
+    a barrier inside their scopes, which would time out if one waited."""
+    import threading
+
+    from realsr_tpu_torch.models.rrdbnet import tf32
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = False, True
+    both = threading.Barrier(2, timeout=10)
+    seen = []
+
+    def worker():
+        with tf32(True):
+            both.wait()
+            seen.append(tf32_flags())
+            both.wait()
+
+    threads = [_tf32_thread(worker) for _ in range(2)]
+    for th, _ in threads:
+        th.join(15)
+    assert all(not th.is_alive() and not err for th, err in threads), [err for _, err in threads]
+    assert seen == [(True, True)] * 2
+    assert tf32_flags() == (False, True)
+
+
+def test_tf32_scope_nests_in_one_thread(tf32_flags):
+    """A thread alone nests the other setting without deadlock (chip_smoke
+    holds tf32(False) around a check that enters tf32(True)), and each exit
+    restores the enclosing setting, the last one the saved flags."""
+    from realsr_tpu_torch.models.rrdbnet import tf32
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    seen = []
+
+    def nest():
+        with tf32(False):
+            seen.append(tf32_flags())
+            with tf32(True):
+                seen.append(tf32_flags())
+                with tf32(True):
+                    seen.append(tf32_flags())
+                seen.append(tf32_flags())
+            seen.append(tf32_flags())
+        seen.append(tf32_flags())
+
+    th, err = _tf32_thread(nest)
+    th.join(10)
+    assert not th.is_alive(), "nested tf32 scopes deadlocked"
+    assert not err, err
+    off, on = (False, False), (True, True)
+    assert seen == [off, on, on, on, off, (True, False)]
+
+
+def test_tf32_scope_stress(tf32_flags):
+    """Many more threads than cores, each entering and leaving scopes of a
+    random setting (some nested, with the same setting: a thread nests the
+    other one only while it is the sole holder) with the interpreter
+    switching threads every microsecond: inside every scope the flags are
+    that scope's setting, and after the last exit the saved flags are
+    back."""
+    import sys
+    import time
+
+    from realsr_tpu_torch.models.rrdbnet import tf32
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    wrong = []
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(100):
+            setting = bool(rng.integers(2))
+            with tf32(setting):
+                if tf32_flags() != (setting, setting):
+                    wrong.append((setting, tf32_flags()))
+                if rng.integers(4) == 0:
+                    with tf32(setting):
+                        if tf32_flags() != (setting, setting):
+                            wrong.append((setting, tf32_flags()))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [_tf32_thread(lambda s=s: worker(s)) for s in range(4 * (os.cpu_count() or 4))]
+        deadline = time.monotonic() + 60
+        for th, _ in threads:
+            th.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        sys.setswitchinterval(interval)
+    assert all(not th.is_alive() and not err for th, err in threads), [err for _, err in threads if err]
+    assert not wrong, wrong[:5]
+    assert tf32_flags() == (True, False)

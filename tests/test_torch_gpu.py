@@ -170,6 +170,72 @@ SHAPES = ((1, 12, 12), (2, 23, 17))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile", TK.PACKED_TILES)
+@pytest.mark.parametrize("state,nf,gc,tol", [(torch.float32, 64, 32, 1e-3), (torch.bfloat16, 32, 16, 1e-2)])
+def test_packed_kernel_at_each_patch_side(cuda, tile, state, nf, gc, tol):
+    """K5 at each patch side it is built for, with the residual and the
+    bf16 shadow: within the tolerance of the plain version, the shadow
+    bf16 of the output."""
+    x = _state(cuda, (2, 37, 21, nf), state)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.bfloat16, sched="packed").items()}
+    out, sh = TK._rdb_wgmma(x, x.to(torch.bfloat16), p, x * 0.5, True, tile, packed=True)
+    torch.cuda.synchronize()
+    assert _rel(out, TK.rdb_packed_reference(x, p, state, torch.bfloat16, x * 0.5)) <= tol
+    assert torch.equal(sh, out.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", TK.WGMMA_TILES)
+def test_paired_kernel_at_each_patch_side(cuda, tile):
+    x = _state(cuda, (2, 37, 21, 64), torch.float32)
+    hi, lo = TK._split(x)
+    u = TK._split(x * 0.5)
+    p = {k: v.to(cuda) for k, v in _packed(64, 32, torch.bfloat16).items()}
+    h2, l2 = TK.rdb_apply_paired(hi, lo, p, u, tile=tile)
+    wh, wl = TK.rdb_paired_reference(hi, lo, p, u)
+    assert _rel(h2.float() + l2.float(), wh.float() + wl.float()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state,tol", [(torch.float32, 1e-3), (torch.bfloat16, 1e-2)])
+def test_packed_trunk_matches_plain_trunk(cuda, state, tol):
+    """Six RDBs on K5 with the operand plane threaded from launch to launch
+    (K5 writes the bf16 shadow as K1 does) against the plain packed trunk;
+    six launches, bit-equal over two runs."""
+    x = _state(cuda, (2, 23, 17, 32), state)
+    packs = [_packed(32, 16, torch.bfloat16, seed=30 + k, sched="packed") for k in range(6)]
+    stacked = {k: torch.stack([d[k] for d in packs]).to(cuda) for k in packs[0]}
+    launches = TK.LAUNCHES["rdb_apply_packed"]
+    got = TK.rdb_trunk(x, stacked, "packed")
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["rdb_apply_packed"] == launches + 6
+    t = u = x
+    for k in range(6):
+        if k % 3 == 0:
+            u = t
+        pk = {"w": stacked["w"][k], "b": stacked["b"][k]}
+        t = TK.rdb_packed_reference(t, pk, state, torch.bfloat16, u if k % 3 == 2 else None)
+    assert _rel(got, t) <= tol
+    assert torch.equal(got, TK.rdb_trunk(x, stacked, "packed"))
+
+
+@pytest.mark.gpu
+def test_float16_engine_runs_plain_convs(cuda, tmp_path):
+    """float16 on variant "auto" loads and runs on plain convs; an explicit
+    "cuda" raises: the kernels have no float16 instance."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=32, gc=16))
+    e = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float16"))
+    e.load(*files)
+    assert e.variant == "dense"
+    assert e.process(np.zeros((9, 11, 3), np.uint8)).shape == (36, 44, 3)
+    with pytest.raises(NotImplementedError, match="no float16 instance"):
+        RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float16", variant="cuda")).load(*files)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize(
     "state,nf,gc,tol",

@@ -115,7 +115,7 @@ def test_plain_trunk_matches_jax_resident():
     "nf,gc,op,key",
     [
         (16, 8, torch.float32, "w"),
-        (32, 16, torch.bfloat16, "w"),  # mma.sync fragment order (K3-K5)
+        (32, 16, torch.bfloat16, "w"),  # mma.sync fragment order (K3)
         (32, 16, torch.bfloat16, "wg"),  # wgmma order (K1)
         (64, 32, torch.bfloat16, "wg"),
     ],
@@ -226,6 +226,62 @@ def test_rdb_geometry_matches_brute_force(B, H, W, nf, gc, sms):
     assert geo.mac_factor == pytest.approx(macs / useful)
     if (B, H, W, nf, sms) == (8, 148, 148, 64, 132):
         assert (geo.tile, geo.blocks) == (17, 648)
+
+
+@pytest.mark.parametrize("B,H,W", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("nf,gc,sms", [(64, 32, 132), (32, 16, 16)])
+def test_packed_geometry_matches_brute_force(B, H, W, nf, gc, sms):
+    """packed_geometry (K5) against a block-by-block count: each block's
+    five packed rectangles over their first output's region, rounded up to
+    64-row tiles, times K x N; the side of PACKED_TILES that minimises waves
+    x block price."""
+    useful = B * H * W * 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
+    # (region, K, N) of rectangles A..E
+    rects = [(1, 9 * nf, 2 * gc), (2, 9 * gc, gc), (3, 9 * (nf + 2 * gc), 2 * gc + nf), (4, 9 * gc, gc + nf),
+             (5, 9 * gc, nf)]
+
+    def count(tile):
+        blocks, macs = 0, 0
+        for _ in range(B):
+            for _y in range(0, H, tile):
+                for _x in range(0, W, tile):
+                    blocks += 1
+                    for r, k, n in rects:
+                        side = tile + 10 - 2 * r
+                        macs += -(-(side * side) // 64) * 64 * k * n
+        return blocks, macs
+
+    prices = {}
+    for tile in TK.PACKED_TILES:
+        blocks, macs = count(tile)
+        prices[tile] = -(-blocks // sms) * (macs // blocks + TK.BLOCK_OVERHEAD_MACS)
+    want = max(t for t, c in prices.items() if c == min(prices.values()))
+    geo = TK.packed_geometry(B, H, W, nf, gc, sms)
+    blocks, macs = count(want)
+    assert geo.tile == want
+    assert geo.patches == (-(-H // want), -(-W // want))
+    assert geo.blocks == blocks
+    assert geo.waves == pytest.approx(blocks / sms)
+    assert geo.mac_factor == pytest.approx(macs / useful)
+    if (B, H, W, nf, sms) == (8, 148, 148, 64, 132):
+        assert (geo.tile, geo.blocks, TK.packed_block_macs(12, nf, gc)) == (12, 1352, 68_419_584)
+        assert geo.mac_factor == pytest.approx(2.203, abs=5e-4)
+
+
+@pytest.mark.parametrize("nf,gc", [(64, 32), (32, 16)])
+def test_packed_smem_fits_each_built_side(nf, gc):
+    """K5's shared memory (the mirror of rdb_modes_wgmma.cu::PackedLayout)
+    fits one block (232,448 bytes on the card) at each patch side it is
+    built for, and not at 13 for nf = 64: the partial sums cap the side at
+    12."""
+    limit = 232_448
+    for tile in TK.PACKED_TILES:
+        assert TK.packed_smem_bytes(tile, nf, gc) <= limit
+    # hand count at T = 12, nf = 64: planes 137,216 + partials 67,392 + ring
+    # 2 x 12,288 + 5 barriers + the 1,024-byte alignment
+    assert TK.packed_smem_bytes(12, 64, 32) == 137_216 + 67_392 + 24_576 + 40 + 1024
+    if nf == 64:
+        assert TK.packed_smem_bytes(13, nf, gc) > limit
 
 
 def test_plain_trunk_threads_operand_plane():

@@ -53,12 +53,12 @@ def _stack(p, n):
     return {k: torch.stack([v] * n) for k, v in p.items()}
 
 
-def _rect_matrices(p, nf, gc):
-    """The port's packed-schedule weights as the JAX package lays out its
-    rectangles: ``[N, 9 * cin]`` per rectangle, contraction index (source,
-    tap, channel)."""
-    if TK._frag(p["w"].dtype, nf, gc):  # fragment order -> the [K][N] layout
-        dense = {k: v.float().numpy() for k, v in TK.unpack_rdb_params(p, nf, "packed").items()}
+def _rect_matrices(p, nf, gc, key="w"):
+    """The port's packed-schedule weights ``p[key]`` as the JAX package lays
+    out its rectangles: ``[N, 9 * cin]`` per rectangle, contraction index
+    (source, tap, channel)."""
+    if TK._frag(p[key].dtype, nf, gc):  # fragment or wgmma order -> the [K][N] layout
+        dense = {k: v.float().numpy() for k, v in TK.unpack_rdb_params(p, nf, "packed", key).items()}
         p = TK.pack_rdb_params(dense, torch.float32, "packed")
     w = p["w"].float().numpy()
     out, o = [], 0
@@ -78,8 +78,14 @@ def _rect_matrices(p, nf, gc):
 # -- K5: the K-packed schedule ----------------------------------------------
 
 
-@pytest.mark.parametrize("nf,gc,op", [(16, 8, torch.float32), (16, 8, torch.bfloat16), (32, 16, torch.bfloat16)])
-def test_packed_weights_equal_jax_rectangles(nf, gc, op):
+@pytest.mark.parametrize(
+    "nf,gc,op,key",
+    [(16, 8, torch.float32, "w"), (16, 8, torch.bfloat16, "w"), (32, 16, torch.bfloat16, "w"),
+     (32, 16, torch.bfloat16, "wg"), (64, 32, torch.bfloat16, "wg")],
+)
+def test_packed_weights_equal_jax_rectangles(nf, gc, op, key):
+    """Both copies of the packed schedule's weights, the mma fragment order
+    ("w") and the wgmma kernel's ("wg", K5), hold JAX's rectangles."""
     p = _mk_params(nf, gc, seed=2)
     jdt = jnp.float32 if op == torch.float32 else jnp.bfloat16
     kp = K.pack_rdb_params(R.repack_scatter({"rdb": p})["rdb"], dtype=jdt, sched="packed")
@@ -87,7 +93,7 @@ def test_packed_weights_equal_jax_rectangles(nf, gc, op):
     assert kp["w1"].shape == (gc, 9 * gc)
     assert kp["w2"].shape == (2 * gc + nf, 9 * (nf + 2 * gc))
     port = _port_packed(p, op, "packed")
-    for r, m in enumerate(_rect_matrices(port, nf, gc)):
+    for r, m in enumerate(_rect_matrices(port, nf, gc, key)):
         want = np.asarray(kp[f"w{r}"]).astype(np.float32)
         assert m.shape == want.shape
         np.testing.assert_array_equal(m, want)
@@ -136,6 +142,72 @@ def test_packed_reference_matches_jax_mixed_chain():
     pp = _port_packed(p, torch.bfloat16, "packed")
     got = TK.rdb_apply_packed(TK.rdb_apply_packed(torch.from_numpy(x), pp), pp).numpy()
     assert np.abs(got - want).max() <= 1e-3 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_packed_wgmma_order_round_trips(nf, gc):
+    """pack_rdb_params(sched="packed") writes "wg" (the wgmma order, K5)
+    beside "w"; _perm is a permutation and both unpack to the same dense
+    weights, bf16-rounded."""
+    p = params_from_jax({"rdb": _mk_params(nf, gc, seed=7)})["rdb"]
+    packed = TK.pack_rdb_params(p, torch.bfloat16, "packed")
+    perm = TK._perm(nf, gc, "packed", True, "wgmma")
+    assert np.array_equal(np.sort(perm), np.arange(perm.size))
+    assert packed["wg"].shape == packed["w"].shape == (TK.rdb_macs_per_pixel(nf, gc),)
+    from_wg = TK.unpack_rdb_params(packed, nf, "packed", "wg")
+    from_w = TK.unpack_rdb_params(packed, nf, "packed", "w")
+    for k, v in p.items():
+        want = torch.from_numpy(v).to(torch.bfloat16 if k.startswith("w") else torch.float32)
+        assert torch.equal(from_wg[k], want) and torch.equal(from_w[k], want)
+
+
+def test_packed_wgmma_slice_order():
+    """Spot-check K5's B layout: rectangle C's first k16 slice (source x,
+    tap 0, channels 0..15) holds, K-major without swizzle, element (n, k) at
+    (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8, its columns c3's gc
+    outputs, then c4's, then c5's nf."""
+    nf, gc = 32, 16
+    ws = {i: np.arange(i * 10**6, i * 10**6 + (gc if i < 5 else nf) * (nf + (i - 1) * gc) * 9,
+                       dtype=np.float64).reshape(gc if i < 5 else nf, nf + (i - 1) * gc, 3, 3)
+          for i in range(1, 6)}
+    packed = np.concatenate([np.moveaxis(ws[i], 0, -1).ravel() for i in range(1, 6)])[
+        TK._perm(nf, gc, "packed", True, "wgmma")]
+    # rectangles A (K 9 nf, N 2 gc) and B (K 9 gc, N gc) come first
+    start = 9 * nf * 2 * gc + 9 * gc * gc
+    n_c = 2 * gc + nf
+    got = packed[start : start + 16 * n_c]
+    for n in range(n_c):
+        conv, co = (3, n) if n < gc else (4, n - gc) if n < 2 * gc else (5, n - 2 * gc)
+        for k in range(16):
+            assert got[(n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8] == ws[conv][co, k, 0, 0], (n, k)
+
+
+def test_packed_trunk_threads_operand_plane_and_matches_jax():
+    """The packed trunk on the CPU, with the bf16 operand plane threaded
+    from RDB to RDB as on the card, equals the chain of lone packed RDBs
+    exactly, and the JAX packed chain within the mixed bound (two RDBs, as
+    test_packed_reference_matches_jax_mixed_chain); three RDBs fold the
+    RRDB residual as rdb_trunk's other schedule does."""
+    H, W = 9, 11
+    p = _mk_params(NF, GC, seed=3)
+    x = np.random.default_rng(4).random((1, H, W, NF)).astype(np.float32)
+    WB = K.round_wb(W)
+    BLK, nblk = K.plan_rows(H, target_blk=5)
+    kp = K.pack_rdb_params(R.repack_scatter({"rdb": p})["rdb"], dtype=jnp.bfloat16, sched="packed")
+    kw = dict(H=H, W=W, WB=WB, BLK=BLK, nblk=nblk, nf=NF, gc=GC, op_dtype=jnp.bfloat16,
+              sched="packed", interpret=True)
+    yf = K.rdb_apply(K.to_flat(jnp.asarray(x), WB, BLK * nblk), kp, **kw)
+    yf = K.rdb_apply(K.re_apron(yf, WB), kp, **kw)
+    want = np.asarray(K.from_flat(yf, H, W, WB))
+    pp = _port_packed(p, torch.bfloat16, "packed")
+    xt = torch.from_numpy(x)
+    launches = dict(TK.LAUNCHES)
+    got = TK.rdb_trunk(xt, _stack(pp, 2), "packed")
+    assert TK.LAUNCHES == launches
+    assert torch.equal(got, TK.rdb_apply_packed(TK.rdb_apply_packed(xt, pp), pp))
+    assert np.abs(got.numpy() - want).max() <= 1e-3 * max(1.0, np.abs(want).max())
+    t3 = TK.rdb_apply_packed(TK.rdb_apply_packed(TK.rdb_apply_packed(xt, pp), pp), pp, xt)
+    assert torch.equal(TK.rdb_trunk(xt, _stack(pp, 3), "packed"), t3)
 
 
 # -- K3: the chained layout ------------------------------------------------
