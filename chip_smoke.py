@@ -5,35 +5,38 @@ Phases (each prints its lines; any failure exits non-zero):
 1. card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
 2. build: the fused RDB and tail kernels from ``realsr_tpu_torch/csrc``, one
    nvcc for each source, started together (``rdb_wgmma.cu``: K1/K2 for bf16
-   operands; ``rdb_modes_wgmma.cu``: K4 and K5 on K1's wgmma machinery;
-   ``rdb_kernel.cu``: K1 for float32 operands and K3; ``tail_kernel.cu``:
-   K6/K7), with each kernel's registers and spills from ``-Xptxas -v`` (no
-   wgmma kernel may spill) and the count of wgmma (HGMMA), TMA and
-   bulk-copy instructions in the wgmma sources' SASS;
+   operands; ``rdb_tf32.cu``: K1/K2 for float32 operands, 3xTF32 wgmma;
+   ``rdb_modes_wgmma.cu``: K3, K4 and K5 on K1's wgmma machinery;
+   ``tail_kernel.cu``: K6/K7), with each kernel's registers and spills from
+   ``-Xptxas -v`` (no kernel may spill) and the count of wgmma (HGMMA), TMA
+   and bulk-copy instructions in each source's SASS;
 3. the RDB kernel against its plain PyTorch version at the main path's shape
    (8 tiles of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): the
-   wgmma kernel's patch geometry, one RDB in mixed and float32 mode, the
-   69-RDB trunk with the RRDB residual, with CUDA-event times of both, and
-   the mixed RDB at each patch side the kernel is built for;
+   patch geometry of K1 and of its float32 instances, one RDB in mixed and
+   float32 mode, the 69-RDB trunk with the RRDB residual, with CUDA-event
+   times of both (float32 beside its tf32 bound and the cuDNN route's
+   time), and the RDB at each patch side the kernel is built for (float32
+   also at a ragged 2 x 37 x 21);
 3b. the tail kernels K6 (up2 + HRconv + conv_last) and K7 (HRconv +
    conv_last) against their plain versions at the same shape, at a ragged
    2 x 37 x 21 and at 9 x 37 x 37 (4x sides no multiple of the patch
    shape), with the tail's patch geometry and CUDA-event times, also at
    each patch shape the kernel is built for;
 3c. the trunk's alternative modes' kernels, mixed: K5 (the K-packed
-   schedule) and K4 (the paired bf16 carry) for one RDB against their plain
-   versions at the phase-3 shape and at a ragged 2 x 37 x 21, at the patch
-   side their geometry picks and at each side they are built for, bit-equal
-   over two runs, with K5's geometry; their 69-RDB trunks against the plain
-   trunk of their mode and the K1 trunk; K3 (the chained layout) for one
-   RDB against its plain version and K1, and its 69-RDB trunk against the
-   K1 trunk; CUDA-event times of each, of its plain version and of K1 at
+   schedule), K4 (the paired bf16 carry) and K3 (the chained layout, with
+   its bf16 operand plane and shadow as its trunk threads them) for one RDB
+   against their plain versions at the phase-3 shape and at a ragged 2 x 37
+   x 21, at the patch side their geometry picks and at each side they are
+   built for, bit-equal over two runs, with K5's geometry; K3 also against
+   K1; their 69-RDB trunks against the plain trunk of their mode (K3: the
+   K1 trunk); CUDA-event times of each, of its plain version and of K1 at
    the same shape;
 4. the main path: ``realsr_tpu_torch.cli.main`` on three images with the
    committed DF2K graph (23 RRDB, nf = 64, gc = 32) and synthesized weights,
    checking the outputs and that the trunk and the tail ran on the kernels
    (69 RDB launches and one tail launch per chunk); then the CLI with the
-   K7 tail (REALSR_TPU_PACKED_TAIL=2) and with TTA (``-x``) on one image;
+   K7 tail (REALSR_TPU_PACKED_TAIL=2), with TTA (``-x``) and in float32
+   (REALSR_TPU_STORAGE=float32: K1's float32 instances) on one image;
    then once per trunk mode on one image (chained and paired through the
    module flags ``models.rrdbnet.CHAINED_TRUNK`` / ``PAIRED_CARRY``, packed
    through ``REALSR_TPU_SCHED=packed``), with 69 launches of the mode's
@@ -56,8 +59,9 @@ says that it times them as a mixed engine runs them.
 The line before the card's line lists every kernel with its launches on
 the main path, its error against its plain version, its time, its plain
 version's and its bound on this card (``bound_ms``: the larger of the
-operations over the data sheet's dense bf16 peak and the bytes over its
-memory rate). The last line is ``{"ok": true, "device": {...}}``. Imports
+operations over the data sheet's dense peak, bf16 or, for the float32
+instances, tf32 with three products per MAC, and the bytes over its memory
+rate). The last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the JAX package.
 """
 
@@ -113,8 +117,9 @@ MODES = {
     "paired": (dict(trunk="paired"), "PAIRED_CARRY", None, "rdb_apply_paired"),
     "packed": (dict(sched="packed"), None, "packed", "rdb_apply_packed"),
 }
-# NVIDIA's data sheet for the H100 SXM at 700 W: dense bf16 and HBM rates
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# NVIDIA's data sheet for the H100 SXM at 700 W: dense bf16 and tf32, HBM
+PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 989e12, 495e12, 3.35e12
+TF32_PRODUCTS = 3  # the float32 kernel's split product: lo x hi + hi x lo + hi x hi
 RDB_MACS_PER_PX = 9 * sum((NF + i * GC) * (GC if i < 4 else NF) for i in range(5))
 
 
@@ -122,10 +127,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(macs: float, moved: int) -> tuple:
+def bound(macs: float, moved: int, tf32: bool = False) -> tuple:
     """(ms, what bounds it): the least time the card could take for
-    ``macs`` bf16 multiply-adds moving ``moved`` bytes."""
-    t_ops, t_mem = 2 * macs / PEAK_BF16_FLOPS, moved / PEAK_BYTES
+    ``macs`` bf16 multiply-adds (``tf32``: float32 multiply-adds, each three
+    tf32 products) moving ``moved`` bytes."""
+    flops = TF32_PRODUCTS * 2 * macs / PEAK_TF32_FLOPS if tf32 else 2 * macs / PEAK_BF16_FLOPS
+    t_ops, t_mem = flops, moved / PEAK_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
@@ -137,21 +144,17 @@ def ptxas_rows(log: str) -> list:
     rows = []
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'", 1)[0]
-        m = re.search(r"tc10rdb_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
-        w = re.search(r"(rdb|packed)_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
-        k4 = re.search(r"paired_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        w = re.search(r"(rdb|packed|chained)_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        k4 = re.search(r"(paired|rdb_tf32)_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
         t = re.search(r"tail_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
         if t:
             label = f"{'K6' if t.group(3) == '1' else 'K7'} {t.group(1)}x{t.group(2)}"
-        elif m:
-            label = f"K3 {'f32' if m.group(1) == 'f' else 'bf16'} state {m.group(2)}/{m.group(3)}"
         elif w:
-            label = (f"{'K1' if w.group(1) == 'rdb' else 'K5'} wgmma T={w.group(2)} "
+            label = (f"{dict(rdb='K1', packed='K5', chained='K3')[w.group(1)]} wgmma T={w.group(2)} "
                      f"{'f32' if w.group(3) == 'f' else 'bf16'} state {w.group(4)}/{w.group(5)}")
         elif k4:
-            label = f"K4 wgmma T={k4.group(1)} {k4.group(2)}/{k4.group(3)}"
-        elif "fp3210rdb_kernel" in name:
-            label = "K1 float32 (CUDA cores)"
+            kind = "K4 wgmma" if k4.group(1) == "paired" else "K1 float32 3xTF32 wgmma"
+            label = f"{kind} T={k4.group(2)} {k4.group(3)}/{k4.group(4)}"
         else:
             label = name[-40:]
         regs = re.search(r"Used (\d+) registers", part)
@@ -418,7 +421,7 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, started together -----------------
     t0 = time.perf_counter()
-    sources = ("rdb_wgmma", "rdb_modes_wgmma", "rdb_kernel", "tail_kernel")
+    sources = ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "tail_kernel")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))
     print(f"build: {', '.join(f'{s}.cu' for s in sources)} -> {build.build_dir()} in "
@@ -435,9 +438,8 @@ def main() -> int:
             if serial:
                 print(f"ptxas {src}.cu: {len(serial)} notes of wgmma serialization, e.g. {serial[0][:200]}",
                       flush=True)
-            if src in ("rdb_wgmma", "rdb_modes_wgmma", "tail_kernel"):
-                check(all(st == 0 and ld == 0 for _, _, st, ld in rows), f"{src}.cu: a wgmma kernel spills: {rows}")
-    for src in ("rdb_wgmma", "rdb_modes_wgmma"):
+            check(all(st == 0 and ld == 0 for _, _, st, ld in rows), f"{src}.cu: a wgmma kernel spills: {rows}")
+    for src in ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma"):
         ops = sass_counts(src)
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UBLKCP"] > 0,
               f"{src}.cu: SASS without wgmma / TMA / bulk copies: {ops}")
@@ -469,10 +471,13 @@ def main() -> int:
         x = torch.from_numpy(
             rng.normal(0.0, 0.5, (B, SIDE, SIDE, NF)).astype(np.float32)
         ).to(dev)
-        geo = rk.rdb_geometry(B, SIDE, SIDE, NF, GC, torch.cuda.get_device_properties(dev).multi_processor_count)
-        print(f"geometry B={B} {SIDE}x{SIDE}: patch side T={geo.tile}, {geo.patches[0]}x{geo.patches[1]} "
-              f"patches per tile, {geo.blocks} blocks = {geo.waves:.3f} waves (fill {100 * geo.fill:.1f} %), "
-              f"issued MACs {geo.mac_factor:.3f}x the RDB's", flush=True)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for label, geometry in (("K1", rk.rdb_geometry), ("K1 float32", rk.tf32_geometry)):
+            geo = geometry(B, SIDE, SIDE, NF, GC, sms)
+            print(f"geometry {label} B={B} {SIDE}x{SIDE}: patch side T={geo.tile}, {geo.patches[0]}x{geo.patches[1]} "
+                  f"patches per tile, {geo.blocks} blocks = {geo.waves:.3f} waves (fill {100 * geo.fill:.1f} %), "
+                  f"issued MACs {geo.mac_factor:.3f}x the RDB's", flush=True)
+        rdb_macs = RDB_MACS_PER_PX * B * SIDE * SIDE
         results = {}
         for mode, op in (("mixed", torch.bfloat16), ("float32", torch.float32)):
             bundle = load_model(mparam, mbin, torch.float32, op, variant="cuda")
@@ -496,8 +501,12 @@ def main() -> int:
                     xs = x.to(torch.bfloat16)
                     ms = cuda_ms(lambda: rk._rdb_wgmma(x, xs, p0, None, False), 2, 10)
                     wrapper = f" (rdb_apply with its bf16 cast of x {cuda_ms(lambda: rk.rdb_apply(x, p0), 2, 10):.3f} ms)"
+                    results[("K1", "io")] = nbytes(x, p0["wg"], p0["b"], x)
                 else:
                     ms = cuda_ms(lambda: rk.rdb_apply(x, p0), 2, 10)
+                    results[("K1 float32", "io")] = nbytes(x, p0["wt"], p0["b"], x)
+                    b_ms = bound(rdb_macs, results[("K1 float32", "io")], tf32=True)[0]
+                    wrapper = f" (its tf32 bound {b_ms:.3f} ms; the plain version is the cuDNN route)"
                 pms = cuda_ms(lambda: rk.rdb_reference(x, p0, torch.float32, op), 2, 10)
             print(f"rdb {mode}: B={B} {SIDE}x{SIDE} nf={NF} gc={GC}: max_abs_err {err:.3e} "
                   f"(rel {rel:.3e} <= {RDB_TOL[mode]}), two runs bit-equal; kernel {ms:.3f} ms{wrapper}, "
@@ -513,6 +522,28 @@ def main() -> int:
                               f"{t_blocks * rk.block_macs(tile, NF, GC) / (B * SIDE * SIDE * RDB_MACS_PER_PX):.3f}x "
                               f"the RDB's; kernel {t_ms:.3f} ms {card}", flush=True)
                 del xs
+            else:
+                # the float32 instances at each patch side, at the main
+                # path's chunk and at a ragged one, with the residual
+                xr = torch.from_numpy(np.random.default_rng(20).normal(0.0, 0.5, (2, 37, 21, NF))
+                                      .astype(np.float32)).to(dev)
+                with tf32(False):
+                    for tile in rk.TF32_TILES:
+                        for xin in (x, xr):
+                            want = rk.rdb_reference(xin, p0, torch.float32, op, xin)
+                            got = rk._rdb_tf32(xin, p0, xin, tile)
+                            e_t, rel_t = rel_err(got, want)
+                            check(bool(torch.isfinite(got).all()) and rel_t <= RDB_TOL[mode]
+                                  and torch.equal(got, rk._rdb_tf32(xin, p0, xin, tile)),
+                                  f"float32 RDB at T={tile}, {tuple(xin.shape)}: rel {rel_t} > {RDB_TOL[mode]} "
+                                  "or two runs differ")
+                        t_ms = cuda_ms(lambda: rk._rdb_tf32(x, p0, None, tile), 2, 10)
+                        t_blocks = B * (-(-SIDE // tile)) ** 2
+                        print(f"rdb float32 at patch side T={tile}: {t_blocks} blocks, issued MACs "
+                              f"{t_blocks * rk.block_macs(tile, NF, GC) / rdb_macs:.3f}x the RDB's; kernel "
+                              f"{t_ms:.3f} ms; with the residual at B={B} {SIDE}x{SIDE} and 2 x 37 x 21 within "
+                              f"rel {RDB_TOL[mode]}, bit-equal {card}", flush=True)
+                del xr
 
             with tf32(False):
                 got = rk.rdb_trunk(x, stacked)
@@ -529,13 +560,14 @@ def main() -> int:
                   f"(rel {rel:.3e} <= {TRUNK_TOL}), two runs bit-equal; kernel {ms:.3f} ms, "
                   f"plain {pms:.3f} ms (TF32 off) {card}", flush=True)
             results[("trunk", mode)] = (err, ms, pms)
+            wkey = "wg" if mode == "mixed" else "wt"
+            results[("K2" if mode == "mixed" else "K2 float32", "io")] = nbytes(x, stacked[wkey], stacked["b"], x)
             del stacked, p0, got, want, bundle
 
         # -- 3b. tail kernels against plain ------------------------------
         bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
         tp16 = {k: v.to(dev) for k, v in bundle.params["tail"].items()}
         tp32 = {k: v.to(dev) for k, v in tk.pack_tail_params(bundle.params, torch.float32).items()}
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for up, label in ((True, "K6"), (False, "K7")):
             for b_, h_, w_ in TAIL_SHAPES:
                 g = tk.tail_geometry(b_, h_, w_, up, sms)
@@ -596,7 +628,6 @@ def main() -> int:
         flag0 = torch.zeros(1, dtype=torch.int32, device=dev)
         out_c = torch.zeros_like(xc)
         tol = RDB_TOL["mixed"]
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for b_, h_, w_ in MODE_SHAPES:
             g = rk.packed_geometry(b_, h_, w_, NF, GC, sms)
             print(f"packed geometry (K5) B={b_} {h_}x{w_}: patch side T={g.tile}, {g.patches[0]}x{g.patches[1]} "
@@ -608,7 +639,7 @@ def main() -> int:
             k1_trunk = rk.rdb_trunk(x, stacked)
             k1_trunk_ms = cuda_ms(lambda: rk.rdb_trunk(x, stacked), 1, 1)
 
-            # K5 and K4 for one RDB: each shape, each patch side, against plain
+            # K5, K4 and K3 for one RDB: each shape, each patch side, against plain
             for n_shape, (b_, h_, w_) in enumerate(MODE_SHAPES):
                 xm = x if n_shape == 0 else torch.from_numpy(
                     np.random.default_rng(10 + n_shape).normal(0.0, 0.5, (b_, h_, w_, NF)).astype(np.float32)).to(dev)
@@ -616,12 +647,32 @@ def main() -> int:
                 want_q = rk.rdb_packed_reference(xm, q0, torch.float32, torch.bfloat16)
                 want_h, want_l = rk.rdb_paired_reference(hm, lm, p0)
                 want_p = want_h.float() + want_l.float()
+                # K3 with the residual folded (u = x), reading the bf16 operand
+                # plane and writing the shadow as its trunk does
+                xmc = rk.to_chained(xm)
+                xmcs, out_m, sh_m = xmc.to(torch.bfloat16), torch.zeros_like(xmc), torch.zeros_like(xmc, dtype=torch.bfloat16)
+                flag1 = torch.ones(1, dtype=torch.int32, device=dev)
+                want_c = rk.from_chained(rk.rdb_chained_reference(
+                    xmc, p0, xmc, flag1, h_, w_, torch.zeros_like(xmc), torch.float32, torch.bfloat16), h_, w_)
+
+                def chained(t):
+                    rk.rdb_apply_chained(xmc, p0, xmc, flag1, h_, w_, out_m, xmcs, sh_m, t)
+                    return out_m
+
+                def chained_state(out):
+                    rest = out.clone()
+                    rk.from_chained(rest, h_, w_).zero_()
+                    check(not rest.any() and torch.equal(sh_m, out.to(torch.bfloat16)),
+                          f"K3 B={b_} {h_}x{w_}: written outside the image, or the shadow is not bf16(out)")
+                    return rk.from_chained(out, h_, w_).clone()
+
                 # (the kernel's call at a patch side, its output as one f32 state)
                 for key, tiles, call, state, want in (
                     ("K5", rk.PACKED_TILES, lambda t: rk._rdb_wgmma(xm, xms, q0, None, False, t, packed=True)[0],
                      lambda out: out, want_q),
                     ("K4", rk.WGMMA_TILES, lambda t: rk.rdb_apply_paired(hm, lm, p0, tile=t),
                      lambda out: out[0].float() + out[1].float(), want_p),
+                    ("K3", rk.WGMMA_TILES, chained, chained_state, want_c),
                 ):
                     for tile in (None, *tiles):
                         got = state(call(tile))
@@ -641,7 +692,7 @@ def main() -> int:
                         else:
                             print(f"{key} rdb mixed B={b_} {h_}x{w_} at {side}: max_abs_err {err:.3e} "
                                   f"(rel {rel:.3e} <= {tol}), two runs bit-equal {card}", flush=True)
-                del xm, xms, hm, lm, want_q, want_h, want_l, want_p
+                del xm, xms, hm, lm, want_q, want_h, want_l, want_p, xmc, xmcs, out_m, sh_m, want_c
 
             # K5: the times at the main shape, and the 69-RDB packed trunk
             pms = cuda_ms(lambda: rk.rdb_packed_reference(x, q0, torch.float32, torch.bfloat16), 2, 10)
@@ -687,10 +738,12 @@ def main() -> int:
                   f"two runs bit-equal; kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 trunk {k1_trunk_ms:.3f} ms "
                   f"(TF32 off) {card}", flush=True)
 
-            # K3: one RDB on the chained layout, then the 69-RDB trunk; K1's
-            # arithmetic with mma.sync where K1 has wgmma, so held to K1
-            # within the mixed tolerance
-            rk.rdb_apply_chained(xc, p0, xc, flag0, SIDE, SIDE, out_c)
+            # K3: one RDB on the chained layout as its trunk runs it (the bf16
+            # operand plane in, the shadow out), then the 69-RDB trunk; K1's
+            # stages and arithmetic on another layout, so held to K1 within
+            # the mixed tolerance
+            xcs, sh_c = xc.to(torch.bfloat16), torch.zeros_like(xc, dtype=torch.bfloat16)
+            rk.rdb_apply_chained(xc, p0, xc, flag0, SIDE, SIDE, out_c, xcs, sh_c)
             torch.cuda.synchronize()
             want = rk.rdb_chained_reference(xc, p0, xc, flag0, SIDE, SIDE, torch.zeros_like(xc),
                                             torch.float32, torch.bfloat16)
@@ -698,11 +751,13 @@ def main() -> int:
             check(rel <= tol, f"K3 chained RDB: max|kernel-plain| {err} (rel {rel}) > {tol}")
             e_k1, rel_k1 = rel_err(rk.from_chained(out_c, SIDE, SIDE), rk.rdb_apply(x, p0))
             check(rel_k1 <= tol, f"K3 chained RDB: max|K3 - K1| {e_k1} (rel {rel_k1}) > {tol}")
-            ms = cuda_ms(lambda: rk.rdb_apply_chained(xc, p0, xc, flag0, SIDE, SIDE, out_c), 2, 10)
+            ms = cuda_ms(lambda: rk.rdb_apply_chained(xc, p0, xc, flag0, SIDE, SIDE, out_c, xcs, sh_c), 2, 10)
             pms = cuda_ms(lambda: rk.rdb_chained_reference(
                 xc, p0, xc, flag0, SIDE, SIDE, out_c, torch.float32, torch.bfloat16), 2, 10)
             results[("K3", "mixed")] = (err, ms, pms)
-            results[("K3", "io")] = nbytes(x, p0["w"], p0["b"], x)  # the image in, the image out
+            # the image and its operand plane in, the image and its shadow out
+            results[("K3", "io")] = nbytes(x, xs, p0["wg"], p0["b"], x, xs)
+            del xcs, sh_c
             got = rk.rdb_trunk_chained(x, stacked)
             torch.cuda.synchronize()
             e_t, rel_t = rel_err(got, k1_trunk)
@@ -713,8 +768,6 @@ def main() -> int:
                   f"kernel {ms:.3f} ms, plain {pms:.3f} ms, K1 {k1_ms:.3f} ms; 69-RDB chained trunk "
                   f"vs the K1 trunk {e_t:.3e} (rel {rel_t:.3e} <= {TRUNK_TOL}), {tms:.3f} ms vs K1 trunk "
                   f"{k1_trunk_ms:.3f} ms (TF32 off) {card}", flush=True)
-        results[("K1", "io")] = nbytes(x, p0["w"], p0["b"], x)
-        results[("K2", "io")] = nbytes(x, stacked["w"], stacked["b"], x)
         n_rdb = stacked["w"].shape[0]
         del bundle, stacked, stacked_q, p0, q0, hi, lo, gh, gl, xs, xc, out_c, got, want, k1_trunk
         del x
@@ -798,6 +851,24 @@ def main() -> int:
               f"{chunks_x} chunks, {batches_x} forward batches of 8 or 2 x 4 variants, "
               f"{launches_x} rdb_kernel launches, {k6_x} K6 launches, {wall:.3f} s {card}",
               flush=True)
+
+        # the float32 path through the CLI: K1's float32 instances, the
+        # interleaved tail (the tail kernels have bfloat16 operands only)
+        eng32 = RealSR(gpuid=0, config=EngineConfig(storage="float32"))
+        eng32.load(mparam, mbin)
+        n32, _ = chunk_counts(eng32, one)
+        out32 = os.path.join(out_dir, "b_f32.png")
+        wall, counts32, k6_32, k7_32 = run_cli(
+            cli, rk, tk, ["-i", one_in, "-o", out32, "-m", model_dir, "-g", "0"], {"REALSR_TPU_STORAGE": "float32"})
+        f32_launches = counts32["rdb_apply"]
+        with Image.open(out32) as im:
+            check(np.asarray(im).shape == (800, 1200, 3), f"float32: output {np.asarray(im).shape}")
+        check(f32_launches == 69 * n32 and sum(counts32.values()) == f32_launches and k6_32 == k7_32 == 0
+              and eng32.tail == "interleaved",
+              f"float32 CLI run: launches {counts32}, K6 {k6_32}, K7 {k7_32}; want 69 x {n32} of rdb_apply only")
+        print(f"main path, REALSR_TPU_STORAGE=float32: b.png, {n32} chunks, {f32_launches} rdb_apply launches "
+              f"(K1's float32 instances), tail {eng32.tail}, {wall:.3f} s {card}", flush=True)
+        del eng32
 
         # the trunk modes through the CLI, each on one image
         mode_launches = {}
@@ -925,6 +996,9 @@ def main() -> int:
         for label, s_img in rows:
             print(f"steady {STEADY_HW[1]}x{STEADY_HW[0]} RGB, {label}: {s_img:.4f} s/image, "
                   f"{big_mp / s_img:.3f} output MP/s {card}", flush=True)
+        s_k32, s_p32 = rows[-2][1], rows[-1][1]
+        print(f"float32 on variant auto (the kernel trunk) {big_mp / s_k32:.3f} vs variant dense (cuDNN) "
+              f"{big_mp / s_p32:.3f} output MP/s: {'auto' if s_k32 < s_p32 else 'dense'} faster {card}", flush=True)
         tta_mp = 16 * 192 * 256 / 1e6
         s_tta = steady_s(tta_engine, images["a.png"])
         print(f"steady 256x192 RGB, mixed TTA (-x), {tta_engine.tail} tail: {s_tta:.4f} s/image, "
@@ -958,32 +1032,34 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     # every kernel of the repo's TPU kernels' counterparts, with its launches
-    # on the main path (K1/K2: the default CLI run; K6: K6's; K7: the
+    # on the main path (K1/K2: the default CLI run, their float32 instances
+    # the REALSR_TPU_STORAGE=float32 run; K6: K6's; K7: the
     # REALSR_TPU_PACKED_TAIL=2 run; K3-K5: their modes' runs) and its bound
-    rdb_macs = RDB_MACS_PER_PX * B * SIDE * SIDE
     tail_px = B * 16 * SIDE * SIDE
     kernels = []
-    for key, kname, replaces, n, macs in (
-        ("K1", "rdb_wgmma (rdb_kernel<T, state, nf, gc>: wgmma, one RDB)",
-         "realsr_tpu/ops/rdb_kernel.py:263", launches, rdb_macs),
-        ("K2", "rdb_wgmma (69-RDB trunk: rdb_trunk)", "realsr_tpu/ops/rdb_kernel.py:758",
-         launches, n_rdb * rdb_macs),
-        ("K3", "rdb_kernel (tc::rdb_kernel<state, nf, gc>: mma.sync, rdb_apply_chained)",
-         "realsr_tpu/ops/rdb_kernel.py:675", mode_launches["rdb_apply_chained"], rdb_macs),
-        ("K4", "rdb_modes_wgmma (paired_kernel<T, nf, gc>: wgmma, rdb_apply_paired)",
-         "realsr_tpu/ops/rdb_kernel.py:595", mode_launches["rdb_apply_paired"], rdb_macs),
-        ("K5", "rdb_modes_wgmma (packed_kernel<T, state, nf, gc>: wgmma, rdb_apply_packed)",
-         "realsr_tpu/ops/rdb_kernel.py:216", mode_launches["rdb_apply_packed"], rdb_macs),
-        ("K6", "tail_kernel (tail_kernel<TH, TW, true>: wgmma, up2_hr_last_packed)",
-         "realsr_tpu/ops/tail_kernel.py:103", k6_cli, tail_px * tk.tail_macs_per_pixel(True)),
-        ("K7", "tail_kernel (tail_kernel<TH, TW, false>: wgmma, hr_last_packed)",
-         "realsr_tpu/ops/tail_kernel.py:329", k7, tail_px * tk.tail_macs_per_pixel(False)),
+    for key, kname, src, replaces, n, macs, result in (
+        ("K1", "rdb_wgmma (rdb_kernel<T, state, nf, gc>: wgmma, one RDB)", "rdb_wgmma.cu",
+         "realsr_tpu/ops/rdb_kernel.py:263", launches, rdb_macs, ("rdb", "mixed")),
+        ("K2", "rdb_wgmma (69-RDB trunk: rdb_trunk)", "rdb_wgmma.cu", "realsr_tpu/ops/rdb_kernel.py:758",
+         launches, n_rdb * rdb_macs, ("trunk", "mixed")),
+        ("K1 float32", "rdb_tf32 (rdb_tf32_kernel<T, nf, gc>: 3xTF32 wgmma, one RDB)", "rdb_tf32.cu",
+         "realsr_tpu/ops/rdb_kernel.py:263", f32_launches, rdb_macs, ("rdb", "float32")),
+        ("K2 float32", "rdb_tf32 (69-RDB float32 trunk: rdb_trunk)", "rdb_tf32.cu",
+         "realsr_tpu/ops/rdb_kernel.py:758", f32_launches, n_rdb * rdb_macs, ("trunk", "float32")),
+        ("K3", "rdb_modes_wgmma (chained_kernel<T, state, nf, gc>: wgmma, rdb_apply_chained)",
+         "rdb_modes_wgmma.cu", "realsr_tpu/ops/rdb_kernel.py:675", mode_launches["rdb_apply_chained"], rdb_macs,
+         ("K3", "mixed")),
+        ("K4", "rdb_modes_wgmma (paired_kernel<T, nf, gc>: wgmma, rdb_apply_paired)", "rdb_modes_wgmma.cu",
+         "realsr_tpu/ops/rdb_kernel.py:595", mode_launches["rdb_apply_paired"], rdb_macs, ("K4", "mixed")),
+        ("K5", "rdb_modes_wgmma (packed_kernel<T, state, nf, gc>: wgmma, rdb_apply_packed)", "rdb_modes_wgmma.cu",
+         "realsr_tpu/ops/rdb_kernel.py:216", mode_launches["rdb_apply_packed"], rdb_macs, ("K5", "mixed")),
+        ("K6", "tail_kernel (tail_kernel<TH, TW, true>: wgmma, up2_hr_last_packed)", "tail_kernel.cu",
+         "realsr_tpu/ops/tail_kernel.py:103", k6_cli, tail_px * tk.tail_macs_per_pixel(True), ("K6", "mixed")),
+        ("K7", "tail_kernel (tail_kernel<TH, TW, false>: wgmma, hr_last_packed)", "tail_kernel.cu",
+         "realsr_tpu/ops/tail_kernel.py:329", k7, tail_px * tk.tail_macs_per_pixel(False), ("K7", "mixed")),
     ):
-        err, ms, pms = results[(("rdb", "mixed") if key == "K1" else ("trunk", "mixed")
-                                if key == "K2" else (key, "mixed"))]
-        b_ms, b_by = bound(macs, results[(key, "io")])
-        src = {"K1": "rdb_wgmma.cu", "K2": "rdb_wgmma.cu", "K3": "rdb_kernel.cu", "K4": "rdb_modes_wgmma.cu",
-               "K5": "rdb_modes_wgmma.cu"}.get(key, "tail_kernel.cu")
+        err, ms, pms = results[result]
+        b_ms, b_by = bound(macs, results[(key, "io")], tf32=key.endswith("float32"))
         kernels.append({
             "name": f"{key} {kname}", "route": "cuda", "source": f"realsr_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,

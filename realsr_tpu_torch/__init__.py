@@ -4,8 +4,8 @@ The JAX package ``realsr_tpu`` is the reference; this package computes the
 same RealSR x4 super-resolution (ncnn ``.param``/``.bin`` models, RRDBNet,
 halo-padded tiles with reflect-101 borders, uint8 rounding, bicubic alpha)
 with PyTorch, and runs the RRDB trunk and the tail after it on hand-written
-CUDA kernels for ``sm_90a`` (``csrc/rdb_wgmma.cu``, ``csrc/rdb_kernel.cu``,
-``csrc/tail_kernel.cu``).
+CUDA kernels for ``sm_90a`` (``csrc/rdb_wgmma.cu``, ``csrc/rdb_tf32.cu``,
+``csrc/rdb_modes_wgmma.cu``, ``csrc/tail_kernel.cu``).
 It imports no JAX.
 
 The public facade is :class:`realsr_tpu_torch.engine.RealSR`.

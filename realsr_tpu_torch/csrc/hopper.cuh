@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (rdb_wgmma.cu, rdb_modes_wgmma.cu, tail_kernel.cu): the swizzled activation planes, mbarriers,
-// bulk copies and TMA, ldmatrix, the consumer warpgroups' named barriers, and
-// wgmma with register A and B from shared memory through a descriptor.
+// (rdb_wgmma.cu, rdb_tf32.cu, rdb_modes_wgmma.cu, tail_kernel.cu): the
+// swizzled activation planes, mbarriers, bulk copies and TMA, ldmatrix, the
+// consumer warpgroups' named barriers, and wgmma with register A and B from
+// shared memory through a descriptor, on bf16 and on tf32 operands.
 //
-// Both kernels run one block of three warpgroups per SM: two consumer
+// Every kernel runs one block of three warpgroups per SM: two consumer
 // warpgroups issue the products and a producer warpgroup feeds them.
 
 #pragma once
@@ -40,6 +41,24 @@ __device__ __forceinline__ uint32_t chunk_offset(int pix, int chunk) {
   constexpr int lanes = chunks < 8 ? chunks : 8;
   constexpr int group = 8 / lanes;
   return uint32_t(pix) * (C * 2) + (uint32_t(chunk ^ ((pix / group) & (lanes - 1))) << 4);
+}
+
+// Bytes of a 32-channel sub-plane of P pixels of a 4-byte plane: P x 128
+// bytes, rounded up to the 1,024 bytes over which TMA's 128B swizzle repeats.
+__host__ __device__ constexpr int sub_plane_bytes(int P) { return (P * 128 + 1023) / 1024 * 1024; }
+
+// chunk_offset for a plane of C 4-byte channels (float32 or tf32) of P
+// pixels: 4 channels a chunk. Up to 32 channels a pixel (128 bytes) it is
+// the bf16 planes' swizzle on pixels of 4 C bytes; wider planes are cut into
+// sub-planes of 32 channels, one after the other, each P pixels of 128
+// bytes with TMA's 128B swizzle (one TMA box of the window each).
+template <int C, int P>
+__device__ __forceinline__ uint32_t chunk_offset_f32(int pix, int chunk) {
+  if constexpr (C <= 32) {
+    return chunk_offset<2 * C>(pix, chunk);
+  } else {
+    return uint32_t(chunk / 8) * sub_plane_bytes(P) + chunk_offset<64>(pix, chunk % 8);
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -273,6 +292,88 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// tf32: the float32 operands' split product (3xTF32)
+// ---------------------------------------------------------------------------
+
+// The f32 value with bits v as tf32 hi (v truncated to 10 mantissa bits)
+// and lo = v - hi (exact), which a tf32 wgmma reads truncated in turn: hi +
+// lo as the tensor cores see them is within 2^-20 of v, relative. A LOP and
+// an FADD; rounding both to nearest with cvt.rna.tf32.f32 (2^-22) made the
+// 3xTF32 RDB kernel 20 % slower at the same measured error
+// (tools/rdb_wgmma_ablation.py, tf32_rna).
+__device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  const float f = __uint_as_float(v);
+  hi = v & 0xFFFFE000u;
+  lo = __float_as_uint(f - __uint_as_float(hi));
+}
+
+// d[m64 x N] += A[m64 x k8] (registers: a[0..3], tf32) * B[k8 x N]
+// (descriptor, tf32), f32 sums. tf32 wgmma takes K-major operands only (no
+// transpose bits); a k8 slice of B has the byte layout of a bf16 k16 slice
+// (b_desc), 4 channels per 16-byte core-matrix row. A's register fragment is
+// ldmatrix.x4's on the b16 view of a pixel-major f32 plane: each 8 x 8 b16
+// matrix is 8 pixels x 4 channels, thread l holding pixel l / 4, channel l % 4.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<8> {
+  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+          "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };

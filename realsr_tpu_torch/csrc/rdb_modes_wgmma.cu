@@ -1,18 +1,36 @@
 // The trunk's alternative modes on K1's wgmma machinery (rdb_wgmma.cuh), for
-// Hopper (sm_90a): K4, the paired carry, and K5, the K-packed schedule.
+// Hopper (sm_90a): K3, the chained layout, K4, the paired carry, and K5,
+// the K-packed schedule.
 //
 // Replaces, in realsr_tpu/ops/rdb_kernel.py:
+//   K3 _rdb_kernel(chained=True) (rdb_apply_chained): chained_kernel below;
 //   K4 _rdb_kernel(paired=True) (rdb_apply_paired): paired_kernel below;
 //   K5 the sched="packed" branch of _make_rdb_compute (rdb_apply with
 //      SCHED="packed"): packed_kernel below.
-// Python side: realsr_tpu_torch/ops/rdb_kernel.py (rdb_apply_paired,
-// rdb_apply_packed, rdb_trunk_paired, rdb_trunk(sched="packed")).
+// Python side: realsr_tpu_torch/ops/rdb_kernel.py (rdb_apply_chained,
+// rdb_apply_paired, rdb_apply_packed, rdb_trunk_chained, rdb_trunk_paired,
+// rdb_trunk(sched="packed")).
 //
-// Both compute one RDB over a batch of NHWC tiles as K1 does (rdb_wgmma.cu):
+// Each computes one RDB over a batch of NHWC tiles as K1 does (rdb_wgmma.cu):
 // one block of two consumer warpgroups and a producer warpgroup owns a T x T
 // output patch; its bf16 window arrives by TMA, c1..c4 stay in shared memory,
 // the stages run as wgmma GEMMs with register A (ldmatrix) and B streamed
 // through a weight ring by cp.async.bulk. Bound: operations, as K1.
+//
+// K3 (chained layout): K1's stages and grid on the persistent layout
+// [B, rows, cols, nf] of ops/rdb_kernel.py::to_chained (the image at row and
+// column 5, zeros elsewhere; rows, cols at least H + 10, W + 10), residual
+// folded where the int32 device flag is 1, so a trunk of 69 launches needs
+// no host decision and no re-padding between them. The window is a TMA box
+// of the layout's bf16 operand plane at the patch's place: the zero aprons
+// and TMA's zero fill past the tensor are the convs' zero padding, so the
+// layout's rounding (CHAIN_TILE) need not match the patch side. c1..c4 stay
+// masked outside the H x W image, and only image pixels are written, so the
+// aprons stay zero. In mixed mode the epilogue (ChainedEpi) also writes
+// bf16(out) into the layout of the next step's operand plane (the shadow,
+// as K1's); rdb_trunk_chained rotates three shadows with the three buffers.
+// The residual step writes buffer 0 while reading u = buffer 0: each pixel
+// reads its own u before it writes.
 //
 // K4 (paired carry): the float32 state x = hi + lo travels as two bf16
 // planes. The stages are K1's. The window is a TMA box of hi itself, so no
@@ -54,18 +72,98 @@
 
 namespace {
 
-// registers a GEMM's accumulators and one chunk's A fragments may take per
-// thread: more makes ptxas spill and serialize the wgmmas (C7512)
-constexpr int kAccA = 192;
 constexpr int kPadF = 4;          // floats of padding per pixel row of the partial sums
 constexpr int kPackedSlices = 3;  // k16 slices of rectangle C a ring slot holds
-
-__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 __device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
   hi = round_to<__nv_bfloat16>(v);
   lo = round_to<__nv_bfloat16>(v - hi);
+}
+
+// ---------------------------------------------------------------------------
+// K3: the chained layout
+// ---------------------------------------------------------------------------
+
+struct ChainedParams {
+  const void* x;           // the state, chained [B, rows, cols, NF] (f32 or bf16)
+  const void* u;           // the RRDB entry state (chained), folded where *flag == 1
+  void* out;               // the new state (chained): its image pixels only
+  __nv_bfloat16* shadow;   // bf16(out) in the chained layout, or nullptr
+  const int* flag;         // int32 on the device
+  const __nv_bfloat16* w;  // K1's k16 slices in wgmma order
+  const float* bias;       // [4 GC + NF]
+  int H, W, patches_x;     // the image
+  int rows, cols;          // pixel (b, y, x) of the image at ((b rows + y + 5) cols + x + 5) NF
+};
+
+// Element offset of image pixel (b, y, x) in the chained layout
+__device__ __forceinline__ size_t chained_at(const ChainedParams& p, int b, int y, int x) {
+  return (size_t(b) * p.rows + y + kHalo) * p.cols + x + kHalo;
+}
+
+// K1's output (OutEpi) at the layout's addresses, with the residual where
+// `fold`. u may be out: every load of a pixel comes before its stores.
+template <int T, typename TS, int NF>
+struct ChainedEpi {
+  const Patch& t;
+  const ChainedParams p;
+  const bool fold;
+  template <int NR>
+  __device__ __forceinline__ void operator()(int tile, const float (&acc)[NR], int col0) const {
+    constexpr int G = NR / 4;  // 8-column groups
+    const TS* __restrict__ x = static_cast<const TS*>(p.x);
+    const TS* u = static_cast<const TS*>(p.u);
+    TS* out = static_cast<TS*>(p.out);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = tile * 64 + t.warp * 16 + t.gid + 8 * h;
+      if (q >= T * T) continue;
+      const int ty = t.py0 + q / T, tx = t.px0 + q % T;
+      if (ty >= t.H || tx >= t.W) continue;
+      const size_t o = chained_at(p, t.b, ty, tx) * NF + col0 + t.tig * 2;
+      float xv[G][2], uv[G][2];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        load2(x + o + j * 8, xv[j]);
+        if (fold) load2(u + o + j * 8, uv[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          y[e] = round_to<TS>(kResidual * acc[4 * j + 2 * h + e] + xv[j][e]);
+          if (fold) y[e] = round_to<TS>(kResidual * y[e] + uv[j][e]);
+        }
+        store2(out + o + j * 8, y);
+        if (p.shadow != nullptr) store2(p.shadow + o + j * 8, y);
+      }
+    }
+  }
+};
+
+// Grid: (T x T patches of the image, B).
+template <int T, typename TS, int NF, int GC>
+__global__ void __launch_bounds__(kThreads, 1)
+    chained_kernel(const __grid_constant__ CUtensorMap window, const ChainedParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  run_block<T, Layout<T, NF, GC>>(
+      smem_raw, p.patches_x, p.H, p.W,
+      [&](const Block& k) {
+        // image pixel (py0 - 5, px0 - 5) is the layout's (py0, px0)
+        load_window<T, NF>(&window, k, k.px0, k.py0);
+        const bool fold = __ldg(p.flag) == 1;
+        const int n = min(T, p.W - k.px0);
+        for (int y = 0; y < min(T, p.H - k.py0); ++y) {
+          const size_t o = chained_at(p, k.b, k.py0 + y, k.px0) * NF;
+          prefetch_l2(static_cast<const TS*>(p.x) + o, n * NF * int(sizeof(TS)));
+          if (fold) prefetch_l2(static_cast<const TS*>(p.u) + o, n * NF * int(sizeof(TS)));
+        }
+        ring_scatter<T, NF, GC>(p.w, k);
+      },
+      [&](Consumer& c, const Patch& t, int wg) {
+        scatter_stages<T, NF, GC>(c, t, wg, p.bias, ChainedEpi<T, TS, NF>{t, p, __ldg(p.flag) == 1});
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -262,22 +360,6 @@ struct RectEpi {
   }
 };
 
-// The producer's weights for rectangle I: its k16 slices in chunks of its KC.
-template <int T, int NF, int GC, int I>
-__device__ __forceinline__ void ring_rect(const char*& src, const Block& k, int& s) {
-  using G = Rect<T, NF, GC, I>;
-  using L = PackedLayout<T, NF, GC>;
-  constexpr int slice = G::N * 32;
-#pragma unroll 1
-  for (int done = 0; done < G::STEPS; done += G::KC, ++s) {
-    const int slot = s % kSlots, bytes = cmin(G::KC, G::STEPS - done) * slice;
-    if (s >= kSlots) mbar_wait(k.empty + 8 * slot, ((s / kSlots) - 1) & 1);
-    mbar_expect_tx(k.full + 8 * slot, bytes);
-    bulk_copy(k.smem + L::ring + slot * L::slot, src + done * slice, bytes, k.full + 8 * slot);
-  }
-  src += G::STEPS * slice;
-}
-
 // Grid: (T x T patches of one tile, B).
 template <int T, typename TS, int NF, int GC>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -287,13 +369,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       smem_raw, p.patches_x, p.H, p.W,
       [&](const Block& k) {
         produce<T, NF>(&window, k, p.H, p.W, [&](size_t o, int n) { prefetch_state<TS, NF>(p, o, n); }, [&] {
+          // each rectangle's k16 slices in chunks of its KC
+          using PL = PackedLayout<T, NF, GC>;
           const char* src = reinterpret_cast<const char*>(p.w);
           int s = 0;
-          ring_rect<T, NF, GC, 1>(src, k, s);
-          ring_rect<T, NF, GC, 2>(src, k, s);
-          ring_rect<T, NF, GC, 3>(src, k, s);
-          ring_rect<T, NF, GC, 4>(src, k, s);
-          ring_rect<T, NF, GC, 5>(src, k, s);
+          ring_gemm<Rect<T, NF, GC, 1>, PL>(src, k, s);
+          ring_gemm<Rect<T, NF, GC, 2>, PL>(src, k, s);
+          ring_gemm<Rect<T, NF, GC, 3>, PL>(src, k, s);
+          ring_gemm<Rect<T, NF, GC, 4>, PL>(src, k, s);
+          ring_gemm<Rect<T, NF, GC, 5>, PL>(src, k, s);
         });
       },
       [&](Consumer& c, const Patch& t, int wg) {
@@ -311,13 +395,38 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Host side: the instances (K4 at K1's patch sides 17, 12, 8; K5 at 12, 8)
+// Host side: the instances (K3 and K4 at K1's patch sides 17, 12, 8; K5 at
+// 12, 8)
 // ---------------------------------------------------------------------------
+
+template <int T, typename TS, int NF, int GC>
+int launch_chained(const CUtensorMap& map, const ChainedParams& p, int B, cudaStream_t s) {
+  constexpr int smem = Layout<T, NF, GC>::bytes;
+  static_assert(smem <= kSmemBlock, "shared memory of one block");
+  return launch_grid<T>(chained_kernel<T, TS, NF, GC>, smem, map, p, B, s);
+}
+
+template <typename TS, int NF, int GC>
+int chained_tile(const CUtensorMap& map, const ChainedParams& p, int B, int tile, cudaStream_t s) {
+  switch (tile) {
+    case 17: return launch_chained<17, TS, NF, GC>(map, p, B, s);
+    case 12: return launch_chained<12, TS, NF, GC>(map, p, B, s);
+    case 8: return launch_chained<8, TS, NF, GC>(map, p, B, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+template <typename TS>
+int chained_shape(const CUtensorMap& map, const ChainedParams& p, int B, int nf, int gc, int tile, cudaStream_t s) {
+  if (nf == 64 && gc == 32) return chained_tile<TS, 64, 32>(map, p, B, tile, s);
+  if (nf == 32 && gc == 16) return chained_tile<TS, 32, 16>(map, p, B, tile, s);
+  return int(cudaErrorInvalidValue);
+}
 
 template <int T, int NF, int GC>
 int launch_paired(const CUtensorMap& map, const PairedParams& p, int B, cudaStream_t s) {
   constexpr int smem = Layout<T, NF, GC>::bytes;
-  static_assert(smem <= 232448, "shared memory of one block");
+  static_assert(smem <= kSmemBlock, "shared memory of one block");
   return launch_grid<T>(paired_kernel<T, NF, GC>, smem, map, p, B, s);
 }
 
@@ -334,7 +443,7 @@ int paired_tile(const CUtensorMap& map, const PairedParams& p, int B, int tile, 
 template <int T, typename TS, int NF, int GC>
 int launch_packed(const CUtensorMap& map, const Params& p, int B, cudaStream_t s) {
   constexpr int smem = PackedLayout<T, NF, GC>::bytes;
-  static_assert(smem <= 232448, "shared memory of one block");
+  static_assert(smem <= kSmemBlock, "shared memory of one block");
   return launch_grid<T>(packed_kernel<T, TS, NF, GC>, smem, map, p, B, s);
 }
 
@@ -357,6 +466,30 @@ int packed_shape(const CUtensorMap& map, const Params& p, int B, int nf, int gc,
 }  // namespace
 
 extern "C" {
+
+// K3: one RDB on the chained layout [B, rows, cols, nf] (the image at row
+// and column 5, zeros elsewhere; rows >= H + 10, cols >= W + 10). xs: the
+// layout's bf16 operand plane the window is read from (x itself when the
+// state is bf16); out: its image becomes the RDB of x's, with 0.2 y + u
+// where *flag == 1 (u may be out); shadow: null, or the layout that gets
+// bf16(out) at the image. w: K1's weights in wgmma order; tile: the patch
+// side (17, 12 or 8); nf, gc = 64, 32 or 32, 16. Returns the cudaError_t of
+// the launch.
+int rdb_chained_launch(const void* xs, const void* x, const void* w, const void* bias, const void* u,
+                       const void* flag, void* out, void* shadow, int B, int H, int W, int rows, int cols, int nf,
+                       int gc, int state_bf16, int tile, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || flag == nullptr || rows < H + 2 * kHalo || cols < W + 2 * kHalo)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap map;
+  const int err = window_map(xs, B, rows, cols, nf, tile, &map);
+  if (err) return err;
+  const ChainedParams p{x, u, out, static_cast<__nv_bfloat16*>(shadow), static_cast<const int*>(flag),
+                        static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias), H, W, 0, rows,
+                        cols};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return state_bf16 ? chained_shape<__nv_bfloat16>(map, p, B, nf, gc, tile, s)
+                    : chained_shape<float>(map, p, B, nf, gc, tile, s);
+}
 
 // K4: one RDB on the paired state hi + lo ([B, H, W, nf] bf16 each; the
 // window is read from hi) into out_hi + out_lo; u_hi / u_lo (both or

@@ -56,7 +56,8 @@
 //   rdb_geometry picks it per chunk shape so that the grid fills the card's
 //   SMs in whole waves (8 x 148^2: T = 17, 648 blocks, 4.91 waves).
 // The machinery (layout, stage GEMM, epilogues, producer, window maps) is in
-// rdb_wgmma.cuh, which the trunk modes' K4 and K5 (rdb_modes_wgmma.cu) share.
+// rdb_wgmma.cuh, which K1's float32 instances (rdb_tf32.cu, 3xTF32) and the
+// trunk modes' K3, K4 and K5 (rdb_modes_wgmma.cu) share.
 
 #include "rdb_wgmma.cuh"
 
@@ -82,7 +83,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int T, typename TS, int NF, int GC>
 int launch(const CUtensorMap& map, const Params& p, int B, cudaStream_t stream) {
   constexpr int smem = Layout<T, NF, GC>::bytes;
-  static_assert(smem <= 232448, "shared memory of one block");
+  static_assert(smem <= kSmemBlock, "shared memory of one block");
   return launch_grid<T>(rdb_kernel<T, TS, NF, GC>, smem, map, p, B, stream);
 }
 

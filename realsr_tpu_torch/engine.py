@@ -245,7 +245,8 @@ class RealSR:
         ):
             raise NotImplementedError(
                 f"trunk={trunk!r}, sched={sched!r} run on kernels with bfloat16 operands "
-                f"only, not {op_dtype} (ROADMAP queue 2: float32 instances of the RDB kernels)"
+                f"only, not {op_dtype} (ROADMAP queue 2: float32 instances of K3, K4 and K5 "
+                "on K1's tf32 path)"
             )
         self.scale = self.bundle.scale
         self._params = _to_device(self.bundle.params, self.device.torch_device)

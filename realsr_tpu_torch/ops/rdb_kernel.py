@@ -1,5 +1,5 @@
 """Fused residual dense block: the Python side of ``csrc/rdb_wgmma.cu``,
-``csrc/rdb_modes_wgmma.cu`` and ``csrc/rdb_kernel.cu``.
+``csrc/rdb_tf32.cu`` and ``csrc/rdb_modes_wgmma.cu``.
 
 Counterpart of ``realsr_tpu/ops/rdb_kernel.py``. The five TPU kernels'
 counterparts (see the sources' headers), each with a wrapper here:
@@ -10,7 +10,10 @@ counterparts (see the sources' headers), each with a wrapper here:
   operands run on ``rdb_wgmma.cu`` (wgmma, its patch side from
   :func:`rdb_geometry`), which reads its window from a bfloat16 operand
   plane: :func:`rdb_trunk` threads the one each launch writes beside its
-  float32 output (the "shadow") into the next;
+  float32 output (the "shadow") into the next. float32 operands run on
+  ``rdb_tf32.cu`` (the same machinery with float32 planes and a split tf32
+  product, 3xTF32, on the weights' ``"wt"`` copy; its patch side from
+  :func:`tf32_geometry`), whose window is the float32 state itself;
 - :func:`rdb_apply_packed` (K5, the ``sched="packed"`` branch of
   ``_make_rdb_compute``): one RDB in the K-packed schedule's five GEMM
   rectangles, on weights re-cut by ``pack_rdb_params(sched="packed")``, on
@@ -19,20 +22,21 @@ counterparts (see the sources' headers), each with a wrapper here:
   operand plane as for K1;
 - :func:`rdb_apply_chained` (K3, ``_rdb_kernel(chained=True)``): one RDB
   that reads and writes the zero-aproned layout of :func:`to_chained`,
-  folding the residual where a device flag is 1; :func:`rdb_trunk_chained`
-  rotates three such buffers;
+  folding the residual where a device flag is 1, on ``rdb_modes_wgmma.cu``
+  (K1's stages, its window read from a bfloat16 operand plane in the same
+  layout, K1's patch side); :func:`rdb_trunk_chained` rotates three such
+  buffers and, in mixed mode, their three operand planes;
 - :func:`rdb_apply_paired` (K4, ``_rdb_kernel(paired=True)``): one RDB on a
   state carried as bf16 ``hi + lo`` planes, on ``rdb_modes_wgmma.cu`` (K1's
   stages, its window read from ``hi``, K1's patch side);
   :func:`rdb_trunk_paired`.
 
 Tensors are NHWC. The state dtype is ``x``'s dtype; the operand dtype is the
-packed weights' dtype (:func:`pack_rdb_params`). K1 has two kernels: float32
-state and operands (CUDA cores, nf and gc multiples of 8), and bfloat16
-operands with float32 (mixed) or bfloat16 state (tensor cores, nf, gc = 64,
-32 or 32, 16). K3 and K5 exist for bfloat16 operands, K4 for mixed mode
-(float32 state as hi + lo, bfloat16 operands), at those two shapes; K3
-stays on the mma.sync template of ``rdb_kernel.cu``.
+packed weights' dtype (:func:`pack_rdb_params`). Every kernel runs on the
+tensor cores at nf, gc = 64, 32 or 32, 16. K1 has float32 state and
+operands, or bfloat16 operands with float32 (mixed) or bfloat16 state; K3
+and K5 exist for bfloat16 operands, K4 for mixed mode (float32 state as hi +
+lo, bfloat16 operands).
 
 A tensor on the CPU takes the plain PyTorch version (``*_reference``); a
 CUDA tensor launches the kernel or raises.
@@ -70,8 +74,14 @@ _DTYPE_PAIRS = {
 # (nf, gc) the tensor-core kernels are instantiated for
 _TC_SHAPES = ((64, 32), (32, 16))
 # patch sides the wgmma RDB kernel is instantiated for (rdb_wgmma.cu::launch_tile;
-# K4 too, rdb_modes_wgmma.cu::paired_tile)
+# K3 and K4 too, rdb_modes_wgmma.cu::chained_tile, paired_tile)
 WGMMA_TILES = (17, 12, 8)
+# K1's float32 patch sides (rdb_tf32.cu::launch_tile): its float32 planes
+# cap the side at 10 (tf32_smem_bytes)
+TF32_TILES = (10, 9, 8)
+# LayoutF32 (rdb_wgmma.cuh): the largest ring slot, and the shared memory
+# one block may use on the card
+TF32_SLOT_MAX, SMEM_BLOCK = 12288, 232_448
 # K5's patch sides (rdb_modes_wgmma.cu::packed_tile): its f32 partial sums
 # cap the side at 12 (packed_smem_bytes)
 PACKED_TILES = (12, 8)
@@ -80,12 +90,15 @@ PACKED_TILES = (12, 8)
 PACKED_PAD_F, PACKED_SLICES = 4, 3
 # rdb_geometry's price of one block beyond its MACs (the window's load, each
 # stage's pipeline fill, barrier and epilogue), in MACs: fitted to the
-# kernel's times at T = 17, 12 and 8 on 8 x 148^2 (chip_smoke.py phase 3)
+# kernel's times at T = 17, 12 and 8 on 8 x 148^2 (chip_smoke.py phase 3).
+# tf32_geometry's is the same time in float32 MACs, each of which costs six
+# bf16 MACs (three tf32 products at half the bf16 rate).
 BLOCK_OVERHEAD_MACS = 20_000_000
+TF32_BLOCK_OVERHEAD_MACS = BLOCK_OVERHEAD_MACS // 6
 HALO = 5  # receptive field of an RDB's five 3x3 convs
 SCHEDS = ("scatter", "packed")
-# the chained layout: output patch side of its kernel, and the apron (the
-# halo of five 3x3 convs) around the image
+# the chained layout: the side its image is rounded up to (the JAX
+# package's), and the apron (the halo of five 3x3 convs) around the image
 CHAIN_TILE, CHAIN_APRON = 16, 5
 
 
@@ -103,40 +116,46 @@ def _rects(sched: str):
 
 
 def _step_order(order: str, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(n, k) of each element of one k-step (16 rows k x ``n_out`` columns
-    n of a rectangle) in the order the kernel reads them.
+    """(n, k) of each element of one k-step (16 rows k, 8 for 'tf32', x
+    ``n_out`` columns n of a rectangle) in the order the kernel reads them.
 
-    'mma': ``n_out / 8`` mma.sync B fragments of 32 lanes x 4 values: lane
-    ``4 * g + t`` holds rows ``2t, 2t + 1, 2t + 8, 2t + 9`` of column ``g``.
     'wgmma': wgmma's canonical K-major layout without swizzle, as
-    rdb_wgmma.cu's matrix descriptor reads it: 8 x 8 core matrices (8 n, 8
+    rdb_wgmma.cuh's matrix descriptor reads it: 8 x 8 core matrices (8 n, 8
     consecutive k: 128 bytes), the two k halves of an 8-column group next to
     each other (leading offset 128 bytes), the groups 256 bytes apart.
+    'tf32': the same bytes for a k8 slice of 4-byte values, each core matrix
+    8 n x 4 consecutive k.
     """
-    if order == "mma":
-        nb, g, t, h, e = np.meshgrid(*(np.arange(m) for m in (n_out // 8, 8, 4, 2, 2)), indexing="ij")
-        return (nb * 8 + g).ravel(), (h * 8 + t * 2 + e).ravel()
     if order == "wgmma":
         i = np.arange(16 * n_out)
         return (i // 128) * 8 + (i // 8) % 8, ((i // 64) % 2) * 8 + i % 8
+    if order == "tf32":
+        i = np.arange(8 * n_out)
+        return (i // 64) * 8 + (i // 4) % 8, ((i // 32) % 2) * 4 + i % 4
     raise ValueError(f"unknown k-step order {order!r}")
 
 
+def _kstep(order: str) -> int:
+    """Input channels of one k-step in ``order`` (:func:`_step_order`)."""
+    return 8 if order == "tf32" else 16
+
+
 @functools.lru_cache(maxsize=16)
-def _perm(nf: int, gc: int, sched: str, frag: bool, order: str = "mma") -> np.ndarray:
+def _perm(nf: int, gc: int, sched: str, frag: bool, order: str = "wgmma") -> np.ndarray:
     """Index map from the dense layout (each conv as ``[cin][3][3][cout]``,
     back to back) to the kernel's: ``packed = dense[perm]``.
 
     The rectangles (:func:`_rects`) follow each other. ``frag`` False: each
     rectangle as ``[K][N]`` with K over (source, channel, tap), which for
-    'scatter' is the dense layout itself. ``frag`` True (tensor cores):
-    k-steps over (source, tap, 16-channel block) in the order the kernels
-    walk them, each k-step in :func:`_step_order` ``order`` ('mma' for the
-    mma.sync kernel K3 and the plain versions, 'wgmma' for the wgmma kernels
-    K1, K4 and K5).
+    'scatter' is the dense layout itself (the plain versions' layout).
+    ``frag`` True (tensor cores): k-steps over (source, tap, channel block)
+    in the order the kernels walk them, each k-step in :func:`_step_order`
+    ``order`` ('wgmma' for the bf16 kernels K1, K3, K4 and K5, 'tf32' for
+    K1's float32 instances).
     """
-    if frag and (nf % 16 or gc % 16):
-        raise ValueError(f"the fragment order needs nf, gc multiples of 16 (got {nf}, {gc})")
+    kstep = _kstep(order)
+    if frag and (nf % kstep or gc % kstep):
+        raise ValueError(f"the {order} order needs nf, gc multiples of {kstep} (got {nf}, {gc})")
 
     def cout(i):
         return gc if i < 5 else nf
@@ -161,8 +180,8 @@ def _perm(nf: int, gc: int, sched: str, frag: bool, order: str = "mma") -> np.nd
             n, k = _step_order(order, co.size)
             for j in sources:
                 for tap in range(9):
-                    for kb in range(cin(j) // 16):
-                        parts.append(base[n] + ((kbase(j) + kb * 16 + k) * 9 + tap) * width[n] + co[n])
+                    for kb in range(cin(j) // kstep):
+                        parts.append(base[n] + ((kbase(j) + kb * kstep + k) * 9 + tap) * width[n] + co[n])
         else:
             for j in sources:
                 ci, tap, n = np.meshgrid(
@@ -172,11 +191,56 @@ def _perm(nf: int, gc: int, sched: str, frag: bool, order: str = "mma") -> np.nd
     return np.concatenate(parts)
 
 
+def tf32_split(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """float32 ``v`` -> (hi, lo): hi = ``v`` rounded to tf32 (10 mantissa
+    bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``), lo = the
+    remainder ``v - hi`` (exact in float32) rounded the same way, so that
+    ``hi + lo`` is within 2^-22 of ``v``, relative: the 3xTF32 kernel's
+    weights. (Its activations split on the card by truncation, cheaper:
+    hopper.cuh::split_tf32.)"""
+
+    def rna(a):
+        bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    hi = rna(v)
+    return hi, rna(np.asarray(v, np.float32) - hi)
+
+
+def _tf32_slices(w: np.ndarray, nf: int, gc: int) -> np.ndarray:
+    """Dense float32 weights ``[..., K]`` (the scatter schedule) -> the
+    3xTF32 kernel's ``"wt"`` ``[..., 2K]``: K1's k8 steps in 'tf32' order
+    (:func:`_perm`), each as its tf32 hi slice followed by its lo slice
+    (:func:`tf32_split`)."""
+    hi, lo = tf32_split(w[..., _perm(nf, gc, "scatter", True, "tf32")])
+    lead, parts, o = w.shape[:-1], [], 0
+    for i in range(1, 6):
+        n = gc if i < 5 else nf
+        size = 9 * (nf + (i - 1) * gc) * n
+        pair = np.stack([t[..., o : o + size].reshape(*lead, -1, 8 * n) for t in (hi, lo)], -2)
+        parts.append(pair.reshape(*lead, 2 * size))
+        o += size
+    return np.ascontiguousarray(np.concatenate(parts, -1))
+
+
+def _tf32_unslice(wt: torch.Tensor, nf: int, gc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`_tf32_slices`' interleave for one RDB: (hi, lo) in
+    'tf32' order."""
+    his, los, o = [], [], 0
+    for i in range(1, 6):
+        n = gc if i < 5 else nf
+        size = 9 * (nf + (i - 1) * gc) * n
+        pair = wt[2 * o : 2 * (o + size)].reshape(-1, 2, 8 * n)
+        his.append(pair[:, 0].reshape(-1))
+        los.append(pair[:, 1].reshape(-1))
+        o += size
+    return torch.cat(his), torch.cat(los)
+
+
 def _frag(dtype, nf: int, gc: int) -> bool:
-    """Whether packed weights of ``dtype`` are in fragment order: bfloat16
-    at channel counts a tensor-core kernel can take (multiples of 16; every
-    instance is). Other bfloat16 weights keep the float32 layout, which
-    only the plain versions read."""
+    """Whether weights of ``dtype`` get the bf16 kernels' copy ``"wg"``:
+    bfloat16 at channel counts a tensor-core kernel can take (multiples of
+    16; every instance is)."""
     return dtype == torch.bfloat16 and nf % 16 == 0 and gc % 16 == 0
 
 
@@ -193,14 +257,14 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
     ``[..., cout]`` (numpy; any leading dims, e.g. the trunk's
     ``[num_rrdb, 3]``). Returns ``{"w": [..., K] op_dtype, "b": [..., 4gc+nf]
     float32}`` as CPU tensors, where ``w`` holds the schedule's five
-    rectangles (:func:`_rects`) back to back, each as ``[K][N]`` for float32
-    operands, and in the tensor-core fragment order for bfloat16
-    (:func:`_perm`, :func:`_frag`). ``sched="packed"`` re-cuts the same weight values into
-    the K-packed schedule's rectangles, for :func:`rdb_apply_packed`. Where
-    ``w`` is in fragment order for 'scatter', ``"wg"`` holds the same
-    weights in the wgmma kernels' order (``_perm(..., order="wgmma")``):
-    K1, K4 and (with ``sched="packed"``) K5 read ``wg``; K3 and the plain
-    versions read ``w``.
+    rectangles (:func:`_rects`) back to back, each as ``[K][N]``: the plain
+    versions read it. ``sched="packed"`` re-cuts the same weight values into
+    the K-packed schedule's rectangles, for :func:`rdb_apply_packed`. The
+    kernels read copies in their own order (:func:`_perm`): bfloat16
+    operands get ``"wg"`` (:func:`_frag`; the wgmma order, read by K1, K3,
+    K4 and, with ``sched="packed"``, K5), float32 operands in the 'scatter'
+    schedule ``"wt"`` (float32, twice ``w``'s length: each k8 step's tf32 hi
+    and lo slices, :func:`_tf32_slices`, read by K1's float32 instances).
     """
     _rects(sched)
     ws, bs = [], []
@@ -210,13 +274,14 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
         bs.append(np.asarray(rdb[f"b{i}"], np.float32))
     w = np.concatenate(ws, -1)
     gc, nf = np.shape(rdb["w1"])[-4:-2]
-    frag = _frag(op_dtype, nf, gc)
     out = {}
-    if frag:
+    if _frag(op_dtype, nf, gc):
         wg = w[..., _perm(nf, gc, sched, True, "wgmma")]
         out["wg"] = torch.from_numpy(np.ascontiguousarray(wg)).to(op_dtype)
-    if frag or sched != "scatter":
-        w = w[..., _perm(nf, gc, sched, frag)]
+    if op_dtype == torch.float32 and sched == "scatter" and nf % 8 == 0 and gc % 8 == 0:
+        out["wt"] = torch.from_numpy(_tf32_slices(w, nf, gc))
+    if sched != "scatter":
+        w = w[..., _perm(nf, gc, sched, False)]
     out["w"] = torch.from_numpy(np.ascontiguousarray(w)).to(op_dtype)
     out["b"] = torch.from_numpy(np.concatenate(bs, -1))
     return out
@@ -226,14 +291,17 @@ def unpack_rdb_params(
     p: Dict[str, torch.Tensor], nf: int, sched: str = "scatter", key: str = "w"
 ) -> Dict[str, torch.Tensor]:
     """Inverse of :func:`pack_rdb_params` for one RDB: OIHW tensors, from
-    ``p[key]`` (``"wg"``: the wgmma kernels' copy)."""
+    ``p[key]`` (``"wg"``: the bf16 wgmma kernels' copy; ``"wt"``: the
+    float32 kernel's, as its hi + lo)."""
     w, b = p[key], p["b"]
     gc = (b.shape[-1] - nf) // 4
-    frag = _frag(w.dtype, nf, gc)
-    if frag or sched != "scatter":
+    if key == "wt":
+        hi, lo = _tf32_unslice(w, nf, gc)
+        w = torch.empty_like(hi)
+        w[_perm_on(nf, gc, "scatter", True, "tf32", hi.device)] = hi + lo
+    elif key == "wg" or sched != "scatter":
         dense = torch.empty_like(w)
-        order = "wgmma" if key == "wg" else "mma"
-        dense[_perm_on(nf, gc, sched, frag, order, w.device)] = w
+        dense[_perm_on(nf, gc, sched, key == "wg", "wgmma", w.device)] = w
         w = dense
     out = {}
     off, cin = 0, nf
@@ -335,13 +403,16 @@ def from_chained(t: torch.Tensor, H: int, W: int) -> torch.Tensor:
     return t[:, A : A + H, A : A + W]
 
 
-def rdb_chained_reference(x, p, u, flag, H, W, out, storage_dtype, op_dtype):
+def rdb_chained_reference(x, p, u, flag, H, W, out, storage_dtype, op_dtype, shadow=None):
     """Plain PyTorch version of K3: the RDB of chained ``x``'s image,
     folding ``0.2 * y + u`` (``u`` chained too) where ``flag[0] == 1``,
-    written into ``out``'s image; the aprons are not touched."""
+    written into ``out``'s image (and, rounded, into ``shadow``'s when
+    given); the aprons are not touched."""
     u_img = from_chained(u, H, W) if int(flag[0]) == 1 else None
     y = rdb_reference(from_chained(x, H, W), p, storage_dtype, op_dtype, u_img)
     from_chained(out, H, W).copy_(y)
+    if shadow is not None:
+        from_chained(shadow, H, W).copy_(y)
     return out
 
 
@@ -425,17 +496,18 @@ def rdb_macs_per_pixel(nf: int, gc: int) -> int:
     return 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
 
 
-def _geometry(tiles, macs, B: int, H: int, W: int, nf: int, gc: int, sms: int) -> RdbGeometry:
+def _geometry(tiles, macs, B: int, H: int, W: int, nf: int, gc: int, sms: int,
+              overhead: int = BLOCK_OVERHEAD_MACS) -> RdbGeometry:
     """The patch side of ``tiles`` that finishes ``B`` tiles of ``H x W``
     soonest on ``sms`` SMs, one block per SM: the fewest whole waves times a
-    block's price (``macs(tile, nf, gc)`` plus :data:`BLOCK_OVERHEAD_MACS`;
-    the larger side on a tie)."""
+    block's price (``macs(tile, nf, gc)`` plus ``overhead``; the larger side
+    on a tie)."""
     best = None
     for tile in sorted(tiles, reverse=True):
         py, px = -(-H // tile), -(-W // tile)
         blocks = B * py * px
         waves = -(-blocks // sms)
-        cost = waves * (macs(tile, nf, gc) + BLOCK_OVERHEAD_MACS)
+        cost = waves * (macs(tile, nf, gc) + overhead)
         if best is None or cost < best[0]:
             best = (cost, tile, (py, px), blocks, waves)
     _, tile, patches, blocks, waves = best
@@ -446,11 +518,35 @@ def _geometry(tiles, macs, B: int, H: int, W: int, nf: int, gc: int, sms: int) -
     )
 
 
+def tf32_smem_bytes(tile: int, nf: int, gc: int) -> int:
+    """Shared memory of one block of K1's float32 kernel
+    (rdb_wgmma.cuh::LayoutF32): the float32 window (for nf > 32, 32-channel
+    sub-planes each padded to 1,024 bytes) and c1..c4, two ring slots as
+    large as the rest allows in whole k8 steps of c5 (its hi and lo slices,
+    2 x nf x 32 bytes), at least one and at most :data:`TF32_SLOT_MAX`
+    bytes, five barriers and the base's alignment to 1,024 bytes."""
+    side = [tile + 2 * HALO - 2 * j for j in range(6)]
+    p0 = side[0] ** 2
+    window = 4 * nf * p0 if nf <= 32 else nf // 32 * (-(-p0 * 128 // 1024) * 1024)
+    planes = window + sum(4 * gc * s * s for s in side[1:5])
+    step5 = 2 * nf * 32
+    slot = max(step5, min(TF32_SLOT_MAX, (SMEM_BLOCK - 1024 - 40 - planes) // 2 // step5 * step5))
+    return planes + 2 * slot + 40 + 1024
+
+
 def rdb_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
     """K1's (and K4's) patch side of :data:`WGMMA_TILES` for ``B`` tiles of
     ``H x W`` (:func:`_geometry`, :func:`block_macs`). At 8 x 148^2 on 132
     SMs: T = 17, 648 blocks in 4.91 waves."""
     return _geometry(WGMMA_TILES, block_macs, B, H, W, nf, gc, sms)
+
+
+def tf32_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
+    """K1's float32 patch side of :data:`TF32_TILES` (:func:`_geometry`,
+    :func:`block_macs`, :data:`TF32_BLOCK_OVERHEAD_MACS`). At 8 x 148^2 on
+    132 SMs: T = 10, 1,800 blocks in 13.64 waves, 2.00x the RDB's MACs
+    issued."""
+    return _geometry(TF32_TILES, block_macs, B, H, W, nf, gc, sms, TF32_BLOCK_OVERHEAD_MACS)
 
 
 def packed_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
@@ -478,13 +574,6 @@ def _bind(lib, fns):
     return lib
 
 
-def _library():
-    """rdb_kernel.cu: K1 for float32 operands, and K3."""
-    from realsr_tpu_torch.ops.build import load_library
-
-    return _bind(load_library("rdb_kernel"), {"rdb_launch_f32": (5, 5), "rdb_launch_chained": (6, 8)})
-
-
 def _wgmma_library():
     """rdb_wgmma.cu: K1/K2 for bfloat16 operands."""
     from realsr_tpu_torch.ops.build import load_library
@@ -492,11 +581,19 @@ def _wgmma_library():
     return _bind(load_library("rdb_wgmma"), {"rdb_wgmma_launch": (7, 7)})
 
 
-def _modes_library():
-    """rdb_modes_wgmma.cu: K4 and K5."""
+def _tf32_library():
+    """rdb_tf32.cu: K1/K2 for float32 operands."""
     from realsr_tpu_torch.ops.build import load_library
 
-    return _bind(load_library("rdb_modes_wgmma"), {"rdb_paired_launch": (8, 6), "rdb_packed_launch": (7, 7)})
+    return _bind(load_library("rdb_tf32"), {"rdb_tf32_launch": (5, 6)})
+
+
+def _modes_library():
+    """rdb_modes_wgmma.cu: K3, K4 and K5."""
+    from realsr_tpu_torch.ops.build import load_library
+
+    return _bind(load_library("rdb_modes_wgmma"), {
+        "rdb_chained_launch": (8, 9), "rdb_paired_launch": (8, 6), "rdb_packed_launch": (7, 7)})
 
 
 def _check(name, t, device, dtype, numel=None, shape=None):
@@ -512,9 +609,10 @@ def _check(name, t, device, dtype, numel=None, shape=None):
         raise ValueError(f"rdb_apply: {name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def _cuda_operands(fn: str, x, w, b, tensor_cores: bool):
+def _cuda_operands(fn: str, x, w, b, bf16_only: bool):
     """Checks shared by the wrappers on a CUDA ``x`` ``[B, rows, cols, nf]``:
-    (nf, gc, (state_bf16, op_bf16))."""
+    (nf, gc, (state_bf16, op_bf16)). ``bf16_only``: the kernel has no
+    float32 instance (K3, K4, K5)."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dim() != 4:
@@ -524,14 +622,14 @@ def _cuda_operands(fn: str, x, w, b, tensor_cores: bool):
     pair = _DTYPE_PAIRS.get((x.dtype, w.dtype))
     if pair is None:
         raise ValueError(f"{fn}: no kernel for state {x.dtype} / operands {w.dtype}")
-    if tensor_cores and w.dtype != torch.bfloat16:
+    if bf16_only and w.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"{fn}: the kernel has bfloat16 operands only, not {w.dtype} "
-            "(ROADMAP queue 2: float32 instances of the RDB kernels)"
+            "(ROADMAP queue 2: float32 instances of K3, K4 and K5 on the tf32 path)"
         )
     if nf % 8 or gc <= 0 or gc % 8 or b.numel() != nf + 4 * gc:
         raise ValueError(f"{fn}: nf={nf}, gc={gc} must be positive multiples of 8")
-    if w.dtype == torch.bfloat16 and (nf, gc) not in _TC_SHAPES:
+    if (nf, gc) not in _TC_SHAPES:
         raise ValueError(f"{fn}: no tensor-core kernel for nf={nf}, gc={gc}")
     k = rdb_macs_per_pixel(nf, gc)
     _check("x", x, x.device, x.dtype)
@@ -557,24 +655,36 @@ def rdb_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Ten
     ``p``: one RDB of :func:`pack_rdb_params`. ``u`` (same shape and dtype as
     ``x``): fold the RRDB residual ``0.2 * y + u`` into the output.
     """
-    w, b = p["w"], p["b"]
+    w = p["w"]
     if x.device.type == "cpu":
         return rdb_reference(x, p, x.dtype, w.dtype, u)
     if w.dtype == torch.bfloat16:
         return _rdb_wgmma(x, _operand_plane(x, w.dtype), p, u, shadow=False)[0]
-    nf, gc, pair = _cuda_operands("rdb_apply", x, w, b, tensor_cores=False)
+    return _rdb_tf32(x, p, u)
+
+
+def _rdb_tf32(x, p, u, tile: Optional[int] = None):
+    """K1 on the card with float32 state and operands (3xTF32 wgmma, the
+    window read from ``x`` itself): the new state. ``tile``: a patch side of
+    :data:`TF32_TILES` in place of :func:`tf32_geometry`'s choice."""
+    w, b = p["w"], p["b"]
+    nf, gc, _ = _cuda_operands("rdb_apply", x, w, b, bf16_only=False)
+    if "wt" not in p:
+        raise ValueError("rdb_apply: p has no 'wt' weights (pack_rdb_params with float32 operands)")
+    wt = p["wt"]
+    _check("wt", wt, x.device, torch.float32, numel=2 * w.numel())
     if u is not None:
         _check("u", u, x.device, x.dtype, shape=x.shape)
     B, H, W, _ = x.shape
+    tile = _patch_side("rdb_apply", tile, TF32_TILES, tf32_geometry, x, B, H, W, nf, gc)
     out = torch.empty_like(x)
-    lib = _library()
+    lib = _tf32_library()
     with torch.cuda.device(x.device):
-        err = lib.rdb_launch_f32(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            None if u is None else u.data_ptr(), out.data_ptr(),
-            B, H, W, nf, gc, _stream(x),
+        err = lib.rdb_tf32_launch(
+            x.data_ptr(), wt.data_ptr(), b.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), B, H, W, nf, gc, tile, _stream(x),
         )
-    _launched("rdb_apply", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, {x.dtype} / {w.dtype}")
+    _launched("rdb_apply", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, T={tile}, {x.dtype}")
     return out
 
 
@@ -596,11 +706,10 @@ def _wg_weights(fn: str, p, x, numel: int) -> torch.Tensor:
     return p["wg"]
 
 
-def _patch_side(fn: str, tile: Optional[int], tiles, geometry, x, nf: int, gc: int) -> int:
+def _patch_side(fn: str, tile: Optional[int], tiles, geometry, x, B: int, H: int, W: int, nf: int, gc: int) -> int:
     """``tile`` checked against the patch sides a kernel is built for, or
-    ``geometry``'s choice for ``x``'s chunk."""
+    ``geometry``'s choice for ``B`` images of ``H x W`` on ``x``'s card."""
     if tile is None:
-        B, H, W, _ = x.shape
         return geometry(B, H, W, nf, gc, _sm_count(x.device)).tile
     if tile not in tiles:
         raise ValueError(f"{fn}: no kernel for patch side {tile}; built for {tiles}")
@@ -615,18 +724,18 @@ def _rdb_wgmma(x, xs, p, u, shadow: bool, tile: Optional[int] = None, packed: bo
     of :func:`rdb_geometry`'s (:func:`packed_geometry`'s) choice."""
     fn = "rdb_apply_packed" if packed else "rdb_apply"
     w, b = p["w"], p["b"]
-    nf, gc, pair = _cuda_operands(fn, x, w, b, tensor_cores=True)
+    nf, gc, pair = _cuda_operands(fn, x, w, b, bf16_only=True)
     wg = _wg_weights(fn, p, x, w.numel())
     _check("xs", xs, x.device, torch.bfloat16, shape=x.shape)
     if u is not None:
         _check("u", u, x.device, x.dtype, shape=x.shape)
     B, H, W, _ = x.shape
     if packed:
-        tile = _patch_side(fn, tile, PACKED_TILES, packed_geometry, x, nf, gc)
+        tile = _patch_side(fn, tile, PACKED_TILES, packed_geometry, x, B, H, W, nf, gc)
         lib = _modes_library()
         launch = lib.rdb_packed_launch
     else:
-        tile = _patch_side(fn, tile, WGMMA_TILES, rdb_geometry, x, nf, gc)
+        tile = _patch_side(fn, tile, WGMMA_TILES, rdb_geometry, x, B, H, W, nf, gc)
         lib = _wgmma_library()
         launch = lib.rdb_wgmma_launch
     out = torch.empty_like(x)
@@ -652,34 +761,47 @@ def rdb_apply_packed(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[to
 
 def rdb_apply_chained(
     x: torch.Tensor, p: Dict[str, torch.Tensor], u: torch.Tensor, flag: torch.Tensor,
-    H: int, W: int, out: torch.Tensor,
+    H: int, W: int, out: torch.Tensor, xs: Optional[torch.Tensor] = None,
+    shadow: Optional[torch.Tensor] = None, tile: Optional[int] = None,
 ) -> torch.Tensor:
     """K3: one RDB on the chained layout (:func:`to_chained`) of an ``H x
     W`` image: ``out``'s image becomes the RDB of ``x``'s, with the RRDB
     residual ``0.2 * y + u`` where the int32 device scalar ``flag[0]`` is 1;
     ``out``'s aprons are not written (zero stays zero). ``u`` may be ``out``
-    itself: each pixel reads its own ``u`` before it writes. Returns ``out``."""
+    itself: each pixel reads its own ``u`` before it writes. ``xs``: ``x``'s
+    bfloat16 operand plane in the same layout, which the kernel reads its
+    window from (``x`` itself in bfloat16 mode; cast from ``x`` when None);
+    ``shadow``: a bfloat16 layout whose image gets bf16(out), the next
+    step's ``xs`` (its aprons must be zero), or None; ``tile``: a patch side
+    of :data:`WGMMA_TILES` in place of :func:`rdb_geometry`'s choice.
+    Returns ``out``."""
     w, b = p["w"], p["b"]
     if x.device.type == "cpu":
-        return rdb_chained_reference(x, p, u, flag, H, W, out, x.dtype, w.dtype)
-    nf, gc, pair = _cuda_operands("rdb_apply_chained", x, w, b, tensor_cores=True)
+        return rdb_chained_reference(x, p, u, flag, H, W, out, x.dtype, w.dtype, shadow)
+    fn = "rdb_apply_chained"
+    nf, gc, pair = _cuda_operands(fn, x, w, b, bf16_only=True)
+    wg = _wg_weights(fn, p, x, w.numel())
     B, rows, cols, _ = x.shape
-    A, T = CHAIN_APRON, CHAIN_TILE
-    if rows < -(-H // T) * T + 2 * A or cols < -(-W // T) * T + 2 * A:
-        raise ValueError(f"rdb_apply_chained: layout {tuple(x.shape)} too small for {H} x {W}")
-    _check("u", u, x.device, x.dtype, shape=x.shape)
-    _check("out", out, x.device, x.dtype, shape=x.shape)
+    if rows < H + 2 * CHAIN_APRON or cols < W + 2 * CHAIN_APRON:
+        raise ValueError(f"{fn}: layout {tuple(x.shape)} too small for {H} x {W}")
+    xs = _operand_plane(x, w.dtype) if xs is None else xs
+    for name, t, dtype in (("u", u, x.dtype), ("out", out, x.dtype), ("xs", xs, torch.bfloat16)) + (
+        () if shadow is None else (("shadow", shadow, torch.bfloat16),)
+    ):
+        _check(name, t, x.device, dtype, shape=x.shape)
     if flag.device != x.device or flag.dtype != torch.int32 or flag.numel() < 1:
-        raise ValueError(f"rdb_apply_chained: flag must be an int32 tensor on {x.device}")
-    if out.data_ptr() == x.data_ptr():
-        raise ValueError("rdb_apply_chained: out must not be x (other blocks read its halo)")
-    lib = _library()
+        raise ValueError(f"{fn}: flag must be an int32 tensor on {x.device}")
+    if out.data_ptr() in (x.data_ptr(), xs.data_ptr()) or (shadow is not None and shadow.data_ptr() == xs.data_ptr()):
+        raise ValueError(f"{fn}: out and shadow must not be x or xs (other blocks read its halo)")
+    tile = _patch_side(fn, tile, WGMMA_TILES, rdb_geometry, x, B, H, W, nf, gc)
+    lib = _modes_library()
     with torch.cuda.device(x.device):
-        err = lib.rdb_launch_chained(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), u.data_ptr(), flag.data_ptr(),
-            out.data_ptr(), B, H, W, rows, cols, nf, gc, pair[0], _stream(x),
+        err = lib.rdb_chained_launch(
+            xs.data_ptr(), x.data_ptr(), wg.data_ptr(), b.data_ptr(), u.data_ptr(), flag.data_ptr(),
+            out.data_ptr(), None if shadow is None else shadow.data_ptr(),
+            B, H, W, rows, cols, nf, gc, pair[0], tile, _stream(x),
         )
-    _launched("rdb_apply_chained", lib, err, f"B={B}, {H}x{W} in {rows}x{cols}, nf={nf}, {x.dtype}")
+    _launched(fn, lib, err, f"B={B}, {H}x{W} in {rows}x{cols}, nf={nf}, T={tile}, {x.dtype}")
     return out
 
 
@@ -697,12 +819,12 @@ def rdb_apply_paired(
         return rdb_paired_reference(hi, lo, p, u)
     if hi.dtype != torch.bfloat16:
         raise ValueError(f"rdb_apply_paired: hi is {hi.dtype}, expected bfloat16")
-    nf, gc, _ = _cuda_operands("rdb_apply_paired", hi, w, b, tensor_cores=True)
+    nf, gc, _ = _cuda_operands("rdb_apply_paired", hi, w, b, bf16_only=True)
     wg = _wg_weights("rdb_apply_paired", p, hi, w.numel())
     for name, t in (("lo", lo),) + (() if u is None else (("u_hi", u[0]), ("u_lo", u[1]))):
         _check(name, t, hi.device, torch.bfloat16, shape=hi.shape)
-    tile = _patch_side("rdb_apply_paired", tile, WGMMA_TILES, rdb_geometry, hi, nf, gc)
     B, H, W, _ = hi.shape
+    tile = _patch_side("rdb_apply_paired", tile, WGMMA_TILES, rdb_geometry, hi, B, H, W, nf, gc)
     hi2, lo2 = torch.empty_like(hi), torch.empty_like(lo)
     lib = _modes_library()
     with torch.cuda.device(hi.device):
@@ -765,18 +887,26 @@ def rdb_trunk_chained(x: torch.Tensor, stacked: Dict[str, torch.Tensor]) -> torc
     kernel rotates its planes. Buffer 0 holds the RRDB entry state ``u``;
     step k reads buffer ``k % 3`` and writes ``(k + 1) % 3``, so each
     RRDB-closing step writes ``0.2 * y + u`` back into buffer 0 in place.
-    The flags are one int32 device tensor. Returns the image of buffer 0,
-    as ``[B, H, W, nf]``."""
+    The flags are one int32 device tensor. In mixed mode on the card three
+    bfloat16 operand planes (zero aprons) rotate with the buffers: each
+    step reads its window from buffer ``k % 3``'s and writes bf16 of its
+    output into buffer ``(k + 1) % 3``'s, so the trunk casts once. Returns
+    the image of buffer 0, as ``[B, H, W, nf]``."""
     B, H, W, _ = x.shape
     n = stacked["w"].shape[0]
     if n % 3:
         raise ValueError(f"the chained trunk needs whole RRDBs of 3 RDBs, got {n} RDBs")
     bufs = [to_chained(x)]
     bufs += [torch.zeros_like(bufs[0]) for _ in range(2)]
+    planes = [None] * 3
+    if x.device.type == "cuda" and x.dtype != torch.bfloat16:
+        planes = [bufs[0].to(torch.bfloat16)]
+        planes += [torch.zeros_like(planes[0]) for _ in range(2)]
     flags = _chain_flags(n, x.device)
     for k in range(n):
+        i, o = k % 3, (k + 1) % 3
         rdb_apply_chained(
-            bufs[k % 3], _rdb_k(stacked, k), bufs[0], flags[k : k + 1], H, W, bufs[(k + 1) % 3]
+            bufs[i], _rdb_k(stacked, k), bufs[0], flags[k : k + 1], H, W, bufs[o], planes[i], planes[o]
         )
     return from_chained(bufs[0], H, W).contiguous()
 

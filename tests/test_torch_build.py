@@ -14,12 +14,12 @@ def _copy_csrc(tmp_path, monkeypatch):
 
 
 def test_digest_covers_the_source_every_header_and_the_flags(tmp_path, monkeypatch):
-    """An edit to the source, to any header of csrc/ (tail_kernel.cu and
-    rdb_wgmma.cu include hopper.cuh), or to the flags names another library;
-    an edit to another source does not."""
+    """An edit to the source, to any header of csrc/ (tail_kernel.cu,
+    rdb_wgmma.cu and rdb_tf32.cu include hopper.cuh), or to the flags names
+    another library; an edit to another source does not."""
     d = _copy_csrc(tmp_path, monkeypatch)
     assert (d / "hopper.cuh").is_file()
-    first = {n: build.source_digest(n) for n in ("tail_kernel", "rdb_wgmma", "rdb_kernel")}
+    first = {n: build.source_digest(n) for n in ("tail_kernel", "rdb_wgmma", "rdb_tf32")}
     assert build.source_digest("tail_kernel") == first["tail_kernel"]  # stable
 
     with open(d / "hopper.cuh", "a") as f:
@@ -27,16 +27,16 @@ def test_digest_covers_the_source_every_header_and_the_flags(tmp_path, monkeypat
     after = {n: build.source_digest(n) for n in first}
     assert all(after[n] != first[n] for n in first)
 
-    with open(d / "rdb_kernel.cu", "a") as f:
+    with open(d / "rdb_tf32.cu", "a") as f:
         f.write("\n// edited\n")
-    assert build.source_digest("rdb_kernel") != after["rdb_kernel"]
+    assert build.source_digest("rdb_tf32") != after["rdb_tf32"]
     assert build.source_digest("tail_kernel") == after["tail_kernel"]
 
     (d / "new.cuh").write_text("#pragma once\n")
     assert build.source_digest("tail_kernel") != after["tail_kernel"]
 
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
-    assert build.source_digest("rdb_kernel") != after["rdb_kernel"]
+    assert build.source_digest("rdb_tf32") != after["rdb_tf32"]
 
 
 def test_library_name_uses_the_digest(tmp_path, monkeypatch):

@@ -53,7 +53,8 @@ K1_SHAPES = ((1, 12, 12), (2, 23, 17), (1, 5, 7), (1, 148, 148))
 @pytest.mark.parametrize(
     "state,op,nf,gc,tol",
     [
-        (torch.float32, torch.float32, 16, 8, 1e-4),  # CUDA cores
+        (torch.float32, torch.float32, 32, 16, 1e-4),  # 3xTF32 wgmma
+        (torch.float32, torch.float32, 64, 32, 1e-4),
         (torch.float32, torch.bfloat16, 32, 16, 1e-3),  # wgmma, mixed
         (torch.float32, torch.bfloat16, 64, 32, 1e-3),
         (torch.bfloat16, torch.bfloat16, 32, 16, 1e-2),  # bf16 state: 1 ulp
@@ -117,6 +118,76 @@ def test_kernel_rejects_shapes_it_has_no_instance_for(cuda):
     p = {k: v.to(cuda) for k, v in _packed(16, 16, torch.bfloat16).items()}
     with pytest.raises(ValueError, match="no tensor-core kernel"):
         TK.rdb_apply(x, p)
+
+
+@pytest.mark.gpu
+def test_tf32_kernel_rejects_shapes_it_has_no_instance_for(cuda):
+    """No float32 RDB kernel remains outside the tensor cores: nf, gc = 16,
+    8 raises where the CUDA-core kernel once took it."""
+    x = torch.zeros((1, 8, 8, 16), device=cuda)
+    p = {k: v.to(cuda) for k, v in _packed(16, 8, torch.float32).items()}
+    with pytest.raises(ValueError, match="no tensor-core kernel"):
+        TK.rdb_apply(x, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", TK.TF32_TILES)
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_tf32_kernel_at_each_patch_side(cuda, tile, nf, gc):
+    """K1's float32 instances (3xTF32 wgmma) at each patch side they are
+    built for, on a ragged 2 x 37 x 21 with the residual: within 1e-4 of
+    the plain version (TF32 off), bit-equal over two runs."""
+    x = _state(cuda, (2, 37, 21, nf), torch.float32)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.float32).items()}
+    got = TK._rdb_tf32(x, p, x * 0.5, tile)
+    torch.cuda.synchronize()
+    assert _rel(got, TK.rdb_reference(x, p, torch.float32, torch.float32, x * 0.5)) <= 1e-4
+    assert torch.equal(got, TK._rdb_tf32(x, p, x * 0.5, tile))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_tf32_trunk_matches_plain_trunk(cuda, nf, gc):
+    """Six float32 RDBs with distinct weights (two RRDBs) on K1's float32
+    instances against the plain trunk with TF32 off: within 1e-4, six
+    launches, bit-equal over two runs."""
+    x = _state(cuda, (2, 23, 17, nf), torch.float32)
+    packs = [_packed(nf, gc, torch.float32, seed=40 + k) for k in range(6)]
+    stacked = {k: torch.stack([d[k] for d in packs]).to(cuda) for k in packs[0]}
+    launches = TK.LAUNCHES["rdb_apply"]
+    got = TK.rdb_trunk(x, stacked)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["rdb_apply"] == launches + 6
+    t = u = x
+    for k in range(6):
+        if k % 3 == 0:
+            u = t
+        pk = {"w": stacked["w"][k], "b": stacked["b"][k]}
+        t = TK.rdb_reference(t, pk, torch.float32, torch.float32, u if k % 3 == 2 else None)
+    assert _rel(got, t) <= 1e-4
+    assert torch.equal(got, TK.rdb_trunk(x, stacked))
+
+
+@pytest.mark.gpu
+def test_float32_engine_runs_the_tf32_kernel(cuda, tmp_path):
+    """A float32 engine on variant "auto" runs its trunk on K1's float32
+    instances (three RDB launches per chunk of a one-RRDB graph) and keeps
+    >= 99.9 % of u8 values equal to the float32 plain engine's, max diff 1."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=32, gc=16))
+    img = (np.random.default_rng(3).random((30, 41, 3)) * 255).astype(np.uint8)
+    kern = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32"))
+    kern.load(*files)
+    assert kern.variant == "cuda"
+    launches = TK.LAUNCHES["rdb_apply"]
+    got = kern.process(img)
+    assert TK.LAUNCHES["rdb_apply"] > launches and (TK.LAUNCHES["rdb_apply"] - launches) % 3 == 0
+    plain = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32", variant="dense"))
+    plain.load(*files)
+    d = np.abs(got.astype(int) - plain.process(img).astype(int))
+    assert (d == 0).mean() >= 0.999 and d.max() <= 1
 
 
 def _tail_operands(cuda, op_dtype):
@@ -257,10 +328,9 @@ def test_packed_kernel_matches_plain(cuda, shape, state, nf, gc, tol):
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("state,nf,gc", [(torch.float32, 32, 16), (torch.bfloat16, 64, 32)])
 def test_chained_kernel_matches_scatter_kernel(cuda, shape, state, nf, gc):
-    """K3 computes K1's arithmetic on the chained layout, with mma.sync where
-    K1 has wgmma (another order of the sums): its image is within K1's
-    tolerance of K1's output, with and without the flagged residual, and of
-    its plain version; its aprons stay zero."""
+    """K3 computes K1's arithmetic on the chained layout with K1's stages:
+    its image is within K1's tolerance of K1's output, with and without the
+    flagged residual, and of its plain version; its aprons stay zero."""
     B, H, W = shape
     x = _state(cuda, (B, H, W, nf), state)
     u = _state(cuda, (B, H, W, nf), state, seed=9)
@@ -281,6 +351,34 @@ def test_chained_kernel_matches_scatter_kernel(cuda, shape, state, nf, gc):
         rest = out.clone()
         TK.from_chained(rest, H, W).zero_()
         assert not rest.any()  # nothing written outside the image
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", TK.WGMMA_TILES)
+@pytest.mark.parametrize("state,nf,gc", [(torch.float32, 64, 32), (torch.bfloat16, 32, 16)])
+def test_chained_kernel_at_each_patch_side(cuda, tile, state, nf, gc):
+    """K3 on wgmma at each of K1's patch sides, none of which need match the
+    layout's rounding to 16, on a ragged 2 x 37 x 21 with the residual folded
+    into u = out (as the trunk's closing step does): within K1's tolerance
+    of K1, the shadow (mixed mode) bf16 of the output, aprons of both zero."""
+    B, H, W = 2, 37, 21
+    x = _state(cuda, (B, H, W, nf), state)
+    u = _state(cuda, (B, H, W, nf), state, seed=9)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.bfloat16).items()}
+    xc, out = TK.to_chained(x), TK.to_chained(u)
+    mixed = state == torch.float32
+    xs = xc.to(torch.bfloat16) if mixed else None
+    sh = torch.zeros_like(xc, dtype=torch.bfloat16) if mixed else None
+    f = torch.ones(1, dtype=torch.int32, device=cuda)
+    TK.rdb_apply_chained(xc, p, out, f, H, W, out, xs, sh, tile)
+    torch.cuda.synchronize()
+    assert _rel(TK.from_chained(out, H, W), TK.rdb_apply(x, p, u)) <= (1e-3 if mixed else 1e-2)
+    for t in (out,) + ((sh,) if mixed else ()):
+        rest = t.clone()
+        TK.from_chained(rest, H, W).zero_()
+        assert not rest.any()
+    if mixed:
+        assert torch.equal(sh, out.to(torch.bfloat16))
 
 
 @pytest.mark.gpu
@@ -336,8 +434,8 @@ def test_float32_engine_on_a_trunk_mode_raises(cuda, tmp_path, cfg):
 def test_trunk_kernels_match_per_rdb_kernel(cuda, trunk):
     """Six RDBs (two RRDBs) on K3 / K4 against the K1 trunk, mixed mode,
     within K1's mixed tolerance: chained computes the same arithmetic with
-    mma.sync where K1 has wgmma; paired's hi + lo carries ~16 bits where K1
-    carries float32."""
+    K1's stages on its layout, threading its bf16 operand planes; paired's
+    hi + lo carries ~16 bits where K1 carries float32."""
     x = _state(cuda, (2, 23, 17, 32), torch.float32)
     stacked = {k: torch.stack([v] * 6).to(cuda) for k, v in _packed(32, 16, torch.bfloat16).items()}
     want = TK.rdb_trunk(x, stacked)

@@ -10,6 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from realsr_tpu.models import rrdbnet as R
 from realsr_tpu.ops import rdb_kernel as K
@@ -37,7 +38,7 @@ def _packed(p_hwio, op_dtype):
     return TK.pack_rdb_params(params_from_jax({"rdb": p_hwio})["rdb"], op_dtype)
 
 
-def _jax_rdb(x, p_hwio, op_dtype=None, gc=GC):
+def _jax_rdb(x, p_hwio, op_dtype=None, gc=GC, nf=NF):
     """JAX rdb_apply (interpret mode) on NHWC numpy ``x``."""
     H, W = x.shape[1:3]
     sp = R.repack_scatter({"rdb": p_hwio})["rdb"]
@@ -46,7 +47,7 @@ def _jax_rdb(x, p_hwio, op_dtype=None, gc=GC):
     kp = K.pack_rdb_params(sp, dtype=op_dtype or jnp.float32)
     yf = K.rdb_apply(
         K.to_flat(jnp.asarray(x), WB, BLK * nblk), kp, H=H, W=W, WB=WB,
-        BLK=BLK, nblk=nblk, nf=NF, gc=gc, op_dtype=op_dtype, interpret=True,
+        BLK=BLK, nblk=nblk, nf=nf, gc=gc, op_dtype=op_dtype, interpret=True,
     )
     return np.asarray(K.from_flat(yf, H, W, WB))
 
@@ -115,8 +116,8 @@ def test_plain_trunk_matches_jax_resident():
     "nf,gc,op,key",
     [
         (16, 8, torch.float32, "w"),
-        (32, 16, torch.bfloat16, "w"),  # mma.sync fragment order (K3)
-        (32, 16, torch.bfloat16, "wg"),  # wgmma order (K1)
+        (32, 16, torch.bfloat16, "w"),  # the plain versions' layout
+        (32, 16, torch.bfloat16, "wg"),  # wgmma order (K1, K3, K4)
         (64, 32, torch.bfloat16, "wg"),
     ],
 )
@@ -129,22 +130,6 @@ def test_pack_unpack_roundtrip(nf, gc, op, key):
     for k, v in p.items():
         want = torch.from_numpy(v).to(op if k.startswith("w") else torch.float32)
         np.testing.assert_array_equal(back[k].float().numpy(), want.float().numpy())
-
-
-def test_mma_fragment_order():
-    """Spot-check the tensor-core layout: lane 4g + t of the first B
-    fragment holds rows 2t, 2t+1, 2t+8, 2t+9 (input channels of tap 0) of
-    column g (output channel), for conv 1."""
-    nf, gc = 32, 16
-    w1 = np.arange(gc * nf * 9, dtype=np.float32).reshape(gc, nf, 3, 3)
-    perm = TK._perm(nf, gc, "scatter", True)
-    dense = np.moveaxis(w1, 0, -1).ravel()  # conv 1 as [cin][3][3][cout]
-    frag = dense[perm[:128]].reshape(8, 4, 4)  # [g][t][4 values]
-    for g in range(8):
-        for t in range(4):
-            rows = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
-            np.testing.assert_array_equal(frag[g, t], w1[g, rows, 0, 0])
-    assert np.array_equal(np.sort(perm), np.arange(perm.size))
 
 
 @pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
@@ -182,6 +167,158 @@ def test_wgmma_slice_order(nf, gc):
     # conv 5's last step: c4's last 16 channels at tap 8
     check(5, n_steps[4] - 1, nf + 4 * gc - 16, 8)
     assert np.array_equal(np.sort(perm), np.arange(perm.size))
+
+
+def test_tf32_split_keeps_float32():
+    """tf32_split: hi has 10 mantissa bits (the low 13 of float32 are zero),
+    rounded to nearest with ties away from zero; lo is the remainder
+    rounded the same way; hi + lo is within 2^-21 of v, relative, over
+    values of many exponents and signs."""
+    rng = np.random.default_rng(0)
+    v = (rng.normal(0, 1, 20000) * np.exp2(rng.integers(-60, 60, 20000))).astype(np.float32)
+    hi, lo = TK.tf32_split(v)
+    assert hi.dtype == lo.dtype == np.float32
+    for t in (hi, lo):
+        assert not (t.view(np.uint32) & np.uint32(0x1FFF)).any()
+    np.testing.assert_array_less(np.abs(v - hi), np.abs(v) * 2.0**-11 * (1 + 2.0**-20))
+    err = np.abs(v.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+    np.testing.assert_array_less(err, np.abs(v).astype(np.float64) * 2.0**-21)
+    # ties: 1 + 2^-11 + 2^-23 rounds up, 1 + 2^-11 (half an ulp) away from zero
+    t = np.array([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-11 - 2.0**-23], np.float32)
+    np.testing.assert_array_equal(TK.tf32_split(t)[0], np.array([1 + 2.0**-10, -(1 + 2.0**-10), 1.0], np.float32))
+
+
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_tf32_slice_order(nf, gc):
+    """Spot-check the float32 kernel's B layout ("wt"): each k8 step of N
+    outputs is its tf32 hi slice, then its lo slice, each K-major without
+    swizzle with element (n, k) at (n // 8) * 64 + (k // 4) * 32 + (n % 8) *
+    4 + k % 4; the steps follow (conv, source, tap, 8-channel block).
+    Checked: conv 1's first step (x, tap 0, channels 0..7), conv 2's step of
+    source c1 at tap 4, and conv 5's last step."""
+    rng = np.random.default_rng(3)
+    ws = {i: rng.normal(0, 1, (gc if i < 5 else nf, nf + (i - 1) * gc, 3, 3)).astype(np.float32)
+          for i in range(1, 6)}
+    p = {**{f"w{i}": ws[i] for i in ws}, **{f"b{i}": np.zeros(gc if i < 5 else nf, np.float32) for i in ws}}
+    wt = TK.pack_rdb_params(p, torch.float32)["wt"].numpy()
+    assert wt.shape == (2 * TK.rdb_macs_per_pixel(nf, gc),)
+    n_steps = [9 * (nf + (i - 1) * gc) // 8 for i in range(1, 6)]
+    starts = np.cumsum([0] + [s * 2 * 8 * (gc if i < 4 else nf) for i, s in enumerate(n_steps)])
+
+    def check(conv, step, cin0, tap):
+        n_out = gc if conv < 5 else nf
+        o = starts[conv - 1] + step * 2 * 8 * n_out
+        hi, lo = wt[o : o + 8 * n_out], wt[o + 8 * n_out : o + 16 * n_out]
+        for n in range(n_out):
+            for k in range(8):
+                idx = (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+                want_hi, want_lo = TK.tf32_split(ws[conv][n, cin0 + k, tap // 3, tap % 3])
+                assert (hi[idx], lo[idx]) == (want_hi, want_lo), (conv, step, n, k)
+
+    check(1, 0, 0, 0)
+    # conv 2: x takes 9 taps x nf / 8 steps, then c1 (channels nf..) tap by tap
+    check(2, 9 * nf // 8 + 4 * (gc // 8), nf, 4)
+    # conv 5's last step: c4's last 8 channels at tap 8
+    check(5, n_steps[4] - 1, nf + 4 * gc - 8, 8)
+    perm = TK._perm(nf, gc, "scatter", True, "tf32")
+    assert np.array_equal(np.sort(perm), np.arange(perm.size))
+
+
+@pytest.mark.parametrize("nf,gc,op", [(32, 16, torch.float32), (64, 32, torch.float32), (32, 16, torch.bfloat16)])
+def test_tf32_weights_round_trip(nf, gc, op):
+    """float32 operands pack "wt" (twice "w"'s length) beside "w", bfloat16
+    operands do not; "wt" unpacks (hi + lo) to within 2^-21 of the weights."""
+    p = params_from_jax({"rdb": _mk_params(nf, gc, seed=4)})["rdb"]
+    packed = TK.pack_rdb_params(p, op)
+    assert ("wt" in packed) == (op == torch.float32)
+    if op != torch.float32:
+        return
+    assert packed["wt"].dtype == torch.float32 and packed["wt"].numel() == 2 * packed["w"].numel()
+    back = TK.unpack_rdb_params(packed, nf, key="wt")
+    for k, v in p.items():
+        if k.startswith("w"):
+            np.testing.assert_array_less(np.abs(back[k].numpy() - v), np.abs(v) * 2.0**-21 + 1e-30)
+        else:
+            np.testing.assert_array_equal(back[k].numpy(), v)
+
+
+def _device_split(a: np.ndarray):
+    """The float32 kernel's split of its activations as the tensor cores
+    read them (hopper.cuh::split_tf32): hi = ``a`` truncated to tf32, lo =
+    ``a - hi`` truncated to tf32."""
+
+    def trunc(t):
+        return (np.ascontiguousarray(t, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    hi = trunc(a)
+    return hi, trunc(a - hi)
+
+
+def _tf32_rdb(x: np.ndarray, p: dict, nf: int, gc: int) -> np.ndarray:
+    """The float32 kernel's arithmetic on the CPU: every conv input (x, c1..c4,
+    kept in float32) split into tf32 hi + lo as the kernel splits it, every
+    weight from "wt", each conv the sum lo x hi + hi x lo + hi x hi of three
+    convs (summed in float64 here, in float32 on the card), bias after."""
+    hi_t, lo_t = TK._tf32_unslice(p["wt"], nf, gc)
+    perm = torch.from_numpy(TK._perm(nf, gc, "scatter", True, "tf32"))
+    dense = []
+    for t in (hi_t, lo_t):
+        d = torch.empty_like(t)
+        d[perm] = t
+        dense.append(TK.unpack_rdb_params({"w": d, "b": p["b"]}, nf))
+    w_hi, w_lo = dense
+
+    def conv(feats, i):
+        a_hi, a_lo = (torch.from_numpy(t).double() for t in _device_split(torch.cat(feats, 1).numpy()))
+        wh, wl = w_hi[f"w{i}"].double(), w_lo[f"w{i}"].double()
+        s = F.conv2d(a_lo, wh, padding=1) + F.conv2d(a_hi, wl, padding=1) + F.conv2d(a_hi, wh, padding=1)
+        return (s + w_hi[f"b{i}"].double()[:, None, None]).float()
+
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    feats = [xt]
+    for i in range(1, 5):
+        feats.append(F.leaky_relu(conv(feats, i), 0.2))
+    y = 0.2 * conv(feats, 5) + xt
+    return y.permute(0, 2, 3, 1).numpy()
+
+
+def test_tf32_product_matches_jax_f32():
+    """The 3xTF32 split product, emulated on the CPU for one RDB at nf 32,
+    gc 16, against JAX's float32 rdb_apply (interpret mode, f32 operands at
+    Precision.HIGHEST) within the float32 tests' 5e-5 (the split leaves
+    ~2^-20 of each product), and against the kernel's plain version; one
+    tf32 product alone misses by far more."""
+    nf, gc, H, W = 32, 16, 9, 11
+    p_hwio = _mk_params(nf, gc, seed=6, wstd=0.05)
+    p = _packed(p_hwio, torch.float32)
+    x = np.random.default_rng(7).normal(0, 0.5, (2, H, W, nf)).astype(np.float32)
+    got = _tf32_rdb(x, p, nf, gc)
+    np.testing.assert_allclose(got, _jax_rdb(x, p_hwio, gc=gc, nf=nf), atol=5e-5)
+    plain = TK.rdb_reference(torch.from_numpy(x), p, torch.float32, torch.float32).numpy()
+    np.testing.assert_allclose(got, plain, atol=5e-5)
+    # one tf32 product alone (hi x hi) misses the float32 result by far more
+    hi_only = {"w": torch.from_numpy(TK.tf32_split(p["w"].numpy())[0]), "b": p["b"]}
+    coarse = TK.rdb_reference(torch.from_numpy(TK.tf32_split(x)[0]), hi_only, torch.float32, torch.float32).numpy()
+    assert np.abs(coarse - plain).max() > 10 * np.abs(got - plain).max()
+
+
+@pytest.mark.parametrize("nf,gc", [(64, 32), (32, 16)])
+def test_tf32_smem_fits_each_built_side(nf, gc):
+    """The float32 kernel's shared memory (the mirror of
+    rdb_wgmma.cuh::LayoutF32) fits one block (232,448 bytes on the card) at
+    each patch side it is built for, and not at 11 for nf = 64: the float32
+    planes cap the side at 10."""
+    limit = 232_448
+    for tile in TK.TF32_TILES:
+        assert TK.tf32_smem_bytes(tile, nf, gc) <= limit
+    # hand count at T = 10, nf = 64: window 2 x 400 x 128 + c1..c4 4 x 32 x
+    # (18^2 + 16^2 + 14^2 + 12^2) = 220,160, two 4 KB slots (one k8 step of
+    # c5, hi and lo), 5 barriers, the 1,024-byte alignment
+    assert TK.tf32_smem_bytes(10, 64, 32) == 220_160 + 2 * 4096 + 40 + 1024
+    # T = 9: window 2 x 361 x 128 padded to 47,104 per sub-plane, slots 12 KB
+    assert TK.tf32_smem_bytes(9, 64, 32) == 2 * 47_104 + 4 * 32 * (17**2 + 15**2 + 13**2 + 11**2) + 24_576 + 1064
+    if nf == 64:
+        assert TK.tf32_smem_bytes(11, nf, gc) > limit
 
 
 # shapes for rdb_geometry: the main path's chunk, single and ragged tiles,
@@ -226,6 +363,41 @@ def test_rdb_geometry_matches_brute_force(B, H, W, nf, gc, sms):
     assert geo.mac_factor == pytest.approx(macs / useful)
     if (B, H, W, nf, sms) == (8, 148, 148, 64, 132):
         assert (geo.tile, geo.blocks) == (17, 648)
+
+
+@pytest.mark.parametrize("B,H,W", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("nf,gc,sms", [(64, 32, 132), (32, 16, 16)])
+def test_tf32_geometry_matches_brute_force(B, H, W, nf, gc, sms):
+    """tf32_geometry (K1's float32 patch side) against a block-by-block
+    count: K1's regions, the waves on ``sms`` SMs, and the side of
+    TF32_TILES that minimises waves x (block MACs + the tf32 block price)."""
+    useful = B * H * W * TK.rdb_macs_per_pixel(nf, gc)
+
+    def count(tile):
+        blocks, macs = 0, 0
+        for _ in range(B):
+            for _y in range(0, H, tile):
+                for _x in range(0, W, tile):
+                    blocks += 1
+                    for r in range(1, 6):
+                        side = tile + 10 - 2 * r
+                        macs += -(-(side * side) // 64) * 64 * 9 * (nf + (r - 1) * gc) * (gc if r < 5 else nf)
+        return blocks, macs
+
+    prices = {}
+    for tile in TK.TF32_TILES:
+        blocks, macs = count(tile)
+        prices[tile] = -(-blocks // sms) * (macs // blocks + TK.TF32_BLOCK_OVERHEAD_MACS)
+    want = max(t for t, c in prices.items() if c == min(prices.values()))
+    geo = TK.tf32_geometry(B, H, W, nf, gc, sms)
+    blocks, macs = count(want)
+    assert geo.tile == want
+    assert geo.patches == (-(-H // want), -(-W // want))
+    assert geo.blocks == blocks
+    assert geo.mac_factor == pytest.approx(macs / useful)
+    if (B, H, W, nf, sms) == (8, 148, 148, 64, 132):
+        assert (geo.tile, geo.blocks) == (10, 1800)
+        assert geo.mac_factor == pytest.approx(1.998, abs=5e-4)
 
 
 @pytest.mark.parametrize("B,H,W", GEOMETRY_SHAPES)
@@ -327,4 +499,4 @@ def test_library_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("REALSR_TPU_TORCH_BUILD", str(tmp_path / "build"))
     monkeypatch.setattr(build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        TK._library()
+        TK._tf32_library()

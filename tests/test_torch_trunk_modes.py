@@ -57,7 +57,7 @@ def _rect_matrices(p, nf, gc, key="w"):
     """The port's packed-schedule weights ``p[key]`` as the JAX package lays
     out its rectangles: ``[N, 9 * cin]`` per rectangle, contraction index
     (source, tap, channel)."""
-    if TK._frag(p[key].dtype, nf, gc):  # fragment or wgmma order -> the [K][N] layout
+    if key == "wg":  # the wgmma order -> the [K][N] layout
         dense = {k: v.float().numpy() for k, v in TK.unpack_rdb_params(p, nf, "packed", key).items()}
         p = TK.pack_rdb_params(dense, torch.float32, "packed")
     w = p["w"].float().numpy()
@@ -84,7 +84,7 @@ def _rect_matrices(p, nf, gc, key="w"):
      (32, 16, torch.bfloat16, "wg"), (64, 32, torch.bfloat16, "wg")],
 )
 def test_packed_weights_equal_jax_rectangles(nf, gc, op, key):
-    """Both copies of the packed schedule's weights, the mma fragment order
+    """Both copies of the packed schedule's weights, the plain versions'
     ("w") and the wgmma kernel's ("wg", K5), hold JAX's rectangles."""
     p = _mk_params(nf, gc, seed=2)
     jdt = jnp.float32 if op == torch.float32 else jnp.bfloat16
@@ -257,6 +257,77 @@ def test_chained_layout_and_flag():
         rest = out.clone()
         TK.from_chained(rest, 7, 9).zero_()
         assert not rest.any()
+
+
+def _chained_by_patches(xc, p, uc, flag, H, W, tile, shadow):
+    """K3's blocks on the CPU, float32: each ``tile`` x ``tile`` patch of the
+    H x W image computes its RDB from the (tile + 10)^2 window of the chained
+    layout at the patch's place, zeros past the layout (as TMA fills them),
+    c1..c4 by valid 3x3 convs over the shrinking regions, zeroed outside the
+    image; the output (with 0.2 y + u where ``flag``) goes to the image
+    pixels of a zero layout, and bf16 of it to ``shadow``'s."""
+    nf = xc.shape[-1]
+    w = TK.unpack_rdb_params(p, nf)
+    out = torch.zeros_like(xc)
+    A, S0 = TK.CHAIN_APRON, tile + 10
+    lay = torch.nn.functional.pad(xc.permute(0, 3, 1, 2), (0, S0, 0, S0))
+    for py0 in range(0, H, tile):
+        for px0 in range(0, W, tile):
+            feats = [lay[:, :, py0 : py0 + S0, px0 : px0 + S0]]  # image rows py0 - 5 ...
+            for i in range(1, 6):
+                inp = torch.cat([f[:, :, i - 1 - j : f.shape[2] - (i - 1 - j), i - 1 - j : f.shape[3] - (i - 1 - j)]
+                                 for j, f in enumerate(feats)], 1)
+                c = torch.nn.functional.conv2d(inp, w[f"w{i}"], w[f"b{i}"])
+                if i < 5:
+                    ys = torch.arange(c.shape[2]) + py0 - A + i
+                    xs = torch.arange(c.shape[3]) + px0 - A + i
+                    inside = ((ys >= 0) & (ys < H))[:, None] & ((xs >= 0) & (xs < W))[None, :]
+                    feats.append(torch.where(inside, torch.nn.functional.leaky_relu(c, 0.2), 0.0))
+            h, wd = min(tile, H - py0), min(tile, W - px0)
+            y = 0.2 * c[:, :, :h, :wd] + feats[0][:, :, A : A + h, A : A + wd]
+            if flag:
+                y = 0.2 * y + uc.permute(0, 3, 1, 2)[:, :, A + py0 : A + py0 + h, A + px0 : A + px0 + wd]
+            out[:, A + py0 : A + py0 + h, A + px0 : A + px0 + wd] = y.permute(0, 2, 3, 1)
+            shadow[:, A + py0 : A + py0 + h, A + px0 : A + px0 + wd] = y.permute(0, 2, 3, 1)
+    return out
+
+
+@pytest.mark.parametrize("tile", [17, 12])
+def test_chained_patches_at_other_sides_match_jax(tile):
+    """K3 on wgmma takes K1's patch sides (17 at the main path's chunk),
+    which need not divide the layout's rounding to 16: the patch-by-patch
+    emulation of its blocks (windows read past the layout as zeros, c1..c4
+    masked to the image, image pixels written) at a side other than 16
+    matches JAX's chained kernel (interpret mode) with and without the
+    flagged residual, leaves the aprons zero, and writes the shadow."""
+    H, W = 21, 19
+    p = _mk_params(NF, GC, seed=11)
+    x = np.random.default_rng(12).random((2, H, W, NF)).astype(np.float32)
+    u = np.random.default_rng(13).random((2, H, W, NF)).astype(np.float32)
+    WB = K.round_wb(W)
+    BLK, nblk = K.plan_rows(H, target_blk=4)
+    kp = K.pack_rdb_params(R.repack_scatter({"rdb": p})["rdb"], dtype=jnp.float32)
+    kw = dict(H=H, W=W, WB=WB, BLK=BLK, nblk=nblk, nf=NF, gc=GC, interpret=True)
+    tf = K.to_flat(jnp.asarray(x), WB, BLK * nblk, top=8)
+    tu = K.to_flat(jnp.asarray(u), WB, BLK * nblk, top=8)
+    pp = _port_packed(p, torch.float32)
+    xc, uc = TK.to_chained(torch.from_numpy(x)), TK.to_chained(torch.from_numpy(u))
+    assert xc.shape[1] == -(-H // 16) * 16 + 10 and (xc.shape[1] - 10) % tile
+    for flag in (0, 1):
+        yc = K.rdb_apply_chained(tf, kp, tu, jnp.full((1,), flag, jnp.int32), **kw)
+        want = np.asarray(K.from_flat(yc[:, :, 8 * WB : (8 + BLK * nblk) * WB], H, W, WB))
+        shadow = torch.zeros_like(xc)
+        got = _chained_by_patches(xc, pp, uc, flag, H, W, tile, shadow)
+        np.testing.assert_allclose(TK.from_chained(got, H, W).numpy(), want, atol=5e-5)
+        rest = got.clone()
+        TK.from_chained(rest, H, W).zero_()
+        assert not rest.any()
+        assert torch.equal(shadow, got)
+        # the port's plain chained version, with the shadow, agrees
+        out, sh = torch.zeros_like(xc), torch.zeros_like(xc)
+        TK.rdb_apply_chained(xc, pp, uc, torch.tensor([flag], dtype=torch.int32), H, W, out, shadow=sh)
+        np.testing.assert_allclose(out.numpy(), got.numpy(), atol=5e-5)
+        assert torch.equal(sh, out)
 
 
 # -- K4: the paired carry --------------------------------------------------

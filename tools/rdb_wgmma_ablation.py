@@ -1,9 +1,9 @@
 """What each design point of the wgmma RDB kernels buys, on one NVIDIA GPU.
 
 ``python3 tools/rdb_wgmma_ablation.py`` builds variants of
-``realsr_tpu_torch/csrc/rdb_wgmma.cu`` (K1) and ``rdb_modes_wgmma.cu`` (K4,
-K5): the committed source with one design point undone by a text
-substitution. It prints each one's ptxas registers and spills and, for one
+``realsr_tpu_torch/csrc/rdb_wgmma.cu`` (K1), ``rdb_tf32.cu`` (K1's float32
+instances) and ``rdb_modes_wgmma.cu`` (K3, K4, K5): the committed source
+with one design point undone by a text substitution. It prints each one's ptxas registers and spills and, for one
 instance, its SASS counts of wgmma (HGMMA), waits for wgmma groups
 (WARPGROUP.DEPBAR) and local-memory loads, then times one mixed-mode RDB at
 the main path's chunk (8 tiles of 148 x 148, nf = 64, gc = 32) with CUDA
@@ -20,8 +20,22 @@ K1 (``rdb_wgmma.cu``):
 - ``no_pingpong``: the two consumer warpgroups issue their products without
   taking turns;
 
-and, as the instruction mix the kernel replaced, K3 (the mma.sync form of
-``csrc/rdb_kernel.cu``, T = 16) on the same input.
+and K3 (the chained layout, on K1's stages) on the same input, as its
+trunk runs it.
+
+K1's float32 instances (``rdb_tf32.cu``, 3xTF32), a float32 RDB each:
+
+- ``tf32_final``: the committed kernel at each patch side it is built for
+  (10: 2 x 4 KB ring slots, chunks of 2 k8 steps of c1..c4 and 1 of c5; 9
+  and 8: 2 x 12 KB, chunks of up to 6 and 3), beside the cuDNN route;
+- ``tf32_slot4k``: every side with 4 KB ring slots (T = 10's chunks);
+- ``tf32_rna``: the activations' hi and lo both rounded to nearest by
+  cvt.rna.tf32.f32 (hi + lo within 2^-22 of v) in place of hi by
+  truncation and lo as it is (2^-20);
+- ``tf32_trunc_rna``: hi by truncation, lo rounded to nearest by integer
+  operations (2^-21);
+- ``tf32_2x``: two products (lo x hi dropped), which is no float32 mode:
+  what the third product costs.
 
 K4 and K5 (``rdb_modes_wgmma.cu``):
 
@@ -59,7 +73,9 @@ from realsr_tpu_torch.ops import rdb_kernel as rk  # noqa: E402
 
 OUT = os.path.join(build.build_dir(), "ablation")
 B, SIDE, NF, GC = 8, 148, 64, 32
-K1_SRC, MODES_SRC = "rdb_wgmma.cu", "rdb_modes_wgmma.cu"
+K1_SRC, TF32_SRC, MODES_SRC = "rdb_wgmma.cu", "rdb_tf32.cu", "rdb_modes_wgmma.cu"
+# the activations' split in hopper.cuh::split_tf32
+TF32_SPLIT = "  hi = v & 0xFFFFE000u;\n  lo = __float_as_uint(f - __uint_as_float(hi));\n"
 # name: (source, [(text, replacement)], the instance whose SASS is counted)
 VARIANTS = {
     "final": (K1_SRC, [], r"rdb_kernelILi17EfLi64ELi32E"),
@@ -77,6 +93,18 @@ VARIANTS = {
                               "n * NF * int(sizeof(TS)));\n", "")], r"rdb_kernelILi17EfLi64ELi32E"),
     "no_pingpong": (K1_SRC, [("    turn_wait(wg);\n", ""), ("    turn_pass(wg);\n", ""),
                              ("  if (wg == 1) turn_pass(wg);\n", "")], r"rdb_kernelILi17EfLi64ELi32E"),
+    "tf32_final": (TF32_SRC, [], r"rdb_tf32_kernelILi10ELi64ELi32E"),
+    "tf32_slot4k": (TF32_SRC, [("constexpr int kTf32Slot = 12288;", "constexpr int kTf32Slot = 4096;")],
+                    r"rdb_tf32_kernelILi9ELi64ELi32E"),
+    "tf32_rna": (TF32_SRC, [(TF32_SPLIT, "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(hi) : \"f\"(f));\n"
+                                         "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(lo) : "
+                                         "\"f\"(f - __uint_as_float(hi)));\n")],
+                 r"rdb_tf32_kernelILi10ELi64ELi32E"),
+    "tf32_trunc_rna": (TF32_SRC, [(TF32_SPLIT, "  hi = v & 0xFFFFE000u;\n"
+                                               "  lo = (__float_as_uint(f - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;\n")],
+                       r"rdb_tf32_kernelILi10ELi64ELi32E"),
+    "tf32_2x": (TF32_SRC, [("        for (int p = 0; p < 3; ++p) {", "        for (int p = 1; p < 3; ++p) {")],
+                r"rdb_tf32_kernelILi10ELi64ELi32E"),
     "modes_final": (MODES_SRC, [], r"packed_kernelILi12EfLi64ELi32E"),
     "c_chunk1": (MODES_SRC, [("    return cmin(PackedLayout", "    return i == 3 ? 1 : cmin(PackedLayout")],
                  r"packed_kernelILi12EfLi64ELi32E"),
@@ -149,7 +177,7 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def operands(sched: str = "scatter"):
+def operands(sched: str = "scatter", op=torch.bfloat16):
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     dense = {}
@@ -157,7 +185,7 @@ def operands(sched: str = "scatter"):
         cin, cout = NF + (i - 1) * GC, GC if i < 5 else NF
         dense[f"w{i}"] = rng.normal(0, 0.05, (cout, cin, 3, 3)).astype(np.float32)
         dense[f"b{i}"] = rng.normal(0, 0.05, (cout,)).astype(np.float32)
-    p = {k: v.to(dev) for k, v in rk.pack_rdb_params(dense, torch.bfloat16, sched).items()}
+    p = {k: v.to(dev) for k, v in rk.pack_rdb_params(dense, op, sched).items()}
     x = torch.from_numpy(rng.normal(0, 0.5, (B, SIDE, SIDE, NF)).astype(np.float32)).to(dev)
     return p, x
 
@@ -179,10 +207,27 @@ def time_k1(name: str, lib) -> None:
         ms = cuda_ms(lambda: rk.rdb_apply(x, p))
         print(f"final rdb_apply (casting x to bf16 in each call): {ms:.4f} ms", flush=True)
         xc = rk.to_chained(x)
-        out = torch.zeros_like(xc)
+        xcs, out, sh = xc.to(torch.bfloat16), torch.zeros_like(xc), torch.zeros_like(xc, dtype=torch.bfloat16)
         flag = torch.zeros(1, dtype=torch.int32, device=x.device)
-        ms = cuda_ms(lambda: rk.rdb_apply_chained(xc, p, xc, flag, SIDE, SIDE, out))
-        print(f"K3 mma.sync (rdb_kernel.cu, T=16) on the same input: {ms:.4f} ms", flush=True)
+        ms = cuda_ms(lambda: rk.rdb_apply_chained(xc, p, xc, flag, SIDE, SIDE, out, xcs, sh))
+        ms_ns = cuda_ms(lambda: rk.rdb_apply_chained(xc, p, xc, flag, SIDE, SIDE, out, xcs))
+        print(f"K3 (rdb_modes_wgmma.cu, T={rk.rdb_geometry(B, SIDE, SIDE, NF, GC).tile}) on the same input: "
+              f"{ms:.4f} ms; without the shadow {ms_ns:.4f} ms", flush=True)
+
+
+def time_tf32(name: str, lib) -> None:
+    rk._tf32_library = lambda: lib
+    p, x = operands(op=torch.float32)
+    want = rk.rdb_reference(x, p, torch.float32, torch.float32)
+    tiles = rk.TF32_TILES if name in ("tf32_final", "tf32_slot4k") else (rk.tf32_geometry(B, SIDE, SIDE, NF, GC).tile,)
+    for tile in tiles:
+        got = rk._rdb_tf32(x, p, None, tile)
+        err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+        ms = cuda_ms(lambda: rk._rdb_tf32(x, p, None, tile))
+        print(f"{name} T={tile}: {ms:.4f} ms; max|kernel - plain| / max(1, max|plain|) {err:.3e}", flush=True)
+    if name == "tf32_final":
+        ms = cuda_ms(lambda: rk.rdb_reference(x, p, torch.float32, torch.float32))
+        print(f"tf32_final: the cuDNN route (TF32 off) on the same input: {ms:.4f} ms", flush=True)
 
 
 def time_modes(name: str, lib) -> None:
@@ -219,6 +264,8 @@ def time_variant(name: str) -> None:
     with tf32(False):
         if VARIANTS[name][0] == K1_SRC:
             time_k1(name, rk._bind(lib, {"rdb_wgmma_launch": (7, 7)}))
+        elif VARIANTS[name][0] == TF32_SRC:
+            time_tf32(name, rk._bind(lib, {"rdb_tf32_launch": (5, 6)}))
         else:
             time_modes(name, rk._bind(lib, {"rdb_paired_launch": (8, 6), "rdb_packed_launch": (7, 7)}))
 
@@ -232,7 +279,7 @@ def main() -> int:
         return 1
     names = sys.argv[1:] or list(VARIANTS)
     os.makedirs(OUT, exist_ok=True)
-    build.load_library("rdb_kernel")
+    build.load_library("rdb_modes_wgmma")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
