@@ -7,9 +7,11 @@ Phases (each prints its lines; any failure exits non-zero):
    nvcc for each source, started together (``rdb_wgmma.cu``: K1/K2 for bf16
    operands; ``rdb_tf32.cu``: K1/K2 for float32 operands, 3xTF32 wgmma;
    ``rdb_modes_wgmma.cu``: K3, K4 and K5 on K1's wgmma machinery;
-   ``tail_kernel.cu``: K6/K7), with each kernel's registers and spills from
-   ``-Xptxas -v`` (no kernel may spill) and the count of wgmma (HGMMA), TMA
-   and bulk-copy instructions in each source's SASS;
+   ``rdb_modes_tf32.cu``: K3 and K5 for float32 operands; ``tail_kernel.cu``
+   and ``tail_tf32.cu``: K6/K7 for bf16 and float32 operands), with each
+   kernel's registers and spills from ``-Xptxas -v`` (no kernel may spill)
+   and the count of wgmma (HGMMA), TMA and bulk-copy instructions in each
+   source's SASS;
 3. the RDB kernel against its plain PyTorch version at the main path's shape
    (8 tiles of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): the
    patch geometry of K1 and of its float32 instances, one RDB in mixed and
@@ -21,7 +23,9 @@ Phases (each prints its lines; any failure exits non-zero):
    conv_last) against their plain versions at the same shape, at a ragged
    2 x 37 x 21 and at 9 x 37 x 37 (4x sides no multiple of the patch
    shape), with the tail's patch geometry and CUDA-event times, also at
-   each patch shape the kernel is built for;
+   each patch shape the kernel is built for; then their float32 instances
+   against the float32 plain versions at the same shapes and patch shapes,
+   timed beside the interleaved tail's cuDNN convs for the same work;
 3c. the trunk's alternative modes' kernels, mixed: K5 (the K-packed
    schedule), K4 (the paired bf16 carry) and K3 (the chained layout, with
    its bf16 operand plane and shadow as its trunk threads them) for one RDB
@@ -30,13 +34,16 @@ Phases (each prints its lines; any failure exits non-zero):
    built for, bit-equal over two runs, with K5's geometry; K3 also against
    K1; their 69-RDB trunks against the plain trunk of their mode (K3: the
    K1 trunk); CUDA-event times of each, of its plain version and of K1 at
-   the same shape;
+   the same shape; then K3's and K5's float32 instances at both shapes and
+   each side (K3 bit-equal to float32 K1) and their float32 trunks (the
+   chained one bit-equal to the float32 K1 trunk) against the plain ones;
 4. the main path: ``realsr_tpu_torch.cli.main`` on three images with the
    committed DF2K graph (23 RRDB, nf = 64, gc = 32) and synthesized weights,
    checking the outputs and that the trunk and the tail ran on the kernels
    (69 RDB launches and one tail launch per chunk); then the CLI with the
    K7 tail (REALSR_TPU_PACKED_TAIL=2), with TTA (``-x``) and in float32
-   (REALSR_TPU_STORAGE=float32: K1's float32 instances) on one image;
+   (REALSR_TPU_STORAGE=float32: K1's and K6's float32 instances, also with
+   the K7 tail, the chained trunk and the packed schedule) on one image;
    then once per trunk mode on one image (chained and paired through the
    module flags ``models.rrdbnet.CHAINED_TRUNK`` / ``PAIRED_CARRY``, packed
    through ``REALSR_TPU_SCHED=packed``), with 69 launches of the mode's
@@ -45,12 +52,14 @@ Phases (each prints its lines; any failure exits non-zero):
    TTA, and the chained, paired and packed trunks) against float32 plain by
    PSNR, held to the plain mixed path's PSNR, on uniform noise and on an
    image with a natural 1/f spectrum; the float32
-   kernel against float32 plain by identical u8 pixels; a mixed engine's
+   engines (kernel trunk and K6 tail, chained and packed trunks) against
+   float32 plain by identical u8 pixels; a mixed engine's
    output bit-equal before and after a float32 engine ran in the process;
    a float16 engine on ``variant="auto"`` running plain convs;
 6. steady state: device-resident ``RealSR.process_device`` on one 1024 x 768
-   image for each tail form, trunk mode and engine mode, TTA on a smaller
-   one, and the device time of one profiled image by kernel group.
+   image for each tail form, trunk mode and engine mode (float32 too),
+   TTA on a smaller one, and the device time of one profiled image by
+   kernel group (mixed and float32).
 
 The engines set TF32 for each chunk from their operand type (off for
 float32); the plain versions here run with TF32 off, except where a line
@@ -61,8 +70,10 @@ the main path, its error against its plain version, its time, its plain
 version's and its bound on this card (``bound_ms``: the larger of the
 operations over the data sheet's dense peak, bf16 or, for the float32
 instances, tf32 with three products per MAC, and the bytes over its memory
-rate). The last line is ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX or of the JAX package.
+rate); for the float32 instances ``library_ms`` is the cuDNN route's time
+for the same work (the plain RDB's convs; the interleaved tail's convs).
+The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -146,12 +157,14 @@ def ptxas_rows(log: str) -> list:
         name = part.split("'", 1)[0]
         w = re.search(r"(rdb|packed|chained)_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
         k4 = re.search(r"(paired|rdb_tf32)_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
-        t = re.search(r"tail_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
+        t = re.search(r"tail_kernelILi(\d+)ELi(\d+)ELb(\d)E(f|13__nv_bfloat16)", name)
+        ops = "float32 3xTF32" if "LayoutF32" in name else "bf16"
         if t:
-            label = f"{'K6' if t.group(3) == '1' else 'K7'} {t.group(1)}x{t.group(2)}"
+            label = (f"{'K6' if t.group(3) == '1' else 'K7'} {t.group(1)}x{t.group(2)} "
+                     f"{'float32 3xTF32' if t.group(4) == 'f' else 'bf16'}")
         elif w:
             label = (f"{dict(rdb='K1', packed='K5', chained='K3')[w.group(1)]} wgmma T={w.group(2)} "
-                     f"{'f32' if w.group(3) == 'f' else 'bf16'} state {w.group(4)}/{w.group(5)}")
+                     f"{'f32' if w.group(3) == 'f' else 'bf16'} state, {ops} operands {w.group(4)}/{w.group(5)}")
         elif k4:
             kind = "K4 wgmma" if k4.group(1) == "paired" else "K1 float32 3xTF32 wgmma"
             label = f"{kind} T={k4.group(2)} {k4.group(3)}/{k4.group(4)}"
@@ -178,6 +191,22 @@ def sass_counts(lib_name: str) -> dict:
     sass = subprocess.run([cuobjdump, "-sass", so[-1]], capture_output=True, text=True,
                           check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP", "LDSM")}
+
+
+def cudnn_tail(fea, params, up2: bool):
+    """The interleaved tail's cuDNN convs for the work of K6 (``up2``: from
+    the 2x image, nearest-x2 + up2 conv + LeakyReLU, HRconv + LeakyReLU,
+    conv_last) or K7 (from the 4x image after up2): NCHW float32 ``fea``,
+    ``params`` the graph's OIHW groups as tensors on its device."""
+    from realsr_tpu_torch.models.rrdbnet import LRELU_SLOPE, conv3x3
+    from realsr_tpu_torch.ops.resize import nearest_x2
+
+    f32 = torch.float32
+    if up2:
+        fea = nearest_x2(fea.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        fea = conv3x3(fea, params["up"]["w"][1], params["up"]["b"][1], LRELU_SLOPE, f32)
+    fea = conv3x3(fea, params["hr"]["w"], params["hr"]["b"], LRELU_SLOPE, f32)
+    return conv3x3(fea, params["last"]["w"], params["last"]["b"], None, f32)
 
 
 def fail(msg: str) -> None:
@@ -379,8 +408,8 @@ def profile_image(eng, img: np.ndarray) -> tuple:
             continue
         n = e.key.lower()
         ms = e.self_device_time_total / 1e3
-        if "rdb_kernel" in n:
-            g = "rdb_kernel"
+        if any(k in n for k in ("rdb_kernel", "rdb_tf32_kernel", "chained_kernel", "packed_kernel", "paired_kernel")):
+            g = "rdb kernels"
         elif "tail_kernel" in n:
             g = "tail_kernel"
         elif any(s in n for s in ("nchwtonhwc", "nhwctonchw", "transpose")):
@@ -421,7 +450,7 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, started together -----------------
     t0 = time.perf_counter()
-    sources = ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "tail_kernel")
+    sources = build.SOURCES
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))
     print(f"build: {', '.join(f'{s}.cu' for s in sources)} -> {build.build_dir()} in "
@@ -439,15 +468,15 @@ def main() -> int:
                 print(f"ptxas {src}.cu: {len(serial)} notes of wgmma serialization, e.g. {serial[0][:200]}",
                       flush=True)
             check(all(st == 0 and ld == 0 for _, _, st, ld in rows), f"{src}.cu: a wgmma kernel spills: {rows}")
-    for src in ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma"):
+    for src in ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "rdb_modes_tf32"):
         ops = sass_counts(src)
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UBLKCP"] > 0,
               f"{src}.cu: SASS without wgmma / TMA / bulk copies: {ops}")
         print(f"SASS {src}.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()), flush=True)
-    ops = sass_counts("tail_kernel")
-    check(ops["HGMMA"] > 0 and ops["UBLKCP"] > 0, f"tail_kernel.cu: SASS without wgmma / bulk copies: {ops}")
-    print("SASS tail_kernel.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()),
-          flush=True)
+    for src in ("tail_kernel", "tail_tf32"):
+        ops = sass_counts(src)
+        check(ops["HGMMA"] > 0 and ops["UBLKCP"] > 0, f"{src}.cu: SASS without wgmma / bulk copies: {ops}")
+        print(f"SASS {src}.cu (all instances): " + ", ".join(f"{k} {v}" for k, v in ops.items()), flush=True)
 
     dev = torch.device("cuda", 0)
     param = os.path.join(ROOT, "models", "models-DF2K", "x4.param")
@@ -479,6 +508,7 @@ def main() -> int:
                   f"issued MACs {geo.mac_factor:.3f}x the RDB's", flush=True)
         rdb_macs = RDB_MACS_PER_PX * B * SIDE * SIDE
         results = {}
+        library = {}  # the float32 instances' cuDNN route for the same work, ms
         for mode, op in (("mixed", torch.bfloat16), ("float32", torch.float32)):
             bundle = load_model(mparam, mbin, torch.float32, op, variant="cuda")
             check(bundle.spec.nf == NF and bundle.spec.gc == GC
@@ -508,6 +538,8 @@ def main() -> int:
                     b_ms = bound(rdb_macs, results[("K1 float32", "io")], tf32=True)[0]
                     wrapper = f" (its tf32 bound {b_ms:.3f} ms; the plain version is the cuDNN route)"
                 pms = cuda_ms(lambda: rk.rdb_reference(x, p0, torch.float32, op), 2, 10)
+                if mode == "float32":
+                    library["K1 float32"] = pms
             print(f"rdb {mode}: B={B} {SIDE}x{SIDE} nf={NF} gc={GC}: max_abs_err {err:.3e} "
                   f"(rel {rel:.3e} <= {RDB_TOL[mode]}), two runs bit-equal; kernel {ms:.3f} ms{wrapper}, "
                   f"plain {pms:.3f} ms (TF32 off) {card}", flush=True)
@@ -560,9 +592,12 @@ def main() -> int:
                   f"(rel {rel:.3e} <= {TRUNK_TOL}), two runs bit-equal; kernel {ms:.3f} ms, "
                   f"plain {pms:.3f} ms (TF32 off) {card}", flush=True)
             results[("trunk", mode)] = (err, ms, pms)
+            if mode == "float32":
+                library["K2 float32"] = pms
+                k1_trunk32, k1_trunk32_ms = got, ms
             wkey = "wg" if mode == "mixed" else "wt"
             results[("K2" if mode == "mixed" else "K2 float32", "io")] = nbytes(x, stacked[wkey], stacked["b"], x)
-            del stacked, p0, got, want, bundle
+            del stacked, p0, want, bundle
 
         # -- 3b. tail kernels against plain ------------------------------
         bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
@@ -611,7 +646,61 @@ def main() -> int:
                               f"{card}", flush=True)
                     del exact
                 del xin
-        del bundle, tp16, tp32
+
+        # the float32 instances (3xTF32) against the float32 plain versions
+        # with TF32 off, as float32 K1; timed beside the interleaved tail's
+        # cuDNN convs for the same work (the float32 engine's other tail)
+        graph_p = {g: {k: torch.as_tensor(v, device=dev) for k, v in bundle.params[g].items()}
+                   for g in ("up", "hr", "last")}
+        tol32 = RDB_TOL["float32"]
+        for up, label in ((True, "K6"), (False, "K7")):
+            for b_, h_, w_ in TAIL_SHAPES:
+                g = tk.tail_tf32_geometry(b_, h_, w_, up, sms)
+                print(f"tail geometry {label} float32 B={b_} {h_}x{w_} -> {4 * h_}x{4 * w_}: patch "
+                      f"{g.tile[0]}x{g.tile[1]}, {g.blocks} patches on {g.grid} persistent blocks = {g.waves:.3f} "
+                      f"waves (fill {100 * g.fill:.1f} %), issued MACs {g.mac_factor:.3f}x the tail's", flush=True)
+        for n_shape, (b_, h_, w_) in enumerate(TAIL_SHAPES):
+            src = np.random.default_rng(30 + n_shape)
+            p1 = np.abs(src.normal(0.0, 0.5, (b_, h_ + 1, w_ + 1, 4 * NF)))
+            p2 = np.abs(src.normal(0.0, 0.5, (b_, h_, w_, 16 * NF)))
+            for label, fn, arr in (("K6", "up2_hr_last_packed", p1), ("K7", "hr_last_packed", p2)):
+                up = label == "K6"
+                xin = torch.from_numpy(arr.astype(np.float32)).to(dev)
+                ref = getattr(tk, fn.replace("_packed", "_reference"))
+                key = f"{label} float32"
+                main_shape = (b_, h_, w_) == TAIL_SHAPES[0]
+                with tf32(False):
+                    want = ref(xin, tp32)
+                    for tile in (None, *tk.TAIL_TF32_TILES):
+                        got = getattr(tk, fn)(xin, tp32) if tile is None else tk._launch(fn, xin, tp32, up, tile)
+                        torch.cuda.synchronize()
+                        err, rel = rel_err(got, want)
+                        shape_ok = tuple(got.shape) == (b_, 4 * h_, 4 * w_, 3) and bool(torch.isfinite(got).all())
+                        again = getattr(tk, fn)(xin, tp32) if tile is None else tk._launch(fn, xin, tp32, up, tile)
+                        side = "the geometry's patch" if tile is None else f"patch {tile[0]}x{tile[1]}"
+                        check(shape_ok and rel <= tol32 and torch.equal(got, again),
+                              f"{key} B={b_} {h_}x{w_} at {side}: rel {rel} > {tol32}, bad shape or two runs differ")
+                        times = ""
+                        if main_shape:
+                            ms = cuda_ms(lambda: tk._launch(fn, xin, tp32, up, tile), 2, 10)
+                            times = f"; kernel {ms:.3f} ms"
+                            if tile is None:
+                                pms = cuda_ms(lambda: ref(xin, tp32), 1, 2)
+                                fea = torch.zeros((b_, NF, (2 if up else 4) * h_, (2 if up else 4) * w_), device=dev)
+                                lms = cuda_ms(lambda: cudnn_tail(fea, graph_p, up), 2, 10)
+                                del fea
+                                results[(key, "f32")] = (err, ms, pms)
+                                library[key] = lms
+                                w_keys = ("w2t", "b2", "w1t", "b1", "w9t", "b3") if up else ("w1t", "b1", "w9t", "b3")
+                                results[(key, "io")] = nbytes(xin, *(tp32[k] for k in w_keys)) + b_ * 16 * h_ * w_ * 12
+                                times += (f", plain {pms:.3f} ms (TF32 off), the interleaved tail's cuDNN convs for the "
+                                          f"same work {lms:.3f} ms")
+                        print(f"tail {key} {fn}: B={b_} {h_}x{w_} -> {4 * h_}x{4 * w_}x3 at {side}: max_abs_err "
+                              f"{err:.3e} (rel {rel:.3e} <= {tol32}) vs float32 plain, two runs bit-equal{times} "
+                              f"{card}", flush=True)
+                    del want, got, again
+                del xin
+        del bundle, tp16, tp32, graph_p
         torch.cuda.empty_cache()
 
         # -- 3c. the trunk modes' kernels against plain, mixed ---------------
@@ -770,6 +859,110 @@ def main() -> int:
                   f"{k1_trunk_ms:.3f} ms (TF32 off) {card}", flush=True)
         n_rdb = stacked["w"].shape[0]
         del bundle, stacked, stacked_q, p0, q0, hi, lo, gh, gl, xs, xc, out_c, got, want, k1_trunk
+        torch.cuda.empty_cache()
+
+        # -- 3c, float32: K3's and K5's float32 instances (3xTF32) --------
+        # K3 at float32 K1's sides, bit-equal to it; K5 at its own sides;
+        # both within the float32 tolerance of their plain versions
+        st32 = {k: v.to(dev) for k, v in load_model(mparam, mbin, torch.float32, torch.float32,
+                                                    variant="cuda").params["rdb"].items()}
+        st32q = {k: v.to(dev) for k, v in load_model(mparam, mbin, torch.float32, torch.float32, variant="cuda",
+                                                     sched="packed").params["rdb"].items()}
+        p32, q32 = rk._rdb_k(st32, 0), rk._rdb_k(st32q, 0)
+        tol32 = RDB_TOL["float32"]
+        for b_, h_, w_ in MODE_SHAPES:
+            g = rk.packed_tf32_geometry(b_, h_, w_, NF, GC, sms)
+            print(f"packed geometry float32 (K5) B={b_} {h_}x{w_}: patch side T={g.tile}, {g.blocks} blocks = "
+                  f"{g.waves:.3f} waves (fill {100 * g.fill:.1f} %), issued MACs {g.mac_factor:.3f}x the RDB's "
+                  f"(float32 K1/K3 at T={rk.tf32_geometry(b_, h_, w_, NF, GC, sms).tile}: "
+                  f"{rk.tf32_geometry(b_, h_, w_, NF, GC, sms).mac_factor:.3f}x)", flush=True)
+        with tf32(False):
+            for n_shape, (b_, h_, w_) in enumerate(MODE_SHAPES):
+                xm = x if n_shape == 0 else torch.from_numpy(
+                    np.random.default_rng(40 + n_shape).normal(0.0, 0.5, (b_, h_, w_, NF)).astype(np.float32)).to(dev)
+                xmc, flag1 = rk.to_chained(xm), torch.ones(1, dtype=torch.int32, device=dev)
+                want_c = rk.rdb_reference(xm, p32, torch.float32, torch.float32, xm)
+                want_q = rk.rdb_packed_reference(xm, q32, torch.float32, torch.float32, xm)
+                for tile in (None, *rk.TF32_TILES):
+                    outs = []
+                    for _ in range(2):
+                        out = torch.zeros_like(xmc)
+                        rk.rdb_apply_chained(xmc, p32, xmc, flag1, h_, w_, out, tile=tile)
+                        outs.append(out)
+                    torch.cuda.synchronize()
+                    img = rk.from_chained(outs[0], h_, w_)
+                    rest = outs[0].clone()
+                    rk.from_chained(rest, h_, w_).zero_()
+                    err, rel = rel_err(img, want_c)
+                    side = f"T={tile}" if tile else "the geometry's T"
+                    check(torch.equal(img, rk._rdb_tf32(xm, p32, xm, tile)) and rel <= tol32 and not rest.any()
+                          and torch.equal(outs[0], outs[1]),
+                          f"K3 float32 B={b_} {h_}x{w_} at {side}: not bit-equal to float32 K1, rel {rel} > "
+                          f"{tol32}, written outside the image, or two runs differ")
+                    print(f"K3 float32 rdb B={b_} {h_}x{w_} at {side}, residual folded: bit-equal to float32 K1; "
+                          f"max_abs_err {err:.3e} (rel {rel:.3e} <= {tol32}) vs plain; aprons zero; two runs "
+                          f"bit-equal {card}", flush=True)
+                for tile in (None, *rk.PACKED_TF32_TILES):
+                    got = rk._rdb_tf32(xm, q32, xm, tile, packed=True)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, want_q)
+                    side = f"T={tile}" if tile else "the geometry's T"
+                    check(bool(torch.isfinite(got).all()) and rel <= tol32
+                          and torch.equal(got, rk._rdb_tf32(xm, q32, xm, tile, packed=True)),
+                          f"K5 float32 B={b_} {h_}x{w_} at {side}: rel {rel} > {tol32} or two runs differ")
+                    t_ms = ""
+                    if n_shape == 0:
+                        t_ms = f"; kernel {cuda_ms(lambda: rk._rdb_tf32(x, q32, None, tile, packed=True), 2, 10):.3f} ms"
+                    print(f"K5 float32 rdb B={b_} {h_}x{w_} at {side}, with the residual: max_abs_err {err:.3e} "
+                          f"(rel {rel:.3e} <= {tol32}) vs the plain packed version, two runs bit-equal{t_ms} {card}",
+                          flush=True)
+                del xm, xmc, want_c, want_q, outs, img, rest, got
+
+            # the times at the main shape, without the residual, as the trunk's first step
+            xc32, out32 = rk.to_chained(x), torch.zeros_like(rk.to_chained(x))
+            flag0 = torch.zeros(1, dtype=torch.int32, device=dev)
+            rk.rdb_apply_chained(xc32, p32, xc32, flag0, SIDE, SIDE, out32)
+            err = rel_err(rk.from_chained(out32, SIDE, SIDE), rk.rdb_reference(x, p32, torch.float32, torch.float32))[0]
+            ms = cuda_ms(lambda: rk.rdb_apply_chained(xc32, p32, xc32, flag0, SIDE, SIDE, out32), 2, 10)
+            pms = cuda_ms(lambda: rk.rdb_chained_reference(xc32, p32, xc32, flag0, SIDE, SIDE, out32, torch.float32,
+                                                           torch.float32), 2, 10)
+            k1_32 = cuda_ms(lambda: rk._rdb_tf32(x, p32, None), 2, 10)
+            library["K3 float32"] = library["K5 float32"] = cuda_ms(
+                lambda: rk.rdb_reference(x, p32, torch.float32, torch.float32), 2, 10)
+            results[("K3 float32", "f32")] = (err, ms, pms)
+            results[("K3 float32", "io")] = nbytes(x, p32["wt"], p32["b"], x)
+            q_err = rel_err(rk.rdb_apply_packed(x, q32), rk.rdb_packed_reference(x, q32, torch.float32,
+                                                                                   torch.float32))[0]
+            q_ms = cuda_ms(lambda: rk.rdb_apply_packed(x, q32), 2, 10)
+            q_pms = cuda_ms(lambda: rk.rdb_packed_reference(x, q32, torch.float32, torch.float32), 2, 10)
+            results[("K5 float32", "f32")] = (q_err, q_ms, q_pms)
+            results[("K5 float32", "io")] = nbytes(x, q32["wt"], q32["b"], x)
+            print(f"K3 / K5 float32 rdb B={B} {SIDE}x{SIDE}: kernel {ms:.3f} / {q_ms:.3f} ms at T="
+                  f"{rk.tf32_geometry(B, SIDE, SIDE, NF, GC, sms).tile} / "
+                  f"{rk.packed_tf32_geometry(B, SIDE, SIDE, NF, GC, sms).tile}, plain {pms:.3f} / {q_pms:.3f} ms, "
+                  f"float32 K1 {k1_32:.3f} ms, cuDNN route {library['K3 float32']:.3f} ms (TF32 off) {card}",
+                  flush=True)
+            del xc32, out32
+
+            # their 69-RDB float32 trunks: chained bit-equal to the float32 K1
+            # trunk, packed within the float32 tolerance of the plain packed trunk
+            got = rk.rdb_trunk_chained(x, st32)
+            torch.cuda.synchronize()
+            check(torch.equal(got, k1_trunk32), "K3 float32 trunk: not bit-equal to the float32 K1 trunk")
+            e_c = rel_err(got, plain_trunk(rk, x, st32))
+            tms = cuda_ms(lambda: rk.rdb_trunk_chained(x, st32), 1, 1)
+            got = rk.rdb_trunk(x, st32q, "packed")
+            torch.cuda.synchronize()
+            e_q = rel_err(got, plain_trunk(rk, x, st32q, rk.rdb_packed_reference))
+            check(bool(torch.isfinite(got).all()) and e_c[1] <= tol32 and e_q[1] <= tol32
+                  and torch.equal(got, rk.rdb_trunk(x, st32q, "packed")),
+                  f"float32 trunks: chained rel {e_c[1]}, packed rel {e_q[1]} > {tol32}, or two packed runs differ")
+            qtms = cuda_ms(lambda: rk.rdb_trunk(x, st32q, "packed"), 1, 1)
+            print(f"float32 trunks, 69 RDB: K3 chained bit-equal to the float32 K1 trunk, {e_c[0]:.3e} (rel "
+                  f"{e_c[1]:.3e} <= {tol32}) vs the plain trunk, {tms:.3f} ms; K5 packed {e_q[0]:.3e} (rel "
+                  f"{e_q[1]:.3e}) vs the plain packed trunk, two runs bit-equal, {qtms:.3f} ms; float32 K1 trunk "
+                  f"{k1_trunk32_ms:.3f} ms (TF32 off) {card}", flush=True)
+        del st32, st32q, p32, q32, got, k1_trunk32
         del x
         torch.cuda.empty_cache()
 
@@ -852,8 +1045,7 @@ def main() -> int:
               f"{launches_x} rdb_kernel launches, {k6_x} K6 launches, {wall:.3f} s {card}",
               flush=True)
 
-        # the float32 path through the CLI: K1's float32 instances, the
-        # interleaved tail (the tail kernels have bfloat16 operands only)
+        # the float32 path through the CLI: K1's and K6's float32 instances
         eng32 = RealSR(gpuid=0, config=EngineConfig(storage="float32"))
         eng32.load(mparam, mbin)
         n32, _ = chunk_counts(eng32, one)
@@ -863,12 +1055,35 @@ def main() -> int:
         f32_launches = counts32["rdb_apply"]
         with Image.open(out32) as im:
             check(np.asarray(im).shape == (800, 1200, 3), f"float32: output {np.asarray(im).shape}")
-        check(f32_launches == 69 * n32 and sum(counts32.values()) == f32_launches and k6_32 == k7_32 == 0
-              and eng32.tail == "interleaved",
-              f"float32 CLI run: launches {counts32}, K6 {k6_32}, K7 {k7_32}; want 69 x {n32} of rdb_apply only")
+        check(f32_launches == 69 * n32 and sum(counts32.values()) == f32_launches and k6_32 == n32 and k7_32 == 0
+              and eng32.tail == "kernel",
+              f"float32 CLI run: launches {counts32}, K6 {k6_32}, K7 {k7_32}, tail {eng32.tail}; want 69 x {n32} "
+              f"of rdb_apply only and {n32} of K6")
         print(f"main path, REALSR_TPU_STORAGE=float32: b.png, {n32} chunks, {f32_launches} rdb_apply launches "
-              f"(K1's float32 instances), tail {eng32.tail}, {wall:.3f} s {card}", flush=True)
+              f"(K1's float32 instances), tail {eng32.tail}: {k6_32} K6 launches (its float32 instance), "
+              f"{wall:.3f} s {card}", flush=True)
         del eng32
+        # the float32 K7 tail, chained trunk and packed schedule through the CLI
+        f32_env = {"REALSR_TPU_STORAGE": "float32"}
+        _, c, k6_x32, k7_32 = run_cli(cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_f32_k7.png"), "-m",
+                                                    model_dir, "-g", "0"], {**f32_env, "REALSR_TPU_PACKED_TAIL": "2"})
+        check(k7_32 == n32 and k6_x32 == 0 and c["rdb_apply"] == 69 * n32,
+              f"float32 K7 CLI run: {k7_32} K7 / {k6_x32} K6 / {c} RDB launches for {n32} chunks")
+        f32_modes = {}
+        for mode, flag, env, key in (("chained", "CHAINED_TRUNK", {}, "rdb_apply_chained"),
+                                     ("packed", None, {"REALSR_TPU_SCHED": "packed"}, "rdb_apply_packed")):
+            out_m = os.path.join(out_dir, f"b_f32_{mode}.png")
+            wall, c, k6_m, _ = run_cli(cli, rk, tk, ["-i", one_in, "-o", out_m, "-m", model_dir, "-g", "0"],
+                                       {**f32_env, **env}, flag)
+            with Image.open(out_m) as im:
+                check(np.asarray(im).shape == (800, 1200, 3), f"float32 {mode}: output {np.asarray(im).shape}")
+            check(c[key] == 69 * n32 and sum(c.values()) == c[key] and k6_m == n32,
+                  f"float32 {mode} CLI run: launches {c}, K6 {k6_m}; want 69 x {n32} of {key} only")
+            f32_modes[key] = c[key]
+            print(f"main path, REALSR_TPU_STORAGE=float32, trunk mode {mode}: b.png, {n32} chunks, {c[key]} {key} "
+                  f"launches (float32 instances), 0 rdb_apply, {k6_m} K6, {wall:.3f} s {card}", flush=True)
+        print(f"main path, REALSR_TPU_STORAGE=float32 REALSR_TPU_PACKED_TAIL=2: b.png, {n32} chunks, {k7_32} K7 "
+              f"launches (its float32 instance) {card}", flush=True)
 
         # the trunk modes through the CLI, each on one image
         mode_launches = {}
@@ -893,7 +1108,9 @@ def main() -> int:
         # default flags before and after)
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
         before = engine.process(images["a.png"])
-        plain32 = RealSR(gpuid=0, config=EngineConfig(storage="float32", variant="dense"))
+        # the float32 reference: plain convs for the trunk and the tail alike
+        # (on the card a float32 "auto" tail is the K6 kernel, also on dense)
+        plain32 = RealSR(gpuid=0, config=EngineConfig(storage="float32", variant="dense", tail="interleaved"))
         plain32.load(mparam, mbin)
         ref_a = plain32.process(images["a.png"])
         after = engine.process(images["a.png"])
@@ -929,8 +1146,19 @@ def main() -> int:
             k6_engine.load(mparam, mbin)
         kern32 = RealSR(gpuid=0, config=EngineConfig(storage="float32"))
         kern32.load(mparam, mbin)
+        # the float32 engines held to the float32 plain engine by u8 equality:
+        # the default (K1 and K6's float32 instances), the chained and the
+        # packed trunk (K3's, K5's)
+        f32_engines = {"auto (K1, K6)": kern32}
+        for mode, cfg in (("chained", dict(trunk="chained")), ("packed", dict(sched="packed"))):
+            f32_engines[mode] = RealSR(gpuid=0, config=EngineConfig(storage="float32", **cfg))
+            f32_engines[mode].load(mparam, mbin)
+            check((f32_engines[mode].variant, f32_engines[mode].tail, f32_engines[mode].trunk,
+                   f32_engines[mode].sched) == ("cuda", "kernel", cfg.get("trunk", "per_rdb"),
+                                                cfg.get("sched", "scatter")),
+                  f"float32 {mode} engine: variant {f32_engines[mode].variant}, tail {f32_engines[mode].tail}")
         tta32 = RealSR(gpuid=0, tta_mode=True,
-                       config=EngineConfig(storage="float32", variant="dense"))
+                       config=EngineConfig(storage="float32", variant="dense", tail="interleaved"))
         tta32.load(mparam, mbin)
         tta_plain = RealSR(gpuid=0, tta_mode=True,
                            config=EngineConfig(variant="dense", tail="interleaved"))
@@ -943,7 +1171,7 @@ def main() -> int:
                                                               cfg.get("sched", "scatter")),
                   f"{mode} engine runs trunk {modes[mode].trunk}, sched {modes[mode].sched}")
         check(engine.variant == "cuda" and kern32.variant == "cuda", "engine did not pick the kernel")
-        check(kern32.tail == "interleaved", f"float32 engine tail {kern32.tail}")
+        check(kern32.tail == "kernel", f"float32 engine tail {kern32.tail}: want its float32 K6")
         for label, img in (("1/f", images["a.png"]), ("noise", noise)):
             ref, ref_tta = plain32.process(img), tta32.process(img)
             db_plain = psnr(plain_mixed.process(img), ref)
@@ -960,17 +1188,20 @@ def main() -> int:
                 check(db >= db_ref - PSNR_SLACK,
                       f"{label}: mixed {what} vs float32 {db:.2f} dB, below the plain mixed "
                       f"path's {db_ref:.2f} dB by more than {PSNR_SLACK} dB")
-            same, dmax = u8_same(kern32.process(img), ref)
-            check(same >= SAME_MIN and dmax <= 1,
-                  f"{label}: float32 kernel vs plain: {same * 100:.4f}% equal "
-                  f"(want >= {SAME_MIN}), max diff {dmax}")
+            sames = {}
+            for what, eng in f32_engines.items():
+                sames[what] = u8_same(eng.process(img), ref)
+                check(sames[what][0] >= SAME_MIN and sames[what][1] <= 1,
+                      f"{label}: float32 {what} engine vs plain: {sames[what][0] * 100:.4f}% equal "
+                      f"(want >= {SAME_MIN}), max diff {sames[what][1]}")
             band = "met" if dbs["default"][0] >= PSNR_BAND else "not met"
             print(f"numerics 256x192 {label}: vs float32 plain, mixed "
                   + ", ".join(f"{k} {v[0]:.2f} dB" for k, v in dbs.items())
                   + f"; mixed plain {db_plain:.2f} dB, mixed plain TTA {db_tta_plain:.2f} dB "
                   f"(each within {PSNR_SLACK} dB of its plain path; "
-                  f"the {PSNR_BAND} dB band {band}); float32 kernel vs plain "
-                  f"{same * 100:.4f}% equal u8, max diff {dmax} {card}", flush=True)
+                  f"the {PSNR_BAND} dB band {band}); float32 engines vs float32 plain: "
+                  + ", ".join(f"{w} {v[0] * 100:.4f}% equal u8, max diff {v[1]}" for w, v in sames.items())
+                  + f" {card}", flush=True)
 
         # -- 6. steady state, device-resident ----------------------------
         big = natural_image(np.random.default_rng(1), *STEADY_HW)
@@ -990,15 +1221,27 @@ def main() -> int:
         rows = [(f"mixed, kernel trunk, {t} tail", float(np.median(runs[t]))) for t in TAILS]
         rows += [(f"mixed, {m} trunk mode ({modes[m].trunk}, {modes[m].sched}), "
                   f"{modes[m].tail} tail", float(np.median(runs[f"{m} trunk"]))) for m in modes]
-        for label, eng in (("mixed, plain trunk and interleaved tail", plain_mixed),
-                           ("float32, kernel trunk", kern32), ("float32, plain", plain32)):
-            rows.append((label, steady_s(eng, big)))
+        rows.append(("mixed, plain trunk and interleaved tail", steady_s(plain_mixed, big)))
+        # the float32 engines in turns, as the mixed ones
+        kern32_int = RealSR(gpuid=0, config=EngineConfig(storage="float32", tail="interleaved"))
+        kern32_int.load(mparam, mbin)
+        steady32 = {"float32, kernel trunk, K6 tail (auto)": kern32,
+                    "float32, kernel trunk, interleaved (cuDNN) tail": kern32_int,
+                    "float32, chained trunk (K3), K6 tail": f32_engines["chained"],
+                    "float32, packed trunk (K5), K6 tail": f32_engines["packed"],
+                    "float32, plain (dense)": plain32}
+        runs32: dict = {t: [] for t in steady32}
+        for order in (list(steady32), list(steady32)[::-1]):
+            for t in order:
+                runs32[t].append(steady_s(steady32[t], big))
+        rows += [(t, float(np.median(v))) for t, v in runs32.items()]
         for label, s_img in rows:
             print(f"steady {STEADY_HW[1]}x{STEADY_HW[0]} RGB, {label}: {s_img:.4f} s/image, "
                   f"{big_mp / s_img:.3f} output MP/s {card}", flush=True)
-        s_k32, s_p32 = rows[-2][1], rows[-1][1]
-        print(f"float32 on variant auto (the kernel trunk) {big_mp / s_k32:.3f} vs variant dense (cuDNN) "
-              f"{big_mp / s_p32:.3f} output MP/s: {'auto' if s_k32 < s_p32 else 'dense'} faster {card}", flush=True)
+        s_k32, s_i32, s_p32 = (float(np.median(runs32[t])) for t in list(steady32)[:2] + ["float32, plain (dense)"])
+        print(f"float32 on variant auto (the kernel trunk, K6 tail) {big_mp / s_k32:.3f} vs the kernel trunk with the "
+              f"interleaved tail {big_mp / s_i32:.3f} vs variant dense (cuDNN) {big_mp / s_p32:.3f} output MP/s "
+              f"{card}", flush=True)
         tta_mp = 16 * 192 * 256 / 1e6
         s_tta = steady_s(tta_engine, images["a.png"])
         print(f"steady 256x192 RGB, mixed TTA (-x), {tta_engine.tail} tail: {s_tta:.4f} s/image, "
@@ -1016,15 +1259,17 @@ def main() -> int:
         print(f"steady numerics: vs float32 plain, mixed kernel trunk with tail (or trunk mode) "
               + ", ".join(f"{t} {db:.2f} dB" for t, db in dbs.items())
               + f"; mixed plain {db_plain:.2f} dB", flush=True)
-        for t in dict.fromkeys(("kernel", "interleaved")):
-            wall, groups, top = profile_image(tails[t], big)
+        for what, eng in (("mixed image, kernel trunk, kernel tail", tails["kernel"]),
+                          ("mixed image, kernel trunk, interleaved tail", tails["interleaved"]),
+                          ("float32 image, kernel trunk, kernel tail", kern32)):
+            wall, groups, top = profile_image(eng, big)
             dev_ms = sum(groups.values())
             if not dev_ms:
                 print("profile: torch.profiler recorded no device time (not measured)", flush=True)
                 continue
             parts = ", ".join(f"{g} {ms:.1f} ms ({100 * ms / dev_ms:.1f} %)"
                               for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
-            print(f"profile of one mixed image, kernel trunk, {t} tail: wall {1e3 * wall:.1f} ms "
+            print(f"profile of one {what}: wall {1e3 * wall:.1f} ms "
                   f"under the profiler, kernels {dev_ms:.1f} ms (device idle "
                   f"{100 * (1 - dev_ms / (1e3 * wall)):.1f} %): {parts}; costliest: "
                   + "; ".join(f"{ms:.1f} ms {n[:90]}" for ms, n in top) + f" {card}", flush=True)
@@ -1033,8 +1278,9 @@ def main() -> int:
 
     # every kernel of the repo's TPU kernels' counterparts, with its launches
     # on the main path (K1/K2: the default CLI run, their float32 instances
-    # the REALSR_TPU_STORAGE=float32 run; K6: K6's; K7: the
-    # REALSR_TPU_PACKED_TAIL=2 run; K3-K5: their modes' runs) and its bound
+    # and K6's the REALSR_TPU_STORAGE=float32 run; K6: K6's; K7: the
+    # REALSR_TPU_PACKED_TAIL=2 run; K3-K5: their modes' runs; the float32 K3,
+    # K5 and K7: the float32 runs of their modes) and its bound
     tail_px = B * 16 * SIDE * SIDE
     kernels = []
     for key, kname, src, replaces, n, macs, result in (
@@ -1057,13 +1303,25 @@ def main() -> int:
          "realsr_tpu/ops/tail_kernel.py:103", k6_cli, tail_px * tk.tail_macs_per_pixel(True), ("K6", "mixed")),
         ("K7", "tail_kernel (tail_kernel<TH, TW, false>: wgmma, hr_last_packed)", "tail_kernel.cu",
          "realsr_tpu/ops/tail_kernel.py:329", k7, tail_px * tk.tail_macs_per_pixel(False), ("K7", "mixed")),
+        ("K3 float32", "rdb_modes_tf32 (chained_kernel<T, float, nf, gc, LayoutF32>: 3xTF32 wgmma, "
+         "rdb_apply_chained)", "rdb_modes_tf32.cu", "realsr_tpu/ops/rdb_kernel.py:675",
+         f32_modes["rdb_apply_chained"], rdb_macs, ("K3 float32", "f32")),
+        ("K5 float32", "rdb_modes_tf32 (packed_kernel<T, float, nf, gc, LayoutF32>: 3xTF32 wgmma, "
+         "rdb_apply_packed)", "rdb_modes_tf32.cu", "realsr_tpu/ops/rdb_kernel.py:216",
+         f32_modes["rdb_apply_packed"], rdb_macs, ("K5 float32", "f32")),
+        ("K6 float32", "tail_tf32 (tail_kernel<TH, TW, true, float>: 3xTF32 wgmma, up2_hr_last_packed)",
+         "tail_tf32.cu", "realsr_tpu/ops/tail_kernel.py:103", k6_32, tail_px * tk.tail_macs_per_pixel(True),
+         ("K6 float32", "f32")),
+        ("K7 float32", "tail_tf32 (tail_kernel<TH, TW, false, float>: 3xTF32 wgmma, hr_last_packed)",
+         "tail_tf32.cu", "realsr_tpu/ops/tail_kernel.py:329", k7_32, tail_px * tk.tail_macs_per_pixel(False),
+         ("K7 float32", "f32")),
     ):
         err, ms, pms = results[result]
         b_ms, b_by = bound(macs, results[(key, "io")], tf32=key.endswith("float32"))
         kernels.append({
             "name": f"{key} {kname}", "route": "cuda", "source": f"realsr_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library.get(key),
             "checked_against_plain": True,  # phases 3-3c fail on any disagreement
         })
         check(n > 0, f"{key}: no launch on the main path")

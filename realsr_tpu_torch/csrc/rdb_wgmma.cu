@@ -57,7 +57,8 @@
 //   SMs in whole waves (8 x 148^2: T = 17, 648 blocks, 4.91 waves).
 // The machinery (layout, stage GEMM, epilogues, producer, window maps) is in
 // rdb_wgmma.cuh, which K1's float32 instances (rdb_tf32.cu, 3xTF32) and the
-// trunk modes' K3, K4 and K5 (rdb_modes_wgmma.cu) share.
+// trunk modes' K3, K4 and K5 (rdb_modes_wgmma.cu; K3's and K5's float32
+// instances in rdb_modes_tf32.cu) share.
 
 #include "rdb_wgmma.cuh"
 

@@ -1,6 +1,7 @@
 // The wgmma machinery of the fused RDB kernels, shared by K1/K2
 // (rdb_wgmma.cu with bf16 operands, rdb_tf32.cu with float32 operands) and
-// the trunk modes' K3, K4 and K5 (rdb_modes_wgmma.cu): the shared-memory
+// the trunk modes' K3, K4 and K5 (rdb_modes.cuh, rdb_modes_wgmma.cu,
+// rdb_modes_tf32.cu): the shared-memory
 // layout of a T x T patch, the stage GEMM (register A by ldmatrix, B from a
 // weight ring by descriptor), the epilogues of c1..c4 and of the output, the
 // producer (TMA window, L2 prefetch, weight ring) and the host's cache of
@@ -32,22 +33,6 @@ constexpr int kTf32Slot = 12288;    // the largest ring slot of LayoutF32
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// A k-step of the stage GEMMs is 32 bytes of a pixel's channels (two
-// 16-byte chunks: one ldmatrix.x4 per m-tile): K channels. B takes SLICES
-// slices of N x 32 bytes per step (bf16: one k16 slice; float32: the tf32
-// hi and lo k8 slices of the split product), A takes A registers per m-tile
-// (float32: tf32 hi and lo).
-template <typename OP>
-struct OperandSteps;
-template <>
-struct OperandSteps<__nv_bfloat16> {
-  static constexpr int K = 16, SLICES = 1, A = 4;
-};
-template <>
-struct OperandSteps<float> {
-  static constexpr int K = 8, SLICES = 2, A = 8;
-};
 
 __device__ __forceinline__ float round_to(float v, float*) { return v; }
 __device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {

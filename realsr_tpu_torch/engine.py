@@ -219,14 +219,13 @@ class RealSR:
         """Parse and load the model files onto the device. Returns 0 like
         the reference (src/realsr.cpp:142). An explicit kernel tail that
         the graph or the operand type has no kernel for raises, as does a
-        trunk form the variant or precision cannot run (``ValueError``) or
-        has no instance for on the card (``NotImplementedError``)."""
+        trunk form the variant or precision cannot run (``ValueError``)."""
         dtype, op_dtype = _resolve_precision(self.config.storage, self.device)
         variant = _resolve_variant(self.config.variant, self.device.platform, dtype)
         if variant == "cuda" and dtype == torch.float16:
             raise NotImplementedError(
-                "the fused RDB kernel has no float16 instance (ROADMAP queue 2); "
-                "pass variant='dense' to run float16 on plain convs"
+                "the fused RDB kernel has no float16 instance (the JAX package runs "
+                "float16 on its conv path too); pass variant='dense' to run float16 on plain convs"
             )
         trunk, sched = _resolve_trunk(self.config, variant, dtype, op_dtype)
         tail = self.config.tail
@@ -238,16 +237,6 @@ class RealSR:
             variant=variant, tail=tail, trunk=trunk, sched=sched,
         )
         self.tail, self.trunk, self.sched = self.bundle.tail, trunk, sched
-        if (
-            self.device.platform == "gpu"
-            and (trunk, sched) != ("per_rdb", "scatter")
-            and op_dtype != torch.bfloat16
-        ):
-            raise NotImplementedError(
-                f"trunk={trunk!r}, sched={sched!r} run on kernels with bfloat16 operands "
-                f"only, not {op_dtype} (ROADMAP queue 2: float32 instances of K3, K4 and K5 "
-                "on K1's tf32 path)"
-            )
         self.scale = self.bundle.scale
         self._params = _to_device(self.bundle.params, self.device.torch_device)
         return 0

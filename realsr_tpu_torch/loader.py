@@ -30,7 +30,8 @@ KERNEL_TAILS = ("kernel_hr", "kernel")
 
 def kernel_tail_error(spec: RRDBNetSpec, op_dtype) -> Optional[Exception]:
     """Why the tail kernel has no instance for ``spec`` and ``op_dtype``,
-    or None: it takes nf = 64, 3 outputs, two upsamplers, bf16 operands."""
+    or None: it takes nf = 64, 3 outputs, two upsamplers, bfloat16 or
+    float32 operands."""
     from realsr_tpu_torch.ops.tail_kernel import NF, OUTC
 
     if (spec.nf, spec.out_ch, spec.num_upsample) != (NF, OUTC, 2):
@@ -39,10 +40,9 @@ def kernel_tail_error(spec: RRDBNetSpec, op_dtype) -> Optional[Exception]:
             f"the graph has nf={spec.nf}, out_ch={spec.out_ch}, "
             f"{spec.num_upsample} upsamplers"
         )
-    if op_dtype != torch.bfloat16:
+    if op_dtype not in (torch.bfloat16, torch.float32):
         return NotImplementedError(
-            f"the tail kernel has bfloat16 operands only, not {op_dtype} "
-            "(ROADMAP queue 2: float32 instances of the tail and RDB kernels)"
+            f"the tail kernel has bfloat16 and float32 instances, none for {op_dtype}"
         )
     return None
 

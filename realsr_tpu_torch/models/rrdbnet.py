@@ -411,7 +411,10 @@ def packed_tail(params, fea, spec, od, tail_dt, mode=0):
     conv_last on the fused kernel K7 (``ops.tail_kernel.hr_last_packed``);
     2: up2 + HRconv + conv_last on the fused kernel K6
     (``up2_hr_last_packed``) straight from up1's output. The kernel modes
-    read ``params["tail"]`` (``ops.tail_kernel.pack_tail_params``).
+    read ``params["tail"]`` (``ops.tail_kernel.pack_tail_params``) and hand
+    the kernel its input at the operand type ``od``: bfloat16 in mixed mode
+    (y1 and P2 are float32 there and cast once), float32 as it is in float32
+    mode, where the kernels' float32 instances take it.
     """
     dev, nf = fea.device, fea.shape[-1]
     up_w = torch.as_tensor(params["up"]["w"], device=dev)

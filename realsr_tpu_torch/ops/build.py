@@ -29,6 +29,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, spills and shared memory per kernel, into BUILD_LOG
 )
 
+# every kernel source of csrc/, each built into its own library (one nvcc
+# each, so a process can build them all at once): K1/K2 (bf16 and float32
+# operands), K3-K5 (bf16; K3 and K5 float32), K6/K7 (bf16 and float32)
+SOURCES = ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "rdb_modes_tf32", "tail_kernel", "tail_tf32")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()  # guards _NAME_LOCKS
 # one lock per library, so that two sources can build at once in two threads

@@ -1,5 +1,6 @@
 """Fused residual dense block: the Python side of ``csrc/rdb_wgmma.cu``,
-``csrc/rdb_tf32.cu`` and ``csrc/rdb_modes_wgmma.cu``.
+``csrc/rdb_tf32.cu``, ``csrc/rdb_modes_wgmma.cu`` and
+``csrc/rdb_modes_tf32.cu``.
 
 Counterpart of ``realsr_tpu/ops/rdb_kernel.py``. The five TPU kernels'
 counterparts (see the sources' headers), each with a wrapper here:
@@ -19,13 +20,17 @@ counterparts (see the sources' headers), each with a wrapper here:
   rectangles, on weights re-cut by ``pack_rdb_params(sched="packed")``, on
   ``rdb_modes_wgmma.cu`` (K1's wgmma machinery, its patch side from
   :func:`packed_geometry`); ``rdb_trunk(sched="packed")`` threads the
-  operand plane as for K1;
+  operand plane as for K1. float32 operands run on ``rdb_modes_tf32.cu``
+  (float32 K1's machinery, the rectangles' ``"wt"`` slices, its patch side
+  from :func:`packed_tf32_geometry`);
 - :func:`rdb_apply_chained` (K3, ``_rdb_kernel(chained=True)``): one RDB
   that reads and writes the zero-aproned layout of :func:`to_chained`,
   folding the residual where a device flag is 1, on ``rdb_modes_wgmma.cu``
   (K1's stages, its window read from a bfloat16 operand plane in the same
   layout, K1's patch side); :func:`rdb_trunk_chained` rotates three such
-  buffers and, in mixed mode, their three operand planes;
+  buffers and, in mixed mode, their three operand planes. float32 operands
+  run on ``rdb_modes_tf32.cu`` (float32 K1's stages and patch side, the
+  window read from the float32 layout itself);
 - :func:`rdb_apply_paired` (K4, ``_rdb_kernel(paired=True)``): one RDB on a
   state carried as bf16 ``hi + lo`` planes, on ``rdb_modes_wgmma.cu`` (K1's
   stages, its window read from ``hi``, K1's patch side);
@@ -33,10 +38,10 @@ counterparts (see the sources' headers), each with a wrapper here:
 
 Tensors are NHWC. The state dtype is ``x``'s dtype; the operand dtype is the
 packed weights' dtype (:func:`pack_rdb_params`). Every kernel runs on the
-tensor cores at nf, gc = 64, 32 or 32, 16. K1 has float32 state and
-operands, or bfloat16 operands with float32 (mixed) or bfloat16 state; K3
-and K5 exist for bfloat16 operands, K4 for mixed mode (float32 state as hi +
-lo, bfloat16 operands).
+tensor cores at nf, gc = 64, 32 or 32, 16. K1, K3 and K5 have float32 state
+and operands, or bfloat16 operands with float32 (mixed) or bfloat16 state;
+K4 is mixed mode only (float32 state as hi + lo, bfloat16 operands), as the
+JAX package's paired carry (:data:`_OPERANDS`).
 
 A tensor on the CPU takes the plain PyTorch version (``*_reference``); a
 CUDA tensor launches the kernel or raises.
@@ -71,6 +76,14 @@ _DTYPE_PAIRS = {
     (torch.float32, torch.bfloat16): (0, 1),
     (torch.bfloat16, torch.bfloat16): (1, 1),
 }
+# the operand types each wrapper's kernels have instances for: K4 is the
+# JAX package's paired carry, mixed mode only, so it has no float32 form
+_OPERANDS = {
+    "rdb_apply": (torch.bfloat16, torch.float32),
+    "rdb_apply_packed": (torch.bfloat16, torch.float32),
+    "rdb_apply_chained": (torch.bfloat16, torch.float32),
+    "rdb_apply_paired": (torch.bfloat16,),
+}
 # (nf, gc) the tensor-core kernels are instantiated for
 _TC_SHAPES = ((64, 32), (32, 16))
 # patch sides the wgmma RDB kernel is instantiated for (rdb_wgmma.cu::launch_tile;
@@ -83,8 +96,10 @@ TF32_TILES = (10, 9, 8)
 # one block may use on the card
 TF32_SLOT_MAX, SMEM_BLOCK = 12288, 232_448
 # K5's patch sides (rdb_modes_wgmma.cu::packed_tile): its f32 partial sums
-# cap the side at 12 (packed_smem_bytes)
+# cap the side at 12 (packed_smem_bytes); with float32 planes at 8
+# (rdb_modes_tf32.cu::packed_tile, packed_tf32_smem_bytes)
 PACKED_TILES = (12, 8)
+PACKED_TF32_TILES = (8, 7)
 # K5's shared memory (rdb_modes_wgmma.cu::PackedLayout): floats of padding
 # per pixel row of the partial sums, and k16 slices of rectangle C per ring slot
 PACKED_PAD_F, PACKED_SLICES = 4, 3
@@ -207,29 +222,35 @@ def tf32_split(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return hi, rna(np.asarray(v, np.float32) - hi)
 
 
-def _tf32_slices(w: np.ndarray, nf: int, gc: int) -> np.ndarray:
+def _rect_sizes(nf: int, gc: int, sched: str):
+    """(weights, N) of each GEMM rectangle of ``sched`` (:func:`_rects`)."""
+    out = []
+    for sources, convs in _rects(sched):
+        n = sum(gc if i < 5 else nf for i in convs)
+        out.append((9 * sum(nf if j == 0 else gc for j in sources) * n, n))
+    return out
+
+
+def _tf32_slices(w: np.ndarray, nf: int, gc: int, sched: str = "scatter") -> np.ndarray:
     """Dense float32 weights ``[..., K]`` (the scatter schedule) -> the
-    3xTF32 kernel's ``"wt"`` ``[..., 2K]``: K1's k8 steps in 'tf32' order
-    (:func:`_perm`), each as its tf32 hi slice followed by its lo slice
+    3xTF32 kernels' ``"wt"`` ``[..., 2K]``: the k8 steps of ``sched``'s
+    rectangles in 'tf32' order (:func:`_perm`; 'scatter' K1's and K3's,
+    'packed' K5's), each as its tf32 hi slice followed by its lo slice
     (:func:`tf32_split`)."""
-    hi, lo = tf32_split(w[..., _perm(nf, gc, "scatter", True, "tf32")])
+    hi, lo = tf32_split(w[..., _perm(nf, gc, sched, True, "tf32")])
     lead, parts, o = w.shape[:-1], [], 0
-    for i in range(1, 6):
-        n = gc if i < 5 else nf
-        size = 9 * (nf + (i - 1) * gc) * n
+    for size, n in _rect_sizes(nf, gc, sched):
         pair = np.stack([t[..., o : o + size].reshape(*lead, -1, 8 * n) for t in (hi, lo)], -2)
         parts.append(pair.reshape(*lead, 2 * size))
         o += size
     return np.ascontiguousarray(np.concatenate(parts, -1))
 
 
-def _tf32_unslice(wt: torch.Tensor, nf: int, gc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _tf32_unslice(wt: torch.Tensor, nf: int, gc: int, sched: str = "scatter") -> Tuple[torch.Tensor, torch.Tensor]:
     """Inverse of :func:`_tf32_slices`' interleave for one RDB: (hi, lo) in
     'tf32' order."""
     his, los, o = [], [], 0
-    for i in range(1, 6):
-        n = gc if i < 5 else nf
-        size = 9 * (nf + (i - 1) * gc) * n
+    for size, n in _rect_sizes(nf, gc, sched):
         pair = wt[2 * o : 2 * (o + size)].reshape(-1, 2, 8 * n)
         his.append(pair[:, 0].reshape(-1))
         los.append(pair[:, 1].reshape(-1))
@@ -262,9 +283,10 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
     the K-packed schedule's rectangles, for :func:`rdb_apply_packed`. The
     kernels read copies in their own order (:func:`_perm`): bfloat16
     operands get ``"wg"`` (:func:`_frag`; the wgmma order, read by K1, K3,
-    K4 and, with ``sched="packed"``, K5), float32 operands in the 'scatter'
-    schedule ``"wt"`` (float32, twice ``w``'s length: each k8 step's tf32 hi
-    and lo slices, :func:`_tf32_slices`, read by K1's float32 instances).
+    K4 and, with ``sched="packed"``, K5), float32 operands ``"wt"``
+    (float32, twice ``w``'s length: each k8 step's tf32 hi and lo slices,
+    :func:`_tf32_slices`, read by the float32 instances of K1 and K3 and,
+    with ``sched="packed"``, K5).
     """
     _rects(sched)
     ws, bs = [], []
@@ -278,8 +300,8 @@ def pack_rdb_params(rdb: Dict[str, np.ndarray], op_dtype=torch.float32, sched: s
     if _frag(op_dtype, nf, gc):
         wg = w[..., _perm(nf, gc, sched, True, "wgmma")]
         out["wg"] = torch.from_numpy(np.ascontiguousarray(wg)).to(op_dtype)
-    if op_dtype == torch.float32 and sched == "scatter" and nf % 8 == 0 and gc % 8 == 0:
-        out["wt"] = torch.from_numpy(_tf32_slices(w, nf, gc))
+    if op_dtype == torch.float32 and nf % 8 == 0 and gc % 8 == 0:
+        out["wt"] = torch.from_numpy(_tf32_slices(w, nf, gc, sched))
     if sched != "scatter":
         w = w[..., _perm(nf, gc, sched, False)]
     out["w"] = torch.from_numpy(np.ascontiguousarray(w)).to(op_dtype)
@@ -296,9 +318,9 @@ def unpack_rdb_params(
     w, b = p[key], p["b"]
     gc = (b.shape[-1] - nf) // 4
     if key == "wt":
-        hi, lo = _tf32_unslice(w, nf, gc)
+        hi, lo = _tf32_unslice(w, nf, gc, sched)
         w = torch.empty_like(hi)
-        w[_perm_on(nf, gc, "scatter", True, "tf32", hi.device)] = hi + lo
+        w[_perm_on(nf, gc, sched, True, "tf32", hi.device)] = hi + lo
     elif key == "wg" or sched != "scatter":
         dense = torch.empty_like(w)
         dense[_perm_on(nf, gc, sched, key == "wg", "wgmma", w.device)] = w
@@ -479,17 +501,34 @@ def packed_block_macs(tile: int, nf: int, gc: int) -> int:
     return total
 
 
-def packed_smem_bytes(tile: int, nf: int, gc: int) -> int:
-    """Shared memory of one K5 block (rdb_modes_wgmma.cu::PackedLayout):
-    K1's bf16 planes (the window, c1..c4), the f32 partial sums (a2 on c2's
-    region; a4 and a5 on c4's and the output's, in the same bytes), two ring
-    slots of :data:`PACKED_SLICES` k16 slices of rectangle C, five barriers
-    and the base's alignment to 1024 bytes."""
+def _partial_bytes(tile: int, nf: int, gc: int) -> int:
+    """K5's f32 partial sums (rdb_modes.cuh::PackedLayout): a2 on c2's
+    region; a4 and a5 on c4's and the output's, in the same bytes."""
     side = [tile + 2 * HALO - 2 * j for j in range(6)]
-    planes = 2 * nf * side[0] ** 2 + sum(2 * gc * s * s for s in side[1:5])
     a2 = 4 * side[2] ** 2 * (gc + PACKED_PAD_F)
     a45 = 4 * (side[4] ** 2 * (gc + PACKED_PAD_F) + side[5] ** 2 * (nf + PACKED_PAD_F))
-    return planes + max(a2, a45) + 2 * PACKED_SLICES * (2 * gc + nf) * 32 + 8 * 5 + 1024
+    return max(a2, a45)
+
+
+def packed_smem_bytes(tile: int, nf: int, gc: int) -> int:
+    """Shared memory of one K5 block (rdb_modes.cuh::PackedLayout): K1's
+    bf16 planes (the window, c1..c4), the f32 partial sums, two ring slots
+    of :data:`PACKED_SLICES` k16 slices of rectangle C, five barriers and
+    the base's alignment to 1024 bytes."""
+    side = [tile + 2 * HALO - 2 * j for j in range(6)]
+    planes = 2 * nf * side[0] ** 2 + sum(2 * gc * s * s for s in side[1:5])
+    return planes + _partial_bytes(tile, nf, gc) + 2 * PACKED_SLICES * (2 * gc + nf) * 32 + 8 * 5 + 1024
+
+
+def packed_tf32_smem_bytes(tile: int, nf: int, gc: int) -> int:
+    """Shared memory of one float32 K5 block (PackedLayout on LayoutF32):
+    float32 K1's planes (:func:`_tf32_planes`), the f32 partial sums, two
+    ring slots of what the rest leaves in 2 KB units, at most
+    :data:`TF32_SLOT_MAX` (and at least one k8 step of rectangle C, its hi
+    and lo slices), five barriers and the base's alignment to 1,024 bytes."""
+    fixed = _tf32_planes(tile, nf, gc) + _partial_bytes(tile, nf, gc)
+    slot = max(2 * (2 * gc + nf) * 32, min(TF32_SLOT_MAX, (SMEM_BLOCK - 1024 - 40 - fixed) // 2 // 2048 * 2048))
+    return fixed + 2 * slot + 40 + 1024
 
 
 def rdb_macs_per_pixel(nf: int, gc: int) -> int:
@@ -518,6 +557,15 @@ def _geometry(tiles, macs, B: int, H: int, W: int, nf: int, gc: int, sms: int,
     )
 
 
+def _tf32_planes(tile: int, nf: int, gc: int) -> int:
+    """Bytes of LayoutF32's planes: the float32 window (for nf > 32,
+    32-channel sub-planes each padded to 1,024 bytes) and c1..c4."""
+    side = [tile + 2 * HALO - 2 * j for j in range(6)]
+    p0 = side[0] ** 2
+    window = 4 * nf * p0 if nf <= 32 else nf // 32 * (-(-p0 * 128 // 1024) * 1024)
+    return window + sum(4 * gc * s * s for s in side[1:5])
+
+
 def tf32_smem_bytes(tile: int, nf: int, gc: int) -> int:
     """Shared memory of one block of K1's float32 kernel
     (rdb_wgmma.cuh::LayoutF32): the float32 window (for nf > 32, 32-channel
@@ -525,10 +573,7 @@ def tf32_smem_bytes(tile: int, nf: int, gc: int) -> int:
     large as the rest allows in whole k8 steps of c5 (its hi and lo slices,
     2 x nf x 32 bytes), at least one and at most :data:`TF32_SLOT_MAX`
     bytes, five barriers and the base's alignment to 1,024 bytes."""
-    side = [tile + 2 * HALO - 2 * j for j in range(6)]
-    p0 = side[0] ** 2
-    window = 4 * nf * p0 if nf <= 32 else nf // 32 * (-(-p0 * 128 // 1024) * 1024)
-    planes = window + sum(4 * gc * s * s for s in side[1:5])
+    planes = _tf32_planes(tile, nf, gc)
     step5 = 2 * nf * 32
     slot = max(step5, min(TF32_SLOT_MAX, (SMEM_BLOCK - 1024 - 40 - planes) // 2 // step5 * step5))
     return planes + 2 * slot + 40 + 1024
@@ -554,6 +599,15 @@ def packed_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int
     :func:`packed_block_macs`). At 8 x 148^2 on 132 SMs: T = 12, 1,352
     blocks in 10.24 waves, 2.203x the RDB's MACs issued."""
     return _geometry(PACKED_TILES, packed_block_macs, B, H, W, nf, gc, sms)
+
+
+def packed_tf32_geometry(B: int, H: int, W: int, nf: int = 64, gc: int = 32, sms: int = 132) -> RdbGeometry:
+    """K5's float32 patch side of :data:`PACKED_TF32_TILES`, the sides whose
+    float32 planes and partial sums fit (:func:`packed_tf32_smem_bytes`;
+    :func:`_geometry` with :data:`TF32_BLOCK_OVERHEAD_MACS`). At 8 x 148^2
+    on 132 SMs: T = 8, 2,888 blocks in 21.88 waves, 3.083x the RDB's MACs
+    issued (float32 K1: 1.998x)."""
+    return _geometry(PACKED_TF32_TILES, packed_block_macs, B, H, W, nf, gc, sms, TF32_BLOCK_OVERHEAD_MACS)
 
 
 @functools.lru_cache(maxsize=8)
@@ -589,11 +643,19 @@ def _tf32_library():
 
 
 def _modes_library():
-    """rdb_modes_wgmma.cu: K3, K4 and K5."""
+    """rdb_modes_wgmma.cu: K3, K4 and K5 for bfloat16 operands."""
     from realsr_tpu_torch.ops.build import load_library
 
     return _bind(load_library("rdb_modes_wgmma"), {
         "rdb_chained_launch": (8, 9), "rdb_paired_launch": (8, 6), "rdb_packed_launch": (7, 7)})
+
+
+def _modes_tf32_library():
+    """rdb_modes_tf32.cu: K3 and K5 for float32 operands."""
+    from realsr_tpu_torch.ops.build import load_library
+
+    return _bind(load_library("rdb_modes_tf32"), {
+        "rdb_chained_tf32_launch": (6, 8), "rdb_packed_tf32_launch": (5, 6)})
 
 
 def _check(name, t, device, dtype, numel=None, shape=None):
@@ -609,24 +671,22 @@ def _check(name, t, device, dtype, numel=None, shape=None):
         raise ValueError(f"rdb_apply: {name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def _cuda_operands(fn: str, x, w, b, bf16_only: bool):
+def _cuda_operands(fn: str, x, w, b):
     """Checks shared by the wrappers on a CUDA ``x`` ``[B, rows, cols, nf]``:
-    (nf, gc, (state_bf16, op_bf16)). ``bf16_only``: the kernel has no
-    float32 instance (K3, K4, K5)."""
+    (nf, gc, (state_bf16, op_bf16)). The operand type must be one that
+    ``fn``'s kernels have instances for (:data:`_OPERANDS`)."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"{fn}: x must be [B, H, W, nf], got {tuple(x.shape)}")
     nf = x.shape[-1]
     gc = (b.numel() - nf) // 4
+    if w.dtype not in _OPERANDS[fn]:
+        what = " (the paired carry runs in mixed mode only)" if fn == "rdb_apply_paired" else ""
+        raise ValueError(f"{fn}: no kernel for {w.dtype} operands{what}")
     pair = _DTYPE_PAIRS.get((x.dtype, w.dtype))
     if pair is None:
         raise ValueError(f"{fn}: no kernel for state {x.dtype} / operands {w.dtype}")
-    if bf16_only and w.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{fn}: the kernel has bfloat16 operands only, not {w.dtype} "
-            "(ROADMAP queue 2: float32 instances of K3, K4 and K5 on the tf32 path)"
-        )
     if nf % 8 or gc <= 0 or gc % 8 or b.numel() != nf + 4 * gc:
         raise ValueError(f"{fn}: nf={nf}, gc={gc} must be positive multiples of 8")
     if (nf, gc) not in _TC_SHAPES:
@@ -663,29 +723,44 @@ def rdb_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[torch.Ten
     return _rdb_tf32(x, p, u)
 
 
-def _rdb_tf32(x, p, u, tile: Optional[int] = None):
-    """K1 on the card with float32 state and operands (3xTF32 wgmma, the
-    window read from ``x`` itself): the new state. ``tile``: a patch side of
-    :data:`TF32_TILES` in place of :func:`tf32_geometry`'s choice."""
+def _rdb_tf32(x, p, u, tile: Optional[int] = None, packed: bool = False):
+    """K1 (or K5 when ``packed``) on the card with float32 state and
+    operands (3xTF32 wgmma, the window read from ``x`` itself): the new
+    state. ``tile``: a patch side of :data:`TF32_TILES` (K5:
+    :data:`PACKED_TF32_TILES`) in place of :func:`tf32_geometry`'s
+    (:func:`packed_tf32_geometry`'s) choice."""
+    fn = "rdb_apply_packed" if packed else "rdb_apply"
     w, b = p["w"], p["b"]
-    nf, gc, _ = _cuda_operands("rdb_apply", x, w, b, bf16_only=False)
-    if "wt" not in p:
-        raise ValueError("rdb_apply: p has no 'wt' weights (pack_rdb_params with float32 operands)")
-    wt = p["wt"]
-    _check("wt", wt, x.device, torch.float32, numel=2 * w.numel())
+    nf, gc, _ = _cuda_operands(fn, x, w, b)
+    wt = _tf32_weights(fn, p, x, w.numel())
     if u is not None:
         _check("u", u, x.device, x.dtype, shape=x.shape)
     B, H, W, _ = x.shape
-    tile = _patch_side("rdb_apply", tile, TF32_TILES, tf32_geometry, x, B, H, W, nf, gc)
+    if packed:
+        tile = _patch_side(fn, tile, PACKED_TF32_TILES, packed_tf32_geometry, x, B, H, W, nf, gc)
+        lib = _modes_tf32_library()
+        launch = lib.rdb_packed_tf32_launch
+    else:
+        tile = _patch_side(fn, tile, TF32_TILES, tf32_geometry, x, B, H, W, nf, gc)
+        lib = _tf32_library()
+        launch = lib.rdb_tf32_launch
     out = torch.empty_like(x)
-    lib = _tf32_library()
     with torch.cuda.device(x.device):
-        err = lib.rdb_tf32_launch(
+        err = launch(
             x.data_ptr(), wt.data_ptr(), b.data_ptr(), None if u is None else u.data_ptr(),
             out.data_ptr(), B, H, W, nf, gc, tile, _stream(x),
         )
-    _launched("rdb_apply", lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, T={tile}, {x.dtype}")
+    _launched(fn, lib, err, f"B={B}, H={H}, W={W}, nf={nf}, gc={gc}, T={tile}, {x.dtype}")
     return out
+
+
+def _tf32_weights(fn: str, p, x, numel: int) -> torch.Tensor:
+    """``p["wt"]``, checked: the float32 kernels' copy of the weights (tf32
+    hi and lo slices, twice ``numel``)."""
+    if "wt" not in p:
+        raise ValueError(f"{fn}: p has no 'wt' weights (pack_rdb_params with float32 operands)")
+    _check("wt", p["wt"], x.device, torch.float32, numel=2 * numel)
+    return p["wt"]
 
 
 def _operand_plane(x: torch.Tensor, op_dtype) -> Optional[torch.Tensor]:
@@ -724,7 +799,7 @@ def _rdb_wgmma(x, xs, p, u, shadow: bool, tile: Optional[int] = None, packed: bo
     of :func:`rdb_geometry`'s (:func:`packed_geometry`'s) choice."""
     fn = "rdb_apply_packed" if packed else "rdb_apply"
     w, b = p["w"], p["b"]
-    nf, gc, pair = _cuda_operands(fn, x, w, b, bf16_only=True)
+    nf, gc, pair = _cuda_operands(fn, x, w, b)
     wg = _wg_weights(fn, p, x, w.numel())
     _check("xs", xs, x.device, torch.bfloat16, shape=x.shape)
     if u is not None:
@@ -756,7 +831,9 @@ def rdb_apply_packed(x: torch.Tensor, p: Dict[str, torch.Tensor], u: Optional[to
     w = p["w"]
     if x.device.type == "cpu":
         return rdb_packed_reference(x, p, x.dtype, w.dtype, u)
-    return _rdb_wgmma(x, _operand_plane(x, w.dtype), p, u, shadow=False, packed=True)[0]
+    if w.dtype == torch.bfloat16:
+        return _rdb_wgmma(x, _operand_plane(x, w.dtype), p, u, shadow=False, packed=True)[0]
+    return _rdb_tf32(x, p, u, packed=True)
 
 
 def rdb_apply_chained(
@@ -773,24 +850,29 @@ def rdb_apply_chained(
     window from (``x`` itself in bfloat16 mode; cast from ``x`` when None);
     ``shadow``: a bfloat16 layout whose image gets bf16(out), the next
     step's ``xs`` (its aprons must be zero), or None; ``tile``: a patch side
-    of :data:`WGMMA_TILES` in place of :func:`rdb_geometry`'s choice.
+    of :data:`WGMMA_TILES` in place of :func:`rdb_geometry`'s choice. With
+    float32 operands the window is read from ``x`` itself (``xs`` and
+    ``shadow`` stay None) and ``tile`` is one of :data:`TF32_TILES`
+    (:func:`tf32_geometry`, float32 K1's, to which it is bit-equal).
     Returns ``out``."""
     w, b = p["w"], p["b"]
     if x.device.type == "cpu":
         return rdb_chained_reference(x, p, u, flag, H, W, out, x.dtype, w.dtype, shadow)
     fn = "rdb_apply_chained"
-    nf, gc, pair = _cuda_operands(fn, x, w, b, bf16_only=True)
-    wg = _wg_weights(fn, p, x, w.numel())
+    nf, gc, pair = _cuda_operands(fn, x, w, b)
     B, rows, cols, _ = x.shape
     if rows < H + 2 * CHAIN_APRON or cols < W + 2 * CHAIN_APRON:
         raise ValueError(f"{fn}: layout {tuple(x.shape)} too small for {H} x {W}")
+    if flag.device != x.device or flag.dtype != torch.int32 or flag.numel() < 1:
+        raise ValueError(f"{fn}: flag must be an int32 tensor on {x.device}")
+    if w.dtype == torch.float32:
+        return _chained_tf32(x, p, u, flag, H, W, out, xs, shadow, tile, nf, gc)
+    wg = _wg_weights(fn, p, x, w.numel())
     xs = _operand_plane(x, w.dtype) if xs is None else xs
     for name, t, dtype in (("u", u, x.dtype), ("out", out, x.dtype), ("xs", xs, torch.bfloat16)) + (
         () if shadow is None else (("shadow", shadow, torch.bfloat16),)
     ):
         _check(name, t, x.device, dtype, shape=x.shape)
-    if flag.device != x.device or flag.dtype != torch.int32 or flag.numel() < 1:
-        raise ValueError(f"{fn}: flag must be an int32 tensor on {x.device}")
     if out.data_ptr() in (x.data_ptr(), xs.data_ptr()) or (shadow is not None and shadow.data_ptr() == xs.data_ptr()):
         raise ValueError(f"{fn}: out and shadow must not be x or xs (other blocks read its halo)")
     tile = _patch_side(fn, tile, WGMMA_TILES, rdb_geometry, x, B, H, W, nf, gc)
@@ -800,6 +882,30 @@ def rdb_apply_chained(
             xs.data_ptr(), x.data_ptr(), wg.data_ptr(), b.data_ptr(), u.data_ptr(), flag.data_ptr(),
             out.data_ptr(), None if shadow is None else shadow.data_ptr(),
             B, H, W, rows, cols, nf, gc, pair[0], tile, _stream(x),
+        )
+    _launched(fn, lib, err, f"B={B}, {H}x{W} in {rows}x{cols}, nf={nf}, T={tile}, {x.dtype}")
+    return out
+
+
+def _chained_tf32(x, p, u, flag, H, W, out, xs, shadow, tile, nf, gc):
+    """K3 with float32 state and operands (rdb_apply_chained's checks done):
+    the window is read from ``x``, so there is no operand plane and no
+    shadow."""
+    fn = "rdb_apply_chained"
+    if xs is not None or shadow is not None:
+        raise ValueError(f"{fn}: float32 operands read their window from x; xs and shadow must be None")
+    wt = _tf32_weights(fn, p, x, p["w"].numel())
+    for name, t in (("u", u), ("out", out)):
+        _check(name, t, x.device, x.dtype, shape=x.shape)
+    if out.data_ptr() == x.data_ptr():
+        raise ValueError(f"{fn}: out must not be x (other blocks read its halo)")
+    B, rows, cols, _ = x.shape
+    tile = _patch_side(fn, tile, TF32_TILES, tf32_geometry, x, B, H, W, nf, gc)
+    lib = _modes_tf32_library()
+    with torch.cuda.device(x.device):
+        err = lib.rdb_chained_tf32_launch(
+            x.data_ptr(), wt.data_ptr(), p["b"].data_ptr(), u.data_ptr(), flag.data_ptr(), out.data_ptr(),
+            B, H, W, rows, cols, nf, gc, tile, _stream(x),
         )
     _launched(fn, lib, err, f"B={B}, {H}x{W} in {rows}x{cols}, nf={nf}, T={tile}, {x.dtype}")
     return out
@@ -819,7 +925,7 @@ def rdb_apply_paired(
         return rdb_paired_reference(hi, lo, p, u)
     if hi.dtype != torch.bfloat16:
         raise ValueError(f"rdb_apply_paired: hi is {hi.dtype}, expected bfloat16")
-    nf, gc, _ = _cuda_operands("rdb_apply_paired", hi, w, b, bf16_only=True)
+    nf, gc, _ = _cuda_operands("rdb_apply_paired", hi, w, b)
     wg = _wg_weights("rdb_apply_paired", p, hi, w.numel())
     for name, t in (("lo", lo),) + (() if u is None else (("u_hi", u[0]), ("u_lo", u[1]))):
         _check(name, t, hi.device, torch.bfloat16, shape=hi.shape)
@@ -890,8 +996,9 @@ def rdb_trunk_chained(x: torch.Tensor, stacked: Dict[str, torch.Tensor]) -> torc
     The flags are one int32 device tensor. In mixed mode on the card three
     bfloat16 operand planes (zero aprons) rotate with the buffers: each
     step reads its window from buffer ``k % 3``'s and writes bf16 of its
-    output into buffer ``(k + 1) % 3``'s, so the trunk casts once. Returns
-    the image of buffer 0, as ``[B, H, W, nf]``."""
+    output into buffer ``(k + 1) % 3``'s, so the trunk casts once; float32
+    operands read the float32 buffers themselves. Returns the image of
+    buffer 0, as ``[B, H, W, nf]``."""
     B, H, W, _ = x.shape
     n = stacked["w"].shape[0]
     if n % 3:
@@ -899,7 +1006,7 @@ def rdb_trunk_chained(x: torch.Tensor, stacked: Dict[str, torch.Tensor]) -> torc
     bufs = [to_chained(x)]
     bufs += [torch.zeros_like(bufs[0]) for _ in range(2)]
     planes = [None] * 3
-    if x.device.type == "cuda" and x.dtype != torch.bfloat16:
+    if x.device.type == "cuda" and x.dtype != torch.bfloat16 and stacked["w"].dtype == torch.bfloat16:
         planes = [bufs[0].to(torch.bfloat16)]
         planes += [torch.zeros_like(planes[0]) for _ in range(2)]
     flags = _chain_flags(n, x.device)

@@ -1,18 +1,22 @@
-"""Fused packed-phase tail: the Python side of ``csrc/tail_kernel.cu``.
+"""Fused packed-phase tail: the Python side of ``csrc/tail_kernel.cu``
+(bfloat16 operands) and ``csrc/tail_tf32.cu`` (float32 operands), both on
+``csrc/tail_wgmma.cuh``.
 
-Counterpart of ``realsr_tpu/ops/tail_kernel.py``. One CUDA source stands in
-for both forms of ``_tail_kernel``: :func:`up2_hr_last_packed` (K6: up2 +
+Counterpart of ``realsr_tpu/ops/tail_kernel.py``. One kernel stands in for
+both forms of ``_tail_kernel``: :func:`up2_hr_last_packed` (K6: up2 +
 HRconv + conv_last from the four 2x phases that up1 writes) and
 :func:`hr_last_packed` (K7: HRconv + conv_last from the sixteen 4x phases).
 Both return the 4x image ``[B, 4H, 4W, 3]`` in float32, interleaved.
 
-The kernel is fixed at the graph's tail shape, nf = 64 and 3 outputs, and
-has bfloat16 operands only (ROADMAP queue 2 holds float32 instances). Its
-weights are packed once at load (:func:`pack_tail_params`): the JAX
+The kernel is fixed at the graph's tail shape, nf = 64 and 3 outputs. Its
+operand type is the input's: bfloat16, or float32 with the split 3xTF32
+product of the JAX kernel's ``Precision.HIGHEST`` (no float16 instance).
+Its weights are packed once at load (:func:`pack_tail_params`): the JAX
 package's matrices (:func:`pack_tail_weights`, :func:`up2_weights`) as
-wgmma's k16 slices, conv_last in the JAX kernel's W9-packed form. The
-kernel walks patches of the 4x output whose shape :func:`tail_geometry`
-picks per call.
+wgmma's k16 slices and, for float32, as tf32 hi/lo k8 slices, conv_last in
+the JAX kernel's W9-packed form. The kernel walks patches of the 4x output
+whose shape :func:`tail_geometry` (bfloat16) or :func:`tail_tf32_geometry`
+(float32) picks per call.
 
 A tensor on the CPU takes the plain PyTorch version (the packed tail's
 matmul stages, :func:`up2_hr_last_reference`, :func:`hr_last_reference`);
@@ -38,7 +42,7 @@ from realsr_tpu_torch.models.rrdbnet import (
     up2_matrices,
     up2_phases,
 )
-from realsr_tpu_torch.ops.rdb_kernel import _sm_count, _step_order
+from realsr_tpu_torch.ops.rdb_kernel import _sm_count, _step_order, tf32_split
 
 NF = 64  # the tail's channels (x4.param: HRconv 64 -> 64, conv_last 64 -> 3)
 OUTC = 3
@@ -47,6 +51,9 @@ W9N = 32  # the kernel's W9-packed conv_last columns: 9 taps x 3 outputs, padded
 NPH = 16  # 4x4 output phases
 # (TH, TW) 4x patch shapes the kernel is built for (tail_kernel.cu::launch_tile)
 TAIL_TILES = ((16, 16), (12, 28))
+# the float32 instances' (tail_tf32.cu::launch_tile): float32 planes take
+# twice the bytes (tail_tf32_smem_bytes)
+TAIL_TF32_TILES = ((10, 14), (8, 16))
 SMEM_LIMIT = 232_448  # shared memory of one block on the H100
 
 # kernel launches per wrapper since the last reset (set the values to 0)
@@ -97,6 +104,18 @@ def _wg_unpack(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return dense.reshape(k, n)
 
 
+def _tf32_pack(dense: np.ndarray) -> np.ndarray:
+    """A dense float32 ``[K, N]`` matrix (K a multiple of 8) -> its ``K / 8``
+    k8 steps in the float32 kernel's order, back to back: each step's tf32 hi
+    slice, then its lo slice (:func:`~realsr_tpu_torch.ops.rdb_kernel.
+    tf32_split`: both rounded to nearest), each slice in the k8 layout of
+    ``rdb_kernel._step_order("tf32")`` (the bytes of a bf16 k16 slice)."""
+    k, n = dense.shape
+    cols, rows = _step_order("tf32", n)
+    hi, lo = tf32_split(np.ascontiguousarray(dense, np.float32))
+    return np.stack([t.reshape(k // 8, 8, n)[:, rows, cols] for t in (hi, lo)], 1).ravel()
+
+
 def _w9_columns(w9: np.ndarray) -> np.ndarray:
     """The JAX package's conv_last ``w9`` ``[9 * TC, 64]`` -> the W9-packed
     product's ``[64, W9N]``: column ``tap * 3 + o`` holds output ``o``'s
@@ -113,21 +132,22 @@ def pack_tail_params(params: Dict[str, np.ndarray], op_dtype=torch.bfloat16):
     HRconv ``[576, 64]``; ``w9`` conv_last in W9-packed form ``[64, 32]``
     (:func:`_w9_columns`). Float32 biases ``b2`` ``[64]``, ``b1`` ``[64]``
     and ``b3`` ``[8]``. The tap sums are taken in float32, then rounded, as
-    the JAX package does."""
+    the JAX package does. For float32 operands also ``w2t``, ``w1t`` and
+    ``w9t``: the same matrices as the float32 kernel's tf32 hi/lo k8 slices
+    (:func:`_tf32_pack`, twice the values), in the same order."""
     w2, b2 = up2_weights(params["up"]["w"][1], params["up"]["b"][1])
     w1, b1, w9, b3 = pack_tail_weights(
         params["hr"]["w"], params["hr"]["b"], params["last"]["w"], params["last"]["b"]
     )
     passes = [np.concatenate([w2[2 * c].T, w2[2 * c + 1].T], 1) for c in (0, 1)]
+    dense = {"w2": passes, "w1": [np.ascontiguousarray(w1.T)], "w9": [_w9_columns(w9)]}
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(op_dtype)  # noqa: E731
-    return {
-        "w2": t(np.concatenate([_wg_pack(w) for w in passes])),
-        "b2": torch.from_numpy(b2.ravel().copy()),
-        "w1": t(_wg_pack(np.ascontiguousarray(w1.T))),
-        "b1": torch.from_numpy(b1.ravel().copy()),
-        "w9": t(_wg_pack(_w9_columns(w9))),
-        "b3": torch.from_numpy(b3.ravel().copy()),
-    }
+    out = {k: t(np.concatenate([_wg_pack(w) for w in ws])) for k, ws in dense.items()}
+    if op_dtype == torch.float32:
+        out.update({f"{k}t": t(np.concatenate([_tf32_pack(w) for w in ws])) for k, ws in dense.items()})
+    for k, b in (("b2", b2), ("b1", b1), ("b3", b3)):
+        out[k] = torch.from_numpy(b.ravel().copy())
+    return out
 
 
 def _dense(tp):
@@ -181,14 +201,22 @@ def _regions(th: int, tw: int) -> Dict[str, int]:
             "win": ((th + 4) // 2 + 2) * ((tw + 4) // 2 + 2)}
 
 
-def tail_smem_bytes(th: int, tw: int, with_up2: bool = True) -> int:
-    """Shared memory of one block (tail_kernel.cu::Layout), planes of
-    128-byte pixels: K6 the window, z, P2 and two 32 KB weight slots; K7 z,
-    two P2 buffers and two 16 KB slots; 8 bytes per barrier."""
+def tail_smem_bytes(th: int, tw: int, with_up2: bool = True, plane=lambda p: 128 * p) -> int:
+    """Shared memory of one block (tail_wgmma.cuh::Layout), ``plane(p)``
+    bytes for a plane of p pixels (bfloat16: 128-byte pixels): K6 the
+    window, z, P2 and two 32 KB weight slots; K7 z, two P2 buffers and two
+    16 KB slots; 8 bytes per barrier."""
     r = _regions(th, tw)
     if with_up2:
-        return 128 * (r["win"] + r["z"] + r["p2"]) + 2 * 32_768 + 8 * (2 * 2 + 2)
-    return 128 * (r["z"] + 2 * r["p2"]) + 2 * 16_384 + 8 * (2 * 2 + 2 * 2)
+        return plane(r["win"]) + plane(r["z"]) + plane(r["p2"]) + 2 * 32_768 + 8 * (2 * 2 + 2)
+    return plane(r["z"]) + 2 * plane(r["p2"]) + 2 * 16_384 + 8 * (2 * 2 + 2 * 2)
+
+
+def tail_tf32_smem_bytes(th: int, tw: int, with_up2: bool = True) -> int:
+    """:func:`tail_smem_bytes` of the float32 instances: each plane two
+    32-channel sub-planes of 128-byte pixels, each padded to 1,024 bytes
+    (hopper.cuh::sub_plane_bytes)."""
+    return tail_smem_bytes(th, tw, with_up2, lambda p: 2 * (-(-p * 128 // 1024) * 1024))
 
 
 def tail_block_macs(th: int, tw: int, with_up2: bool = True) -> int:
@@ -215,9 +243,21 @@ def tail_geometry(B: int, H: int, W: int, with_up2: bool = True, sms: int = 132)
     8 x 148^2 (chip_smoke.py phase 3b) fit time per round ~ MACs per patch
     with no fixed cost per patch. At 8 x 148^2 on 132 SMs: 12 x 28, 8,800
     patches."""
+    return _tail_geometry(TAIL_TILES, tail_smem_bytes, B, H, W, with_up2, sms)
+
+
+def tail_tf32_geometry(B: int, H: int, W: int, with_up2: bool = True, sms: int = 132) -> TailGeometry:
+    """:func:`tail_geometry`'s rule over the float32 instances' shapes
+    (:data:`TAIL_TF32_TILES`, :func:`tail_tf32_smem_bytes`). At 8 x 148^2
+    on 132 SMs: 10 x 14, 20,640 patches, 1.562x the tail's MACs issued (K7
+    1.425x; the bfloat16 instances' 12 x 28: 1.474x, 1.418x)."""
+    return _tail_geometry(TAIL_TF32_TILES, tail_tf32_smem_bytes, B, H, W, with_up2, sms)
+
+
+def _tail_geometry(tiles, smem, B: int, H: int, W: int, with_up2: bool, sms: int) -> TailGeometry:
     best = None
-    for th, tw in TAIL_TILES:
-        if tail_smem_bytes(th, tw, with_up2) > SMEM_LIMIT:
+    for th, tw in tiles:
+        if smem(th, tw, with_up2) > SMEM_LIMIT:
             continue
         py, px = -(-4 * H // th), -(-4 * W // tw)
         blocks = B * py * px
@@ -258,18 +298,28 @@ def hr_last_reference(p2: torch.Tensor, tp) -> torch.Tensor:
     return _hr_last_phases(P2, tp, w1, w9)
 
 
-def _library():
+def _bind(name: str, fn: str):
     from realsr_tpu_torch.ops.build import load_library
 
-    lib = load_library("tail_kernel")
+    lib = load_library(name)
     if not getattr(lib, "_realsr_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tail_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
-        lib.tail_launch.restype = ci
+        getattr(lib, fn).argtypes = [vp] * 8 + [ci] * 7 + [vp]
+        getattr(lib, fn).restype = ci
         lib.tail_error_string.argtypes = [ci]
         lib.tail_error_string.restype = ctypes.c_char_p
         lib._realsr_bound = True
     return lib
+
+
+def _library():
+    """tail_kernel.cu: K6/K7 for bfloat16 operands."""
+    return _bind("tail_kernel", "tail_launch")
+
+
+def _tf32_library():
+    """tail_tf32.cu: K6/K7 for float32 operands (3xTF32)."""
+    return _bind("tail_tf32", "tail_tf32_launch")
 
 
 def _check(fn, name, t, device, dtype, numel):
@@ -286,10 +336,13 @@ def _check(fn, name, t, device, dtype, numel):
 def _launch(fn, x, tp, with_up2, tile=None):
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
+    if x.dtype == torch.bfloat16:
+        wkey, scale, tiles, geometry, library = "", 1, TAIL_TILES, tail_geometry, _library
+    elif x.dtype == torch.float32:
+        wkey, scale, tiles, geometry, library = "t", 2, TAIL_TF32_TILES, tail_tf32_geometry, _tf32_library
+    else:
         raise NotImplementedError(
-            f"{fn}: the tail kernel has bfloat16 operands only, got {x.dtype} "
-            "(ROADMAP queue 2: float32 instances of the tail and RDB kernels)"
+            f"{fn}: the tail kernel has bfloat16 and float32 instances, not {x.dtype}"
         )
     cin = 4 * NF if with_up2 else NPH * NF
     if x.dim() != 4 or x.shape[-1] != cin:
@@ -297,22 +350,28 @@ def _launch(fn, x, tp, with_up2, tile=None):
     B, H, W = x.shape[0], x.shape[1] - with_up2, x.shape[2] - with_up2
     if H < 1 or W < 1:
         raise ValueError(f"{fn}: empty tile {tuple(x.shape)}")
-    _check(fn, "x", x, x.device, torch.bfloat16, x.numel())
+    _check(fn, "x", x, x.device, x.dtype, x.numel())
+    # the kernel's weights (float32: "w2t", ... twice the values) and biases
     sizes = {"w1": 9 * NF * NF, "b1": NF, "w9": NF * W9N, "b3": TC}
     if with_up2:
         sizes.update(w2=4 * 4 * NF * NF, b2=NF)
+    keys = {k: k if k[0] == "b" else k + wkey for k in sizes}
     for k, n in sizes.items():
-        _check(fn, k, tp[k], x.device, torch.float32 if k[0] == "b" else torch.bfloat16, n)
+        if keys[k] not in tp:
+            raise ValueError(f"{fn}: tp has no {keys[k]!r} (pack_tail_params at {x.dtype})")
+        _check(fn, keys[k], tp[keys[k]], x.device, torch.float32 if k[0] == "b" else x.dtype,
+               n if k[0] == "b" else scale * n)
     sms = _sm_count(x.device)
     if tile is None:
-        tile = tail_geometry(B, H, W, with_up2, sms).tile
-    elif tile not in TAIL_TILES:
-        raise ValueError(f"{fn}: no kernel for patch shape {tile}; built for {TAIL_TILES}")
+        tile = geometry(B, H, W, with_up2, sms).tile
+    elif tile not in tiles:
+        raise ValueError(f"{fn}: no {x.dtype} kernel for patch shape {tile}; built for {tiles}")
     out = torch.empty((B, 4 * H, 4 * W, OUTC), dtype=torch.float32, device=x.device)
-    lib = _library()
-    ptr = lambda k: tp[k].data_ptr() if k in sizes else None  # noqa: E731
+    lib = library()
+    launch = lib.tail_launch if x.dtype == torch.bfloat16 else lib.tail_tf32_launch
+    ptr = lambda k: tp[keys[k]].data_ptr() if k in sizes else None  # noqa: E731
     with torch.cuda.device(x.device):
-        err = lib.tail_launch(
+        err = launch(
             x.data_ptr(), ptr("w2"), ptr("b2"), ptr("w1"), ptr("b1"), ptr("w9"), ptr("b3"),
             out.data_ptr(), B, H, W, int(with_up2), *tile, sms,
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -320,7 +379,7 @@ def _launch(fn, x, tp, with_up2, tile=None):
     if err:
         raise RuntimeError(
             f"tail_kernel launch failed: {lib.tail_error_string(err).decode()} "
-            f"({fn}, B={B}, H={H}, W={W}, patch {tile[0]}x{tile[1]})"
+            f"({fn}, B={B}, H={H}, W={W}, patch {tile[0]}x{tile[1]}, {x.dtype})"
         )
     with _COUNT_LOCK:
         LAUNCHES[fn] += 1
@@ -330,7 +389,8 @@ def _launch(fn, x, tp, with_up2, tile=None):
 def up2_hr_last_packed(p1: torch.Tensor, tp: Dict[str, torch.Tensor]) -> torch.Tensor:
     """K6: up2 + HRconv + conv_last from ``p1`` ``[B, H + 1, W + 1, 256]``
     (up1's phase layout) -> ``[B, 4H, 4W, 3]`` float32. ``tp``:
-    :func:`pack_tail_params` on ``p1``'s device."""
+    :func:`pack_tail_params` on ``p1``'s device, at ``p1``'s dtype (the
+    operand type: bfloat16 or float32)."""
     if p1.device.type == "cpu":
         return up2_hr_last_reference(p1, tp)
     return _launch("up2_hr_last_packed", p1, tp, True)

@@ -53,3 +53,19 @@ def test_library_name_uses_the_digest(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_LIBS", {})
     assert build.load_library("tail_kernel") == str(so)
     assert loaded == [str(so)] and build.BUILD_SECONDS["tail_kernel"] == 0.0
+
+
+def test_sources_are_every_kernel_source_of_csrc(tmp_path, monkeypatch):
+    """build.SOURCES (what chip_smoke.py builds, one nvcc each) names every
+    csrc/*.cu and nothing else, and each digest covers the float32
+    instances' shared headers (rdb_modes.cuh, tail_wgmma.cuh)."""
+    import os
+
+    assert sorted(build.SOURCES) == sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
+    d = _copy_csrc(tmp_path, monkeypatch)
+    for header, users in (("rdb_modes.cuh", ("rdb_modes_wgmma", "rdb_modes_tf32")),
+                          ("tail_wgmma.cuh", ("tail_kernel", "tail_tf32"))):
+        before = {n: build.source_digest(n) for n in users}
+        with open(d / header, "a") as f:
+            f.write("\n// edited\n")
+        assert all(build.source_digest(n) != before[n] for n in users)

@@ -228,11 +228,34 @@ def test_tail_kernel_matches_plain(cuda, with_up2, B, H, W):
 
 
 @pytest.mark.gpu
-def test_tail_kernel_has_no_float32_instance(cuda):
+def test_tail_kernel_has_no_float16_instance(cuda):
     tp = _tail_operands(cuda, torch.float32)
-    x = torch.zeros((1, 6, 6, 256), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    x = torch.zeros((1, 6, 6, 256), device=cuda, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="not torch.float16"):
         TLK.up2_hr_last_packed(x, tp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", TLK.TAIL_TF32_TILES)
+@pytest.mark.parametrize("with_up2", [True, False])
+@pytest.mark.parametrize("B,H,W", [(1, 5, 7), (2, 37, 21), (9, 37, 37)])
+def test_tf32_tail_kernel_matches_plain(cuda, tile, with_up2, B, H, W):
+    """K6 and K7's float32 instances (3xTF32 wgmma) at each patch shape they
+    are built for, on ragged tiles and on more patches than SMs: within
+    1e-4 of the float32 plain version's scale (TF32 off), as float32 K1;
+    two runs bit-equal; one launch counted per call."""
+    name = "up2_hr_last_packed" if with_up2 else "hr_last_packed"
+    ref = TLK.up2_hr_last_reference if with_up2 else TLK.hr_last_reference
+    shape = (B, H + 1, W + 1, 256) if with_up2 else (B, H, W, 1024)
+    x = torch.from_numpy(np.abs(np.random.default_rng(6).normal(0, 0.5, shape)).astype(np.float32)).to(cuda)
+    tp = _tail_operands(cuda, torch.float32)
+    launches = TLK.LAUNCHES[name]
+    got = TLK._launch(name, x, tp, with_up2, tile)
+    torch.cuda.synchronize()
+    assert TLK.LAUNCHES[name] == launches + 1
+    assert got.shape == (B, 4 * H, 4 * W, 3) and got.dtype == torch.float32
+    assert _rel(got, ref(x, tp)) <= 1e-4
+    assert torch.equal(got, TLK._launch(name, x, tp, with_up2, tile))
 
 
 # the trunk modes' kernels (K5 packed, K3 chained, K4 paired): a small and a
@@ -404,29 +427,114 @@ def test_paired_kernel_matches_plain(cuda, shape, nf, gc):
 
 
 @pytest.mark.gpu
-def test_trunk_mode_kernels_have_no_float32_instance(cuda):
-    x = torch.zeros((1, 8, 8, 32), device=cuda)
+def test_paired_kernel_has_no_float32_instance(cuda):
+    """K4 is the paired carry of mixed mode: float32 operands raise."""
+    x = torch.zeros((1, 8, 8, 32), device=cuda, dtype=torch.bfloat16)
     p32 = {k: v.to(cuda) for k, v in _packed(32, 16, torch.float32).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        TK.rdb_apply_packed(x, p32)
+    with pytest.raises(ValueError, match="mixed mode only"):
+        TK.rdb_apply_paired(x, x, p32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", TK.TF32_TILES)
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_tf32_chained_kernel_matches_tf32_kernel(cuda, tile, nf, gc):
+    """float32 K3 is float32 K1's stages on the chained layout: at each
+    patch side, on a ragged 2 x 37 x 21, with and without the flagged
+    residual (u = out, as the trunk's closing step), bit-equal to float32
+    K1; aprons zero; one launch counted per call."""
+    B, H, W = 2, 37, 21
+    x = _state(cuda, (B, H, W, nf), torch.float32)
+    u = _state(cuda, (B, H, W, nf), torch.float32, seed=9)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.float32).items()}
     xc = TK.to_chained(x)
-    f = torch.zeros(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        TK.rdb_apply_chained(xc, p32, xc, f, 8, 8, torch.zeros_like(xc))
+    for flag in (0, 1):
+        out = TK.to_chained(u)
+        f = torch.tensor([flag], dtype=torch.int32, device=cuda)
+        launches = TK.LAUNCHES["rdb_apply_chained"]
+        TK.rdb_apply_chained(xc, p, out, f, H, W, out, tile=tile)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["rdb_apply_chained"] == launches + 1
+        assert torch.equal(TK.from_chained(out, H, W), TK._rdb_tf32(x, p, u if flag else None, tile))
+        rest = out.clone()
+        TK.from_chained(rest, H, W).zero_()
+        assert not rest.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", TK.PACKED_TF32_TILES)
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_tf32_packed_kernel_at_each_patch_side(cuda, tile, nf, gc):
+    """float32 K5 (the packed rectangles on float32 planes, 3xTF32) at each
+    patch side, on a ragged 2 x 37 x 21 with the residual: within 1e-4 of
+    the plain packed version (TF32 off), bit-equal over two runs."""
+    x = _state(cuda, (2, 37, 21, nf), torch.float32)
+    p = {k: v.to(cuda) for k, v in _packed(nf, gc, torch.float32, sched="packed").items()}
+    got = TK._rdb_tf32(x, p, x * 0.5, tile, packed=True)
+    torch.cuda.synchronize()
+    want = TK.rdb_packed_reference(x, p, torch.float32, torch.float32, x * 0.5)
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(got, TK._rdb_tf32(x, p, x * 0.5, tile, packed=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nf,gc", [(32, 16), (64, 32)])
+def test_tf32_chained_trunk_bit_equal_to_tf32_trunk(cuda, nf, gc):
+    """Six float32 RDBs (two RRDBs) on float32 K3's rotating buffers are
+    bit-equal to the float32 K1 trunk: the same stages, patches and
+    residual folds on another layout."""
+    x = _state(cuda, (2, 23, 17, nf), torch.float32)
+    packs = [_packed(nf, gc, torch.float32, seed=50 + k) for k in range(6)]
+    stacked = {k: torch.stack([d[k] for d in packs]).to(cuda) for k in packs[0]}
+    assert torch.equal(TK.rdb_trunk_chained(x, stacked), TK.rdb_trunk(x, stacked))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg", [dict(trunk="chained"), dict(sched="packed")])
-def test_float32_engine_on_a_trunk_mode_raises(cuda, tmp_path, cfg):
-    """The trunk modes' kernels have bfloat16 operands only: a float32
-    engine that asks for one raises instead of running another trunk."""
+def test_float32_engine_runs_trunk_mode_kernels(cuda, tmp_path, cfg):
+    """A float32 engine with a trunk mode runs it on the mode's float32
+    kernel (three launches per chunk of a one-RRDB graph, none of K1's) and
+    keeps >= 99.9 % of u8 values equal to the float32 plain engine's, max
+    diff 1."""
     from realsr_tpu_torch.engine import EngineConfig, RealSR
     from realsr_tpu_torch.ncnn.synth import make_model_dir
 
     files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=32, gc=16))
+    img = (np.random.default_rng(3).random((30, 41, 3)) * 255).astype(np.uint8)
     e = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32", **cfg))
-    with pytest.raises(NotImplementedError, match="bfloat16 operands only"):
-        e.load(*files)
+    e.load(*files)
+    key = "rdb_apply_chained" if "trunk" in cfg else "rdb_apply_packed"
+    before = dict(TK.LAUNCHES)
+    got = e.process(img)
+    n = TK.LAUNCHES[key] - before[key]
+    assert n > 0 and n % 3 == 0 and TK.LAUNCHES["rdb_apply"] == before["rdb_apply"]
+    plain = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32", variant="dense"))
+    plain.load(*files)
+    d = np.abs(got.astype(int) - plain.process(img).astype(int))
+    assert (d == 0).mean() >= 0.999 and d.max() <= 1
+
+
+@pytest.mark.gpu
+def test_float32_engine_runs_the_tf32_tail(cuda, tmp_path):
+    """A float32 engine on "auto" at nf = 64 ends on float32 K6, one launch
+    per chunk, and keeps >= 99.9 % of u8 values equal to the float32 plain
+    engine's (cuDNN convs for the trunk and the interleaved tail), max diff
+    1."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
+    img = (np.random.default_rng(4).random((30, 41, 3)) * 255).astype(np.uint8)
+    e = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32"))
+    e.load(*files)
+    assert (e.variant, e.tail) == ("cuda", "kernel")
+    launches = TLK.LAUNCHES["up2_hr_last_packed"]
+    got = e.process(img)
+    assert TLK.LAUNCHES["up2_hr_last_packed"] > launches
+    plain = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32", variant="dense", tail="interleaved"))
+    plain.load(*files)
+    d = np.abs(got.astype(int) - plain.process(img).astype(int))
+    assert (d == 0).mean() >= 0.999 and d.max() <= 1
 
 
 @pytest.mark.gpu

@@ -456,6 +456,81 @@ def test_packed_smem_fits_each_built_side(nf, gc):
         assert TK.packed_smem_bytes(13, nf, gc) > limit
 
 
+@pytest.mark.parametrize("B,H,W", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("nf,gc,sms", [(64, 32, 132), (32, 16, 16)])
+def test_packed_tf32_geometry_matches_brute_force(B, H, W, nf, gc, sms):
+    """packed_tf32_geometry (K5's float32 instances) against a block-by-block
+    count of the packed rectangles' issued MACs: the side of
+    PACKED_TF32_TILES that minimises waves x (MACs + the float32 block
+    price); every side it may pick fits one block's shared memory, and its
+    patches cover every output pixel."""
+    useful = B * H * W * 9 * sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5))
+    prices, counts = {}, {}
+    for tile in TK.PACKED_TF32_TILES:
+        blocks = B * -(-H // tile) * -(-W // tile)
+        counts[tile] = (blocks, blocks * TK.packed_block_macs(tile, nf, gc))
+        prices[tile] = -(-blocks // sms) * (TK.packed_block_macs(tile, nf, gc) + TK.TF32_BLOCK_OVERHEAD_MACS)
+        assert TK.packed_tf32_smem_bytes(tile, nf, gc) <= TK.SMEM_BLOCK
+    want = max(t for t, c in prices.items() if c == min(prices.values()))
+    geo = TK.packed_tf32_geometry(B, H, W, nf, gc, sms)
+    assert geo.tile == want
+    py, px = geo.patches
+    assert py * want >= H > (py - 1) * want and px * want >= W > (px - 1) * want
+    assert geo.blocks == counts[want][0]
+    assert geo.waves == pytest.approx(counts[want][0] / sms)
+    assert geo.mac_factor == pytest.approx(counts[want][1] / useful)
+    if (B, H, W, nf, sms) == (8, 148, 148, 64, 132):
+        assert (geo.tile, geo.blocks) == (8, 2888)
+        assert geo.mac_factor == pytest.approx(3.083, abs=5e-4)
+
+
+@pytest.mark.parametrize("nf,gc", [(64, 32), (32, 16)])
+def test_packed_tf32_smem_fits_each_built_side(nf, gc):
+    """K5's float32 shared memory (PackedLayout on LayoutF32) fits one block
+    at each side it is built for, and not at 9 for nf = 64: float32 planes
+    and the partial sums cap the side at 8."""
+    for tile in TK.PACKED_TF32_TILES:
+        assert TK.packed_tf32_smem_bytes(tile, nf, gc) <= TK.SMEM_BLOCK
+    # hand count at T = 8, nf = 64: the window 2 x 41 KB sub-planes (18^2
+    # pixels of 128 bytes, padded to 1,024) + c1..c4 4 x 32 x (16^2 + 14^2 +
+    # 12^2 + 10^2) = 173,056, partials max(14^2 x 36, 10^2 x 36 + 8^2 x 68) x
+    # 4 = 31,808, two 12 KB slots, 5 barriers, the alignment
+    assert TK.packed_tf32_smem_bytes(8, 64, 32) == 173_056 + 31_808 + 2 * 12_288 + 40 + 1024
+    if nf == 64:
+        assert TK.packed_tf32_smem_bytes(9, nf, gc) > TK.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("nf,gc", [(64, 32), (32, 16)])
+def test_packed_tf32_weights_round_trip(nf, gc):
+    """pack_rdb_params(float32, sched="packed") packs "wt": the five packed
+    rectangles' k8 steps, each as its tf32 hi slice then its lo slice, which
+    unpack (hi + lo) to within 2^-21 of the weights; rectangle C's first k8
+    step of c1 (after x's 9 x nf / 8 steps) holds, for its output column n,
+    the tf32 split of the weight of c1's first 8 channels at tap 0 for c3
+    (n < gc), c4 (n < 2 gc) or c5."""
+    p = params_from_jax({"rdb": _mk_params(nf, gc, seed=9)})["rdb"]
+    packed = TK.pack_rdb_params(p, torch.float32, "packed")
+    assert packed["wt"].numel() == 2 * packed["w"].numel() == 2 * TK.rdb_macs_per_pixel(nf, gc)
+    back = TK.unpack_rdb_params(packed, nf, "packed", key="wt")
+    for k, v in p.items():
+        if k.startswith("w"):
+            np.testing.assert_array_less(np.abs(back[k].numpy() - v), np.abs(v) * 2.0**-21 + 1e-30)
+        else:
+            np.testing.assert_array_equal(back[k].numpy(), v)
+    sizes = TK._rect_sizes(nf, gc, "packed")
+    n_c = 2 * gc + nf
+    assert [n for _, n in sizes] == [2 * gc, gc, n_c, gc + nf, nf]
+    o = 2 * (sizes[0][0] + sizes[1][0]) + (9 * nf // 8) * 2 * 8 * n_c
+    wt = packed["wt"].numpy()
+    hi, lo = wt[o : o + 8 * n_c], wt[o + 8 * n_c : o + 16 * n_c]
+    for n in range(n_c):
+        conv, co = (3, n) if n < gc else (4, n - gc) if n < 2 * gc else (5, n - 2 * gc)
+        for k in range(8):
+            idx = (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+            want = TK.tf32_split(p[f"w{conv}"][co, nf + k, 0, 0])
+            assert (hi[idx], lo[idx]) == want, (n, k)
+
+
 def test_plain_trunk_threads_operand_plane():
     """Mixed mode on the CPU: rdb_trunk threads each RDB's bfloat16 operand
     plane into the next (the plain path's counterpart of the kernel's

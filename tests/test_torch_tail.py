@@ -150,6 +150,58 @@ def test_wgmma_layout_is_k16_slices():
     assert torch.equal(TK._wg_unpack(torch.from_numpy(packed), 32, 24), torch.from_numpy(dense))
 
 
+def _tf32_unpack(packed: torch.Tensor, k: int, n: int):
+    """Inverse of TK._tf32_pack: the hi and lo parts, ``[k, n]`` each."""
+    cols, rows = (torch.from_numpy(a) for a in TK._step_order("tf32", n))
+    steps = packed.reshape(k // 8, 2, 8 * n)
+    out = []
+    for part in (0, 1):
+        dense = torch.empty((k // 8, 8, n), dtype=packed.dtype)
+        dense[:, rows, cols] = steps[:, part]
+        out.append(dense.reshape(k, n))
+    return out
+
+
+@pytest.mark.parametrize("name", ["w2t", "w1t", "w9t"])
+def test_tf32_slices_round_trip(name):
+    """float32 operands also pack the float32 kernel's "w2t" / "w1t" /
+    "w9t": per k8 step the tf32 hi slice, then the lo slice, in the order of
+    _wg_pack's k16 slices (the same matrices, the same passes): hi + lo
+    unslice to the dense float32 weights within 2^-21, relative, and bf16
+    operands pack none of them."""
+    p = TR.params_from_jax(_tail_params(64, seed=44))
+    tp = TK.pack_tail_params(p, torch.float32)
+    assert name not in TK.pack_tail_params(p, torch.bfloat16)
+    k, n, passes = {"w2t": (256, 128, 2), "w1t": (576, 64, 1), "w9t": (64, TK.W9N, 1)}[name]
+    dense = tp[name[:2]].reshape(passes, -1)
+    packed = tp[name].reshape(passes, -1)
+    assert tp[name].dtype == torch.float32 and tp[name].numel() == 2 * tp[name[:2]].numel()
+    for c in range(passes):
+        want = TK._wg_unpack(dense[c], k, n).double()
+        hi, lo = _tf32_unpack(packed[c], k, n)
+        for t in (hi, lo):
+            assert not (t.numpy().view(np.uint32) & np.uint32(0x1FFF)).any()
+        err = (hi.double() + lo.double() - want).abs()
+        assert bool((err <= want.abs() * 2.0**-21).all())
+
+
+def test_tf32_slice_layout():
+    """Spot check of _tf32_pack: element (k, n) of k8 step s sits in the
+    step's hi slice at s * 16 N + (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4
+    + k % 4 (8 x 4 core matrices, the k halves side by side), its lo part 8 N
+    further on."""
+    rng = np.random.default_rng(45)
+    dense = rng.normal(0, 1, (24, 16)).astype(np.float32)
+    packed = TK._tf32_pack(dense)
+    assert packed.shape == (2 * 24 * 16,)
+    for s in range(3):
+        for k in range(8):
+            for n in range(16):
+                at = s * 16 * 16 + (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+                hi, lo = TK.tf32_split(dense[8 * s + k, n])
+                assert (packed[at], packed[at + 8 * 16]) == (hi, lo)
+
+
 def test_w9_conv_last_equals_plain_conv_last_f32():
     """The kernel's W9-packed conv_last (one K = 64 product per z pixel, then
     nine shifted sums) against the plain version's K = 576 conv, float32."""
@@ -214,6 +266,38 @@ def test_tail_geometry_fits_and_covers(B, H, W, with_up2):
     assert cost(g.tile) == min(cost(t) for t in TK.TAIL_TILES)
     if (B, H, W) == (8, 148, 148):
         assert g.tile == (12, 28) and g.blocks == 8800
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 148, 148), (2, 37, 21), (9, 37, 37), (1, 1, 1)])
+@pytest.mark.parametrize("with_up2", [True, False])
+def test_tail_tf32_geometry_fits_and_covers(B, H, W, with_up2):
+    """The float32 instances' patch shape: built, even, within one block's
+    shared memory with float32 planes, covering the 4x output, at most one
+    block per SM, and the least cost of TAIL_TF32_TILES by tail_geometry's
+    rule; the 12 x 28 and 16 x 16 of the bfloat16 instances do not fit."""
+    g = TK.tail_tf32_geometry(B, H, W, with_up2)
+    th, tw = g.tile
+    assert g.tile in TK.TAIL_TF32_TILES and th % 2 == 0 and tw % 2 == 0
+    assert TK.tail_tf32_smem_bytes(th, tw, with_up2) <= TK.SMEM_LIMIT
+    py, px = g.patches
+    assert py * th >= 4 * H > (py - 1) * th and px * tw >= 4 * W > (px - 1) * tw
+    assert g.blocks == B * py * px and g.grid == min(g.blocks, 132)
+
+    def cost(t):
+        blocks = B * -(-4 * H // t[0]) * -(-4 * W // t[1])
+        return -(-blocks // 132) * TK.tail_block_macs(*t, with_up2)
+
+    assert cost(g.tile) == min(cost(t) for t in TK.TAIL_TF32_TILES)
+    for t in TK.TAIL_TILES:
+        assert TK.tail_tf32_smem_bytes(*t, with_up2) > TK.SMEM_LIMIT
+    if (B, H, W) == (8, 148, 148):
+        assert g.tile == (10, 14) and g.blocks == 20640
+        # hand count, K6: the window 9 x 11, z 12 x 16, P2 14 x 18 pixels,
+        # each two sub-planes of 128-byte pixels padded to 1 KB; 2 x 32 KB
+        # slots; 6 barriers
+        sub = lambda p: -(-p * 128 // 1024) * 1024  # noqa: E731
+        if with_up2:
+            assert TK.tail_tf32_smem_bytes(10, 14) == 2 * (sub(99) + sub(192) + sub(252)) + 65536 + 48
 
 
 def test_tail_block_macs_count_the_stages():
@@ -305,28 +389,78 @@ def nf64_model(tmp_path_factory):
 
 @pytest.mark.parametrize("tail", ["kernel_hr", "kernel"])
 def test_explicit_kernel_tail_raises_without_an_instance(tail, nf64_model, tiny_model_dir):
-    with pytest.raises(NotImplementedError, match="bfloat16 operands only"):
-        load_model(*nf64_model, torch.float32, torch.float32, tail=tail)
+    """The tail kernel has bfloat16 and float32 instances at nf = 64: float16
+    operands and other widths raise; float32 loads with its tf32 slices."""
+    with pytest.raises(NotImplementedError, match="none for torch.float16"):
+        load_model(*nf64_model, torch.float16, torch.float16, tail=tail)
     tiny = (os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
     with pytest.raises(ValueError, match="nf=64"):
         load_model(*tiny, torch.float32, torch.bfloat16, tail=tail)
-    e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="float32", tail=tail))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="float16", tail=tail))
+    with pytest.raises(NotImplementedError, match="none for torch.float16"):
         e.load(*nf64_model)
+    b = load_model(*nf64_model, torch.float32, torch.float32, tail=tail)
+    assert b.tail == tail and {"w1t", "w9t"} <= set(b.params["tail"])
 
 
 def test_auto_tail(nf64_model, monkeypatch):
     """'auto' is the interleaved tail on the CPU; the loader's 'auto' is the
-    kernel where it has an instance; the environment overrides 'auto'."""
+    kernel where it has an instance (bfloat16 and float32 operands, as JAX's
+    float32 Pallas engine ends on its kernel tail); the environment
+    overrides 'auto'."""
     monkeypatch.delenv("REALSR_TPU_PACKED_TAIL", raising=False)
     e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="mixed"))
     e.load(*nf64_model)
     assert e.tail == "interleaved"
     assert load_model(*nf64_model, torch.float32, torch.bfloat16, tail="auto").tail == "kernel"
-    assert load_model(*nf64_model, torch.float32, torch.float32, tail="auto").tail == "interleaved"
+    assert load_model(*nf64_model, torch.float32, torch.float32, tail="auto").tail == "kernel"
+    assert load_model(*nf64_model, torch.float16, torch.float16, tail="auto").tail == "interleaved"
     monkeypatch.setenv("REALSR_TPU_PACKED_TAIL", "2")
     e.load(*nf64_model)
     assert e.tail == "kernel_hr" and "tail" in e._params
+
+
+@pytest.mark.parametrize("tail,kernel", [("kernel", 2), ("kernel_hr", 1)])
+def test_float32_engine_kernel_tail_matches_jax_kernel_tail(tail, kernel, nf64_model, monkeypatch):
+    """A float32 CPU engine on the K6 (K7) tail, its kernels' plain versions,
+    against the same engine whose forward is the JAX package's float32
+    Pallas forward ending on its packed kernel tail (PACKED_TAIL_KERNEL 2 for
+    REALSR_TPU_PACKED_TAIL=3, 1 for =2; every Pallas kernel in interpret
+    mode, the tail's at any side): u8 values equal on >= 99.9 %, max diff 1
+    (the two sum in another order)."""
+    from realsr_tpu.loader import load_model as jax_load
+    from realsr_tpu.ops import rdb_kernel as JK
+
+    img = np.random.default_rng(46).integers(0, 256, (14, 17, 3), np.uint8)
+    e = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, storage="float32", variant="cuda", tail=tail))
+    e.load(*nf64_model)
+    assert e.tail == tail
+    got = e.process(img)
+
+    jb = jax_load(*nf64_model, storage_dtype=jnp.float32, variant="pallas")
+    monkeypatch.setattr(R, "PACKED_TAIL_MIN_SIDE", 0)
+    R.PACKED_TAIL, R.PACKED_TAIL_KERNEL, R.RESIDENT_TRUNK = True, kernel, False
+    calls = []
+    for mod, names in ((JK, ("rdb_apply",)), (JTK, ("hr_last_packed", "up2_hr_last_packed"))):
+        for n in names:
+            def interpreted(*a, _f=getattr(mod, n), _n=n, **kw):
+                calls.append(_n)
+                return _f(*a, interpret=True, **kw)
+
+            monkeypatch.setattr(mod, n, interpreted)
+
+    def jax_forward(_, tiles):
+        y = R.rrdbnet_forward(jb.params, jnp.asarray(tiles.numpy()), jb.spec, storage_dtype=jnp.float32,
+                              variant="pallas", op_dtype=jnp.float32)
+        return torch.from_numpy(np.array(y))
+
+    monkeypatch.setattr(e.bundle, "forward", jax_forward)
+    want = e.process(img)
+    # (traced once each: the JAX forward scans its RDBs)
+    assert "rdb_apply" in calls and calls.count("up2_hr_last_packed" if kernel == 2 else "hr_last_packed") == 1
+    assert got.shape == want.shape == (56, 68, 3)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1 and np.mean(d == 0) >= 0.999
 
 
 def test_engine_kernel_tail_matches_interleaved_mixed(nf64_model):

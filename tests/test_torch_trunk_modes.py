@@ -259,15 +259,17 @@ def test_chained_layout_and_flag():
         assert not rest.any()
 
 
-def _chained_by_patches(xc, p, uc, flag, H, W, tile, shadow):
+def _chained_by_patches(xc, p, uc, flag, H, W, tile, shadow, conv=None):
     """K3's blocks on the CPU, float32: each ``tile`` x ``tile`` patch of the
     H x W image computes its RDB from the (tile + 10)^2 window of the chained
     layout at the patch's place, zeros past the layout (as TMA fills them),
     c1..c4 by valid 3x3 convs over the shrinking regions, zeroed outside the
     image; the output (with 0.2 y + u where ``flag``) goes to the image
-    pixels of a zero layout, and bf16 of it to ``shadow``'s."""
+    pixels of a zero layout, and bf16 of it to ``shadow``'s. ``conv(inp,
+    i)``: conv i on its valid region (default: float32 with bias)."""
     nf = xc.shape[-1]
     w = TK.unpack_rdb_params(p, nf)
+    conv = conv or (lambda inp, i: torch.nn.functional.conv2d(inp, w[f"w{i}"], w[f"b{i}"]))
     out = torch.zeros_like(xc)
     A, S0 = TK.CHAIN_APRON, tile + 10
     lay = torch.nn.functional.pad(xc.permute(0, 3, 1, 2), (0, S0, 0, S0))
@@ -277,7 +279,7 @@ def _chained_by_patches(xc, p, uc, flag, H, W, tile, shadow):
             for i in range(1, 6):
                 inp = torch.cat([f[:, :, i - 1 - j : f.shape[2] - (i - 1 - j), i - 1 - j : f.shape[3] - (i - 1 - j)]
                                  for j, f in enumerate(feats)], 1)
-                c = torch.nn.functional.conv2d(inp, w[f"w{i}"], w[f"b{i}"])
+                c = conv(inp, i)
                 if i < 5:
                     ys = torch.arange(c.shape[2]) + py0 - A + i
                     xs = torch.arange(c.shape[3]) + px0 - A + i
@@ -328,6 +330,65 @@ def test_chained_patches_at_other_sides_match_jax(tile):
         TK.rdb_apply_chained(xc, pp, uc, torch.tensor([flag], dtype=torch.int32), H, W, out, shadow=sh)
         np.testing.assert_allclose(out.numpy(), got.numpy(), atol=5e-5)
         assert torch.equal(sh, out)
+
+
+def _tf32_conv(p, nf):
+    """conv(inp, i) of float32 K3's (and K1's) blocks: the activations split
+    as the kernel splits them (hi = tf32 truncation, lo = the rest,
+    truncated by the tensor cores), the weights' hi and lo from "wt", the
+    three products lo x hi + hi x lo + hi x hi summed (in float64 here),
+    then the bias."""
+    gc = (p["b"].numel() - nf) // 4
+    hi, lo = TK._tf32_unslice(p["wt"], nf, gc)
+    perm = torch.from_numpy(TK._perm(nf, gc, "scatter", True, "tf32"))
+    ws = []
+    for t in (hi, lo):
+        d = torch.empty_like(t)
+        d[perm] = t
+        ws.append(TK.unpack_rdb_params({"w": d, "b": p["b"]}, nf))
+
+    def trunc(t):
+        return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+    def conv(inp, i):
+        a_hi = trunc(inp)
+        a_lo = trunc(inp - a_hi)
+        wh, wl = ws[0][f"w{i}"].double(), ws[1][f"w{i}"].double()
+        f = torch.nn.functional.conv2d
+        s = f(a_lo.double(), wh) + f(a_hi.double(), wl) + f(a_hi.double(), wh)
+        return (s + ws[0][f"b{i}"].double()[:, None, None]).float()
+
+    return conv
+
+
+@pytest.mark.parametrize("tile", TK.TF32_TILES)
+def test_chained_tf32_patches_match_jax(tile):
+    """float32 K3 takes float32 K1's patch sides (tf32_geometry's; 10 at the
+    main path's chunk) and its split 3xTF32 product: the patch-by-patch
+    emulation of its blocks with that product matches JAX's float32 chained
+    kernel (interpret mode, Precision.HIGHEST) within 5e-5, with and without
+    the flagged residual, and leaves the aprons zero."""
+    H, W = 21, 19
+    assert TK.tf32_geometry(2, H, W, NF, GC).tile in TK.TF32_TILES
+    p = _mk_params(NF, GC, seed=14, wstd=0.1)
+    x = np.random.default_rng(15).random((2, H, W, NF)).astype(np.float32)
+    u = np.random.default_rng(16).random((2, H, W, NF)).astype(np.float32)
+    WB = K.round_wb(W)
+    BLK, nblk = K.plan_rows(H, target_blk=4)
+    kp = K.pack_rdb_params(R.repack_scatter({"rdb": p})["rdb"], dtype=jnp.float32)
+    kw = dict(H=H, W=W, WB=WB, BLK=BLK, nblk=nblk, nf=NF, gc=GC, interpret=True)
+    tf = K.to_flat(jnp.asarray(x), WB, BLK * nblk, top=8)
+    tu = K.to_flat(jnp.asarray(u), WB, BLK * nblk, top=8)
+    pp = _port_packed(p, torch.float32)
+    xc, uc = TK.to_chained(torch.from_numpy(x)), TK.to_chained(torch.from_numpy(u))
+    for flag in (0, 1):
+        yc = K.rdb_apply_chained(tf, kp, tu, jnp.full((1,), flag, jnp.int32), **kw)
+        want = np.asarray(K.from_flat(yc[:, :, 8 * WB : (8 + BLK * nblk) * WB], H, W, WB))
+        got = _chained_by_patches(xc, pp, uc, flag, H, W, tile, torch.zeros_like(xc), _tf32_conv(pp, NF))
+        np.testing.assert_allclose(TK.from_chained(got, H, W).numpy(), want, atol=5e-5)
+        rest = got.clone()
+        TK.from_chained(rest, H, W).zero_()
+        assert not rest.any()
 
 
 # -- K4: the paired carry --------------------------------------------------
@@ -564,6 +625,29 @@ def test_impossible_combinations_raise(files, monkeypatch, cfg, match):
     e = RealSR(gpuid=-1, config=EngineConfig(**cfg))
     with pytest.raises(ValueError, match=match):
         e.load(*files)
+
+
+@pytest.mark.parametrize("mode", ["chained", "packed", "paired"])
+def test_float32_trunk_modes_pass_the_gate(files, monkeypatch, mode):
+    """A float32 engine on the kernel trunk takes the chained layout and the
+    packed schedule, whose kernels have float32 instances (their weights
+    packed as tf32 slices, "wt", in the mode's schedule); the paired carry
+    stays mixed-only (ValueError, as the JAX package's), and float16 on the
+    kernel trunk still raises."""
+    monkeypatch.delenv("REALSR_TPU_SCHED", raising=False)
+    kw = {"packed": dict(sched="packed")}.get(mode, dict(trunk=mode))
+    if mode == "paired":
+        with pytest.raises(ValueError, match="mixed mode only"):
+            _engine(files, storage="float32", **kw)
+    else:
+        e = _engine(files, storage="float32", **kw)
+        assert (e.trunk, e.sched) == (kw.get("trunk", "per_rdb"), kw.get("sched", "scatter"))
+        rdb = e._params["rdb"]
+        assert rdb["wt"].dtype == torch.float32 and rdb["wt"].shape[-1] == 2 * rdb["w"].shape[-1]
+    assert TK._OPERANDS["rdb_apply_paired"] == (torch.bfloat16,)
+    assert all(torch.float32 in TK._OPERANDS[f] for f in ("rdb_apply", "rdb_apply_packed", "rdb_apply_chained"))
+    with pytest.raises(NotImplementedError, match="float16"):
+        _engine(files, storage="float16", **kw)
 
 
 def test_env_packed_with_chained_trunk_raises(files, monkeypatch):

@@ -106,9 +106,9 @@ VARIANTS = {
     "tf32_2x": (TF32_SRC, [("        for (int p = 0; p < 3; ++p) {", "        for (int p = 1; p < 3; ++p) {")],
                 r"rdb_tf32_kernelILi10ELi64ELi32E"),
     "modes_final": (MODES_SRC, [], r"packed_kernelILi12EfLi64ELi32E"),
-    "c_chunk1": (MODES_SRC, [("    return cmin(PackedLayout", "    return i == 3 ? 1 : cmin(PackedLayout")],
+    "c_chunk1": (MODES_SRC, [("    return cmin(PL::slot", "    return i == 3 ? 1 : cmin(PL::slot")],
                  r"packed_kernelILi12EfLi64ELi32E"),
-    "c_chunk2": (MODES_SRC, [("    return cmin(PackedLayout", "    return i == 3 ? 2 : cmin(PackedLayout")],
+    "c_chunk2": (MODES_SRC, [("    return cmin(PL::slot", "    return i == 3 ? 2 : cmin(PL::slot")],
                  r"packed_kernelILi12EfLi64ELi32E"),
     "k4_hi_global": (MODES_SRC, [
         ("struct PairedParams {\n", "struct PairedParams {\n  const __nv_bfloat16* hi;\n"),

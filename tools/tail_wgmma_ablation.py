@@ -2,7 +2,7 @@
 
 ``python3 tools/tail_wgmma_ablation.py`` builds variants of
 ``realsr_tpu_torch/csrc/tail_kernel.cu`` (the committed source, with
-``hopper.cuh`` inlined, and one design point undone by a text
+its headers inlined, and one design point undone by a text
 substitution), prints each one's ptxas registers and spills and the SASS
 counts of wgmma (HGMMA), waits for wgmma groups (WARPGROUP.DEPBAR) and
 local-memory loads of its 12 x 28 K6 instance, then times K6 and K7 at the
@@ -64,8 +64,13 @@ VARIANTS = {
 
 
 def inline_headers(src: str) -> str:
-    """The source with each ``#include "x.cuh"`` replaced by csrc/x.cuh."""
-    return re.sub(r'#include "(\w+\.cuh)"', lambda m: open(os.path.join(build.CSRC, m.group(1))).read(), src)
+    """The source with each ``#include "x.cuh"`` replaced by csrc/x.cuh,
+    recursively (tail_wgmma.cuh includes hopper.cuh)."""
+    def one(m):
+        with open(os.path.join(build.CSRC, m.group(1))) as f:
+            return inline_headers(f.read())
+
+    return re.sub(r'#include "(\w+\.cuh)"', one, src)
 
 
 def compile_variant(name: str) -> dict:
