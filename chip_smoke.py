@@ -59,7 +59,21 @@ Phases (each prints its lines; any failure exits non-zero):
 6. steady state: device-resident ``RealSR.process_device`` on one 1024 x 768
    image for each tail form, trunk mode and engine mode (float32 too),
    TTA on a smaller one, and the device time of one profiled image by
-   kernel group (mixed and float32).
+   kernel group (mixed and float32);
+7. slice 9, one JSON line per step: (a) ``RealSR.process_banded`` at 1, 2
+   and 3 tile rows per band against ``process`` on a ragged 1000 x 700 RGBA
+   image, mixed and float32, bit-equal, with K1 and K6 launches per band,
+   and TTA banded against whole at 256 x 192; (b) a 6200 x 6000 RGB image
+   above the default band budget through ``process`` (banded) and whole
+   under a larger budget, bit-equal, output MP/s of both; (c) the CLI on a
+   4096 x 3072 PNG with the budget just below its footprint, pixels equal
+   to the unbanded CLI run's; (d) ``process_cpu`` on the card engine against the float32
+   plain card engine, and the card engine's output unmoved after it; (e)
+   the generic ncnn executor on the DF2K graph (``allow_fast_path=False``,
+   float32) against the ``dense`` fast path at 8 x 148², both timed, and
+   the CLI on a graph the RRDBNet matcher rejects (the DF2K graph with
+   bilinear upsamplers); (f) ``variant="dense"`` and ``"scatter"`` resolve
+   ``tail="auto"`` to the interleaved tail.
 
 The engines set TF32 for each chunk from their operand type (off for
 float32); the plain versions here run with TF32 off, except where a line
@@ -115,6 +129,11 @@ SAME_MIN = 0.999  # float32 kernel vs float32 plain: share of equal u8 values
 # route lands near or above that; 30 dB catches a broken one
 F16_MIN_DB = 30.0
 STEADY_HW = (768, 1024)  # phase 6 image
+BAND_HW = (700, 1000)  # phase 7a: a ragged grid at tile 128
+BIG_HW = (6000, 6200)  # phase 7b: above the default band budget (37.2 MP)
+# phase 7c: 12.6 MP, whose whole-image footprint (722 MB in mixed mode) is
+# above a 700 MB budget that still allows chunks of 8 (90 MB a 148² tile)
+CLI_BAND_HW, CLI_BAND_BUDGET = (3072, 4096), "700"
 TAILS = ("interleaved", "packed", "kernel_hr", "kernel")  # models.rrdbnet.TAIL_MODES
 # phase 3b: the main path's; ragged 16 x 16 patches; more 12 x 28 patches than
 # SMs, none whole at the right and bottom edges
@@ -423,6 +442,243 @@ def profile_image(eng, img: np.ndarray) -> tuple:
     return wall, groups, sorted(rows, reverse=True)[:4]
 
 
+
+
+def zero_counts(rk, tk) -> None:
+    for counts in (rk.LAUNCHES, tk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def band_runs(eng, rk, tk, fn):
+    """``fn()`` with the launch counts set to 0 just before it, and the K1
+    and K6 launches of each band (each ``_dispatch_buckets`` call) read as
+    it returns: (result, [(K1, K6) per band])."""
+    per = []
+    inner = eng._dispatch_buckets
+
+    def counted(*args, **kwargs):
+        r0, t0 = rk.LAUNCHES["rdb_apply"], tk.LAUNCHES["up2_hr_last_packed"]
+        done = inner(*args, **kwargs)
+        per.append((rk.LAUNCHES["rdb_apply"] - r0, tk.LAUNCHES["up2_hr_last_packed"] - t0))
+        return done
+
+    eng._dispatch_buckets = counted
+    try:
+        zero_counts(rk, tk)
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        del eng._dispatch_buckets
+    return out, per
+
+
+def band_chunks(eng, shape, btr: int) -> list:
+    """Chunks per band of ``process_banded(band_tile_rows=btr)``: each
+    band's buckets at the whole image's chunk batch."""
+    from realsr_tpu_torch.tiling.planner import plan_tiles
+
+    h, w, _ = shape
+    plan = plan_tiles(w, h, eng.tilesize, eng.prepadding)
+    btr = eng._equalized_band_rows(plan.ytiles, btr)
+    batch = {sh: eng._chunking(len(ix))[0] for sh, ix in plan.buckets.items()}
+    chunks = []
+    for r0 in range(0, plan.ytiles, btr):
+        n: dict = {}
+        for t in plan.tiles:
+            if r0 <= t.yi < r0 + btr:
+                sh = t.padded_shape(eng.prepadding)
+                n[sh] = n.get(sh, 0) + 1
+        chunks.append(sum(-(-k // batch[sh]) for sh, k in n.items()))
+    return chunks
+
+
+def with_env(env: dict, fn):
+    """``fn()`` with ``env`` set (a value None unsets), restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def timed(fn) -> tuple:
+    """(fn(), wall seconds to a synchronized device)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_engine, rng) -> None:
+    """Phase 7: band streaming, process_cpu, the generic executor and the
+    dense tail's resolution on the card; one JSON line per step."""
+    from PIL import Image
+
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.loader import load_model
+    from realsr_tpu_torch.models.rrdbnet import tf32
+    from realsr_tpu_torch.ncnn.bin import write_weights
+    from realsr_tpu_torch.ncnn.param import parse_param
+    from realsr_tpu_torch.ncnn.synth import synth_weights
+
+    no_budget = {"REALSR_TPU_BAND_BUDGET_MB": None}
+    no_budget_batch = with_env(no_budget, lambda: engine._chunking(64))
+    dev = engine.device.torch_device
+    gpu = dev.index if dev.type == "cuda" else -1
+
+    # 7a: bands against the whole image, mixed and float32, then TTA
+    img = np.random.default_rng(7).integers(0, 256, (*BAND_HW, 4), np.uint8)
+    rows = {}
+    for label, eng in (("mixed", engine), ("float32", kern32)):
+        check((eng.variant, eng.tail) == ("cuda", "kernel"), f"7a {label}: {eng.variant}, {eng.tail}")
+        whole = with_env(no_budget, lambda: eng.process(img))
+        for btr in (1, 2, 3):
+            banded, per = band_runs(eng, rk, tk, lambda: eng.process_banded(img, band_tile_rows=btr))
+            want = band_chunks(eng, img.shape, btr)
+            check(np.array_equal(banded, whole), f"7a {label}, {btr} tile rows a band: not bit-equal to whole")
+            check(per == [(69 * n, n) for n in want],
+                  f"7a {label}, {btr} rows: (K1, K6) launches per band {per}, want 69 x / 1 x {want} chunks")
+            rows[f"{label} btr={btr}"] = {"bit_equal": True, "bands": len(per), "k1_k6_launches_per_band": per}
+    small = np.random.default_rng(8).integers(0, 256, (192, 256, 3), np.uint8)
+    banded, per = band_runs(tta_engine, rk, tk, lambda: tta_engine.process_banded(small, band_tile_rows=1))
+    check(np.array_equal(banded, tta_engine.process(small)) and all(a > 0 and b > 0 for a, b in per),
+          f"7a TTA: banded not bit-equal to whole, or a band without K1 / K6 launches {per}")
+    rows["mixed TTA 256x192 btr=1"] = {"bit_equal": True, "bands": len(per), "k1_k6_launches_per_band": per}
+    print(json.dumps({"phase": "7a", "what": f"process_banded vs process, ragged {BAND_HW[1]}x{BAND_HW[0]} RGBA, tile "
+                      f"{engine.tilesize}", "runs": rows, "card": card}), flush=True)
+
+    # 7b: an image above the default band budget, banded, then whole
+    big = np.random.default_rng(9).integers(0, 256, (*BIG_HW, 3), np.uint8)
+    out_mp = 16 * big.shape[0] * big.shape[1] / 1e6
+    check(with_env(no_budget, lambda: engine.needs_banding(big.shape)), f"7b: {big.shape} does not need banding")
+    (banded, per), s_band = timed(lambda: with_env(no_budget, lambda: band_runs(
+        engine, rk, tk, lambda: engine.process(big))))
+    want = band_chunks(engine, big.shape, with_env(no_budget, lambda: engine._auto_band_tile_rows(
+        big.shape[1], 3, engine.tilesize)))
+    check(per == [(69 * n, n) for n in want], f"7b: launches per band {per}, want 69 x / 1 x {want}")
+    whole_env = {"REALSR_TPU_BAND_BUDGET_MB": "8192"}
+    check(not with_env(whole_env, lambda: engine.needs_banding(big.shape)), "7b: 8192 MB budget still bands")
+    whole, s_whole = timed(lambda: with_env(whole_env, lambda: engine.process(big)))
+    check(banded.shape == (4 * BIG_HW[0], 4 * BIG_HW[1], 3) and np.array_equal(banded, whole),
+          f"7b: banded {banded.shape} not bit-equal to the whole-image run")
+    del whole
+    print(json.dumps({"phase": "7b", "what": f"{BIG_HW[1]}x{BIG_HW[0]} RGB ({out_mp:.1f} MP out), mixed, process()",
+                      "bands": len(per), "k1_k6_launches_per_band": per, "bit_equal": True,
+                      "banded_s": s_band, "whole_s": s_whole,
+                      "banded_out_mp_s": out_mp / s_band, "whole_out_mp_s": out_mp / s_whole,
+                      "card": card}), flush=True)
+    del banded, big
+
+    # 7c: the CLI with the band budget just below the image's footprint. The
+    # budget also caps the chunk batch (_auto_batch), and chunks of another
+    # batch may round differently (cuDNN picks its algorithm by batch), so
+    # the image is large enough that both budgets keep the batch at 8
+    src = os.path.join(work, "band.png")
+    Image.fromarray(np.random.default_rng(10).integers(0, 256, (*CLI_BAND_HW, 3), np.uint8)).save(src)
+    Image.MAX_IMAGE_PIXELS = None  # its 4x PNGs (201 MP) are above PIL's decompression-bomb guard
+    outs = {}
+    for label, budget in (("whole", "2048"), ("banded", CLI_BAND_BUDGET)):
+        env = {"REALSR_TPU_BAND_BUDGET_MB": budget}
+        check(with_env(env, lambda: (engine.needs_banding((*CLI_BAND_HW, 3)), engine._chunking(64)))
+              == (label == "banded", no_budget_batch),
+              f"7c: at {budget} MB the {CLI_BAND_HW} image is not {label}, or its chunk batch moved")
+        dst = os.path.join(work, f"band_{label}.png")
+        _, counts, k6, _ = run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", os.path.dirname(mparam), "-g", "0"], env)
+        with Image.open(dst) as im:
+            outs[label] = (np.asarray(im), counts["rdb_apply"], k6)
+    check(np.array_equal(outs["banded"][0], outs["whole"][0])
+          and outs["banded"][0].shape == (4 * CLI_BAND_HW[0], 4 * CLI_BAND_HW[1], 3),
+          "7c: the banded CLI run's PNG pixels differ from the unbanded run's")
+    check(outs["banded"][1] > 0 and outs["banded"][2] > 0, f"7c: banded CLI launches {outs['banded'][1:]}")
+    print(json.dumps({"phase": "7c", "what": f"CLI on a {CLI_BAND_HW[1]}x{CLI_BAND_HW[0]} PNG, "
+                      f"REALSR_TPU_BAND_BUDGET_MB={CLI_BAND_BUDGET} vs 2048",
+                      "pixels_equal": True, "k1_k6_launches": {k: v[1:] for k, v in outs.items()},
+                      "card": card}), flush=True)
+
+    # 7d: process_cpu on the card engine
+    tiny = np.random.default_rng(11).integers(0, 256, (48, 64, 3), np.uint8)
+    before = engine.process(tiny)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    cpu_out, s_cpu = timed(lambda: engine.process_cpu(tiny))
+    _, s_cpu2 = timed(lambda: engine.process_cpu(tiny))
+    same, dmax = u8_same(cpu_out, plain32.process(tiny))
+    after = engine.process(tiny)
+    sib = engine._cpu_sibling
+    check(sib is not None and sib.device.platform == "cpu" and sib.variant == "dense", "7d: no CPU sibling")
+    check(same >= SAME_MIN and dmax <= 1, f"7d: process_cpu vs float32 plain card engine {same}, max diff {dmax}")
+    check(np.array_equal(before, after), "7d: the card engine's output moved after process_cpu")
+    check(flags == (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32), "7d: TF32 flags moved")
+    print(json.dumps({"phase": "7d", "what": "process_cpu on the mixed card engine, 64x48 RGB, vs float32 plain card "
+                      "engine", "equal_u8_share": same, "max_diff": dmax, "card_engine_bit_equal_after": True,
+                      "sibling": {"tilesize": sib.tilesize, "variant": sib.variant, "storage": str(sib.storage_dtype)},
+                      "first_call_s": s_cpu, "second_call_s": s_cpu2, "card": card}), flush=True)
+
+    # 7e: the generic executor at full width against the dense fast path
+    gen = load_model(mparam, mbin, allow_fast_path=False)
+    fast = load_model(mparam, mbin, variant="dense")
+    check(gen.spec is None and gen.scale == 4, "7e: the generic bundle kept the fast path")
+    gp = {k: {kk: torch.as_tensor(v).to(dev) for kk, v in rec.items()} for k, rec in gen.params.items()}
+    fp = {k: {kk: torch.as_tensor(v).to(dev) for kk, v in rec.items()} for k, rec in fast.params.items()}
+    x = torch.rand((B, SIDE, SIDE, 3), generator=torch.Generator().manual_seed(12)).to(dev)
+    with torch.no_grad(), tf32(False):
+        y_gen = gen.forward(gp, x)
+        y_fast = fast.forward(fp, x)
+        torch.cuda.synchronize()
+        err, rel = rel_err(y_gen, y_fast)
+        check(tuple(y_gen.shape) == (B, 4 * SIDE, 4 * SIDE, 3) and bool(torch.isfinite(y_gen).all()) and rel <= 1e-4,
+              f"7e: generic executor vs dense fast path: rel {rel} > 1e-4, or shape {tuple(y_gen.shape)}")
+        ms_gen = cuda_ms(lambda: gen.forward(gp, x), 1, 2)
+        ms_fast = cuda_ms(lambda: fast.forward(fp, x), 1, 2)
+    del gp, fp, x, y_gen, y_fast
+    torch.cuda.empty_cache()
+    # a graph the RRDBNet matcher rejects: the DF2K graph, bilinear upsamplers
+    with open(mparam) as f:
+        text = f.read().replace("0=1 1=2.0 2=2.0", "0=2 1=2.0 2=2.0")
+    check("0=2 1=2.0 2=2.0" in text, "7e: no upsampler Interp to switch to bilinear")
+    rej_dir = os.path.join(work, "models-DF2K-bilinear")
+    os.makedirs(rej_dir)
+    with open(os.path.join(rej_dir, "x4.param"), "w") as f:
+        f.write(text)
+    write_weights(parse_param(text), synth_weights(parse_param(text), seed=0, stats="trained"),
+                  os.path.join(rej_dir, "x4.bin"))
+    rej = RealSR(gpuid=gpu, config=EngineConfig())
+    rej.load(os.path.join(rej_dir, "x4.param"), os.path.join(rej_dir, "x4.bin"))
+    check(rej.bundle.spec is None and rej.variant is None, "7e: the matcher accepted the bilinear graph")
+    src = os.path.join(work, "rej.png")
+    Image.fromarray(np.random.default_rng(13).integers(0, 256, (96, 128, 4), np.uint8)).save(src)
+    dst = os.path.join(work, "rej_out.png")
+    (_, counts, k6, _), s_rej = timed(lambda: run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", rej_dir, "-g", "0"]))
+    with Image.open(dst) as im:
+        rej_out = np.asarray(im)
+    check(rej_out.shape == (384, 512, 4) and sum(counts.values()) == 0 and k6 == 0,
+          f"7e: rejected graph's CLI output {rej_out.shape}, kernel launches {counts}, K6 {k6}")
+    print(json.dumps({"phase": "7e", "what": "generic executor, DF2K graph, float32 (TF32 off), "
+                      f"{B}x{SIDE}x{SIDE} tiles, vs dense fast path", "max_abs_err": err, "rel_err": rel,
+                      "executor_ms": ms_gen, "fast_path_ms": ms_fast,
+                      "rejected_graph_cli": {"png": list(rej_out.shape), "kernel_launches": 0, "s": s_rej},
+                      "card": card}), flush=True)
+
+    # 7f: the dense and scatter variants keep the interleaved tail on "auto"
+    tails = {}
+    for variant in ("dense", "scatter"):
+        for storage in ("mixed", "float32"):
+            e = RealSR(gpuid=gpu, config=EngineConfig(variant=variant, storage=storage))
+            with_env({"REALSR_TPU_PACKED_TAIL": None}, lambda: e.load(mparam, mbin))
+            tails[f"{variant} {storage}"] = e.tail
+    check(set(tails.values()) == {"interleaved"}, f"7f: auto tails {tails}")
+    print(json.dumps({"phase": "7f", "what": 'tail="auto" on the card', "tails": tails,
+                      "cuda (default engine)": engine.tail, "card": card}), flush=True)
 
 
 def main() -> int:
@@ -1109,7 +1365,6 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
         before = engine.process(images["a.png"])
         # the float32 reference: plain convs for the trunk and the tail alike
-        # (on the card a float32 "auto" tail is the K6 kernel, also on dense)
         plain32 = RealSR(gpuid=0, config=EngineConfig(storage="float32", variant="dense", tail="interleaved"))
         plain32.load(mparam, mbin)
         ref_a = plain32.process(images["a.png"])
@@ -1273,6 +1528,9 @@ def main() -> int:
                   f"under the profiler, kernels {dev_ms:.1f} ms (device idle "
                   f"{100 * (1 - dev_ms / (1e3 * wall)):.1f} %): {parts}; costliest: "
                   + "; ".join(f"{ms:.1f} ms {n[:90]}" for ms, n in top) + f" {card}", flush=True)
+
+        # -- 7. slice 9 --------------------------------------------------
+        slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_engine, rng)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -15,6 +15,10 @@ explicit ``-g -1``. ``-x`` runs TTA (8 dihedral variants per tile, averaged).
 The environment picks the precision (``REALSR_TPU_STORAGE``) and the tail
 form (``REALSR_TPU_PACKED_TAIL``: 0 interleaved, 1 packed, 2 the K7 tail
 kernel, 3 the K6 tail kernel; unset, the engine's own choice).
+``REALSR_TPU_SHARD`` / ``REALSR_TPU_NUM_SHARDS`` give this process the
+``[shard::num_shards]`` slice of the file list, as the JAX CLI's env vars
+do (there is no distributed runtime to ask). On ``-g -1``, ``-j``'s proc
+count sets torch's CPU thread count (default 2).
 """
 
 from __future__ import annotations
@@ -198,6 +202,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         return -1
 
+    # file sharding across processes: each takes every num_shards-th file
+    shard = _atoi(os.environ.get("REALSR_TPU_SHARD", "-1"))
+    num_shards = _atoi(os.environ.get("REALSR_TPU_NUM_SHARDS", "0"))
+    if num_shards > 1:
+        if not 0 <= shard < num_shards:
+            print("invalid REALSR_TPU_SHARD / REALSR_TPU_NUM_SHARDS", file=sys.stderr)
+            return -1
+        input_files = input_files[shard::num_shards]
+        output_files = output_files[shard::num_shards]
+
     # prepadding from model dir name (main.cpp:661-672)
     if "models-DF2K" in model:
         prepadding = 10
@@ -235,6 +249,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         if g < -1 or g >= n_cuda:
             print("invalid gpu device", file=sys.stderr)
             return -1
+    if all(g == -1 for g in gpuid):
+        # the reference gives the CPU engine -j's proc count of threads
+        # (main.cpp:734-746)
+        from realsr_tpu_torch.utils.cputhreads import (
+            configure_cpu_threads,
+            notice_cpu_threads_ignored,
+        )
+
+        if not configure_cpu_threads(jobs_proc[0] if jobs_proc else 2, verbose=verbose):
+            notice_cpu_threads_ignored()
 
     n_dev = len(gpuid)
     if not jobs_proc:

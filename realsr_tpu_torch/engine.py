@@ -14,14 +14,17 @@ src/realsr.h:13-42):
 Alpha never enters the net: it is bicubic-upscaled (A = -0.75) raw in 0..255
 and merged back. With TTA (``-x``) each chunk runs the net on the 8 dihedral
 variants of its tiles and averages the inverse-transformed outputs x 0.125
-in float32 before the crop. Not ported yet: band streaming of images above
-the device budget (ROADMAP queue 1); it raises ``NotImplementedError``.
+in float32 before the crop. An image whose whole-image run would exceed the
+band budget (``REALSR_TPU_BAND_BUDGET_MB``) streams through the device in
+bands of whole tile rows (:meth:`RealSR.process_banded`), bit-identical to
+the whole-image run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -32,7 +35,7 @@ from realsr_tpu_torch.utils.trace import tracer
 from realsr_tpu_torch.loader import ModelBundle, load_model
 from realsr_tpu_torch.models import rrdbnet as R
 from realsr_tpu_torch.models.rrdbnet import SCHEDS, TAIL_MODES, tf32
-from realsr_tpu_torch.ops.pad import reflect101_pad2d
+from realsr_tpu_torch.ops.pad import reflect101_indices, reflect101_pad2d, reflect101_pad_w
 from realsr_tpu_torch.ops.resize import resize_bicubic
 from realsr_tpu_torch.ops.tta import NUM_TRANSFORMS, d4_inverse, d4_transform
 
@@ -44,6 +47,10 @@ class EngineConfig:
     # "auto" (mixed on CUDA, float32 on the CPU) | "float32" | "mixed" |
     # "bfloat16" | "float16"
     storage: str = "auto"
+    # tiles per chunk at most: 0 = auto (_auto_batch: 8, fewer where the
+    # band budget or TTA asks); chunks are min(max_batch, the bucket's tile
+    # count rounded up to a power of two), as in the JAX engine
+    max_batch: int = 0
     # RDB conv formulation: "auto" | "dense" | "scatter" | "cuda". "auto"
     # (_resolve_variant) is the fused CUDA kernel on a GPU and plain convs
     # on the CPU; float16, which the kernel has no instance for, takes plain
@@ -51,10 +58,12 @@ class EngineConfig:
     # "cuda" with float16 raises.
     variant: str = "auto"
     # tail form (models.rrdbnet.TAIL_MODES): "auto" | "interleaved" |
-    # "packed" | "kernel_hr" (K7) | "kernel" (K6). "auto" reads
-    # REALSR_TPU_PACKED_TAIL like the JAX engine; unset, it is the fused
-    # tail kernel on a GPU where the kernel has an instance (bf16 operands,
-    # nf 64, 3 outputs) and "interleaved" elsewhere.
+    # "packed" | "kernel_hr" (K7) | "kernel" (K6). "auto" (_resolve_tail)
+    # reads REALSR_TPU_PACKED_TAIL like the JAX engine; unset, it is the
+    # fused tail kernel for the kernel variant ("cuda") on a GPU where the
+    # kernel has an instance (bf16 or float32 operands, nf 64, 3 outputs),
+    # as only JAX's kernel variant takes its packed tail, and "interleaved"
+    # for "dense" and "scatter" and on the CPU.
     tail: str = "auto"
     # the kernel trunk's form (variant "cuda"): "auto" | "per_rdb" |
     # "chained" (K3) | "paired" (K4, mixed mode). "auto" reads the module
@@ -102,6 +111,16 @@ def _resolve_variant(variant: str, platform: str, dtype) -> str:
     if variant != "auto":
         return variant
     return "cuda" if platform == "gpu" and dtype != torch.float16 else "dense"
+
+
+def _resolve_tail(tail: str, variant: str, platform: str) -> str:
+    """``tail`` with "auto" resolved: ``REALSR_TPU_PACKED_TAIL`` where set;
+    else "kernel" (K6) for the kernel variant on a GPU and "interleaved"
+    for "dense" and "scatter" and on the CPU, as the JAX engine keeps the
+    interleaved tail on its conv variants (realsr_tpu/engine.py:287-336)."""
+    if tail != "auto":
+        return tail
+    return packed_tail_env() or ("kernel" if platform == "gpu" and variant == "cuda" else "interleaved")
 
 
 def packed_tail_env() -> Optional[str]:
@@ -168,7 +187,8 @@ class RealSR:
     """Engine bound to one device; mirrors the reference's ctor/load/process
     (src/realsr.h:20-27). ``gpuid=-1`` runs on the CPU; ``gpuid >= 0``
     needs that CUDA device and raises without it. ``num_threads`` is
-    accepted for the reference's signature; torch owns its threads.
+    accepted for the reference's signature; torch owns its threads (the
+    CLI's ``-g -1 -j`` sets their count, ``utils/cputhreads.py``).
 
     Each chunk's forward runs under :func:`~realsr_tpu_torch.models.rrdbnet.
     tf32`: TF32 off for float32 operands (the JAX package's
@@ -203,6 +223,9 @@ class RealSR:
             self.device = Device("gpu", torch.device("cuda", gpuid))
         self.config = config or EngineConfig()
         self.bundle: Optional[ModelBundle] = None
+        self._model_paths: Optional[tuple] = None  # process_cpu's sibling loads them
+        self._cpu_sibling: Optional["RealSR"] = None
+        self._sibling_lock = threading.Lock()
         self.scale = 4
         self.prepadding = self.config.prepadding
         self.tilesize = self.config.tilesize or self._auto_tilesize()
@@ -219,7 +242,9 @@ class RealSR:
         """Parse and load the model files onto the device. Returns 0 like
         the reference (src/realsr.cpp:142). An explicit kernel tail that
         the graph or the operand type has no kernel for raises, as does a
-        trunk form the variant or precision cannot run (``ValueError``)."""
+        trunk form the variant or precision cannot run (``ValueError``). A
+        graph the RRDBNet matcher rejects runs on the generic executor;
+        ``variant``, ``tail``, ``trunk`` and ``sched`` are None then."""
         dtype, op_dtype = _resolve_precision(self.config.storage, self.device)
         variant = _resolve_variant(self.config.variant, self.device.platform, dtype)
         if variant == "cuda" and dtype == torch.float16:
@@ -228,15 +253,18 @@ class RealSR:
                 "float16 on its conv path too); pass variant='dense' to run float16 on plain convs"
             )
         trunk, sched = _resolve_trunk(self.config, variant, dtype, op_dtype)
-        tail = self.config.tail
-        if tail == "auto":
-            tail = packed_tail_env() or ("auto" if self.device.platform == "gpu" else "interleaved")
-        self.storage_dtype, self.op_dtype, self.variant = dtype, op_dtype, variant
+        tail = _resolve_tail(self.config.tail, variant, self.device.platform)
+        if tail == "kernel" and self.config.tail == "auto" and packed_tail_env() is None:
+            tail = "auto"  # the loader's auto: K6 where it has an instance for the graph
+        self.storage_dtype, self.op_dtype = dtype, op_dtype
         self.bundle = load_model(
             parampath, modelpath, storage_dtype=dtype, op_dtype=op_dtype,
             variant=variant, tail=tail, trunk=trunk, sched=sched,
         )
-        self.tail, self.trunk, self.sched = self.bundle.tail, trunk, sched
+        self._model_paths = (parampath, modelpath)
+        if self.bundle.spec is None:
+            variant = trunk = sched = None
+        self.variant, self.tail, self.trunk, self.sched = variant, self.bundle.tail, trunk, sched
         self.scale = self.bundle.scale
         self._params = _to_device(self.bundle.params, self.device.torch_device)
         return 0
@@ -244,11 +272,14 @@ class RealSR:
     # -- inference -----------------------------------------------------
 
     def _chunking(self, n: int) -> tuple:
-        """(chunk batch, chunk count) for ``n`` tiles: a power of two up to
-        the batch granule; the tile list is padded to whole chunks."""
-        max_batch = _auto_batch(
-            self.tilesize, self.tta_mode, self._band_budget_bytes(), self.bundle.spec.nf,
-            self.storage_dtype.itemsize,
+        """(chunk batch, chunk count) for ``n`` tiles: the tile count
+        rounded up to a power of two, capped at ``config.max_batch`` or, at
+        0, at the auto granule (nf 64 where the generic executor runs the
+        graph, as in the JAX engine); the tile list is padded to whole
+        chunks."""
+        nf = self.bundle.spec.nf if self.bundle.spec is not None else 64
+        max_batch = self.config.max_batch or _auto_batch(
+            self.tilesize, self.tta_mode, self._band_budget_bytes(), nf, self.storage_dtype.itemsize,
         )
         bsz = min(max_batch, 1 << (n - 1).bit_length())
         return bsz, -(-n // bsz)
@@ -259,6 +290,16 @@ class RealSR:
         color = img_u8[..., :3].float() * (1.0 / 255.0)
         padded = reflect101_pad2d(color.to(self.storage_dtype), self.prepadding)
         return padded, img_u8[..., 3:].float()
+
+    def _prep_band(self, band_u8: torch.Tensor):
+        """u8 band [1, rows + 2p, W, C] that arrives with its 2p context
+        rows -> (storage padded in W only [1, rows + 2p, W + 2p, 3], f32
+        alpha of the band's own rows [1, rows, W, 1|0]): each tile's padded
+        window is then byte-identical to the whole-image run's."""
+        pad = self.prepadding
+        color = band_u8[..., :3].float() * (1.0 / 255.0)
+        padded = reflect101_pad_w(color.to(self.storage_dtype), pad)
+        return padded, band_u8[:, pad : band_u8.shape[1] - pad, :, 3:].float()
 
     def _forward(self, tiles):
         """The net on [B, ph, pw, 3] tiles -> f32 [B, ph*s, pw*s, 3]; with TTA
@@ -289,37 +330,24 @@ class RealSR:
         a_u8 = torch.floor(up + 0.5).clamp(0.0, 255.0).to(torch.uint8)
         return torch.cat([color, a_u8], dim=-1)
 
-    @torch.no_grad()
-    def _process_stack_device(
-        self,
-        images: np.ndarray,  # [N, H, W, C] uint8
-        progress_cb: Optional[Callable[[float], None]] = None,
-    ) -> torch.Tensor:
-        """uint8 NHWC -> DEVICE uint8 buffer [N, H*scale, W*scale, C]. Tiles
-        of all images share the bucket chunks."""
-        if self.bundle is None:
-            raise RuntimeError("call load() first")
-        n_img, h, w, c = images.shape
+    def _dispatch_buckets(
+        self, padded, alpha, out, buckets: dict, c: int,
+        progress_cb, done: int, total: int, batches: Optional[dict] = None,
+    ) -> int:
+        """Run every chunk of ``buckets`` ({(ph, pw): [(image, x0, y0)]},
+        origins in ``padded``'s coordinates: band-local under band
+        streaming) and scatter the u8 tiles into the device buffer ``out``.
+        ``batches`` gives a bucket's chunk batch ({(ph, pw): batch}); a
+        bucket it lacks takes :meth:`_chunking`'s. Returns the tiles done."""
         s, pad = self.scale, self.prepadding
         dev = self.device.torch_device
-        plan = plan_tiles(w, h, self.tilesize, pad)
-        with tracer.span("h2d+prep"):
-            img = torch.tensor(images, device=dev)
-            padded, alpha = self._prep(img)
-        out = torch.zeros((n_img, h * s, w * s, c), dtype=torch.uint8, device=dev)
-        done, total = 0, len(plan.tiles) * n_img
-        for (ph, pw), idxs in plan.buckets.items():
-            # tile origins (unpadded coords) = halo starts in padded coords
-            triples = [
-                (i, plan.tiles[t].x0, plan.tiles[t].y0)
-                for i in range(n_img)
-                for t in idxs
-            ]
+        for (ph, pw), triples in buckets.items():
             hn, wn = ph - 2 * pad, pw - 2 * pad
             n = len(triples)
-            bsz, nc = self._chunking(n)
+            bsz = (batches or {}).get((ph, pw)) or self._chunking(n)[0]
+            nc = -(-n // bsz)
             # duplicated pad tiles rewrite identical bytes
-            triples += [triples[-1]] * (nc * bsz - n)
+            triples = triples + [triples[-1]] * (nc * bsz - n)
             for k in range(nc):
                 chunk = triples[k * bsz : (k + 1) * bsz]
                 with tracer.span("dispatch"):
@@ -341,6 +369,31 @@ class RealSR:
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
                     progress_cb(done / total)
+        return done
+
+    @torch.no_grad()
+    def _process_stack_device(
+        self,
+        images: np.ndarray,  # [N, H, W, C] uint8
+        progress_cb: Optional[Callable[[float], None]] = None,
+    ) -> torch.Tensor:
+        """uint8 NHWC -> DEVICE uint8 buffer [N, H*scale, W*scale, C]. Tiles
+        of all images share the bucket chunks."""
+        if self.bundle is None:
+            raise RuntimeError("call load() first")
+        n_img, h, w, c = images.shape
+        s, pad = self.scale, self.prepadding
+        dev = self.device.torch_device
+        plan = plan_tiles(w, h, self.tilesize, pad)
+        with tracer.span("h2d+prep"):
+            img = torch.tensor(images, device=dev)
+            padded, alpha = self._prep(img)
+        out = torch.zeros((n_img, h * s, w * s, c), dtype=torch.uint8, device=dev)
+        buckets = {
+            shape: [(i, plan.tiles[t].x0, plan.tiles[t].y0) for i in range(n_img) for t in idxs]
+            for shape, idxs in plan.buckets.items()
+        }
+        self._dispatch_buckets(padded, alpha, out, buckets, c, progress_cb, 0, len(plan.tiles) * n_img)
         return out
 
     def process_device(
@@ -349,12 +402,14 @@ class RealSR:
         progress_cb: Optional[Callable[[float], None]] = None,
     ) -> torch.Tensor:
         """uint8 HWC (C = 3 | 4) -> DEVICE uint8 buffer [H*s, W*s, C]."""
-        if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] not in (3, 4):
-            raise ValueError("expected uint8 HWC image with 3 or 4 channels")
+        _check_image(image)
         return self._process_stack_device(image[None], progress_cb)[0]
 
     def fetch(self, out_buf) -> np.ndarray:
-        """Device output buffer -> host numpy (the one download per image)."""
+        """Device output buffer -> host numpy (the one download per image);
+        a host array, such as a banded run's result, passes through."""
+        if isinstance(out_buf, np.ndarray):
+            return out_buf
         with tracer.span("fetch(D2H)"):
             return out_buf.cpu().numpy()
 
@@ -363,17 +418,78 @@ class RealSR:
         image: np.ndarray,
         progress_cb: Optional[Callable[[float], None]] = None,
     ) -> np.ndarray:
-        """uint8 HWC -> uint8 host array (process_device + fetch)."""
+        """uint8 HWC -> uint8 host array (process_device + fetch); an image
+        above the band budget streams through :meth:`process_banded`."""
         if self.needs_banding(image.shape):
             return self.process_banded(image, progress_cb)
         return self.fetch(self.process_device(image, progress_cb))
 
-    def process_banded(self, image, progress_cb=None):
-        raise NotImplementedError(
-            "band streaming of images above the device budget is not ported "
-            "to the PyTorch engine yet (ROADMAP queue 1: process_banded); "
-            "raise REALSR_TPU_BAND_BUDGET_MB to run this image whole"
-        )
+    # -- band streaming: O(band) device memory for large images ----------
+
+    @staticmethod
+    def _equalized_band_rows(ytiles: int, btr: int) -> int:
+        """Band height in tile rows: as many bands as ``btr`` rows give,
+        made equal, so every band but a ragged bottom has one shape set."""
+        btr = min(btr, ytiles)
+        nbands = -(-ytiles // btr)
+        return -(-ytiles // nbands)
+
+    def _auto_band_tile_rows(self, w: int, c: int, tilesize: int) -> int:
+        """Tile rows per band: half the band budget over one tile row's
+        device bytes."""
+        per_row = self._footprint_bytes(tilesize, w, c) - self._footprint_bytes(0, w, c)
+        return max(1, self._band_budget_bytes() // max(1, 2 * per_row))
+
+    @torch.no_grad()
+    def process_banded(
+        self,
+        image: np.ndarray,
+        progress_cb: Optional[Callable[[float], None]] = None,
+        band_tile_rows: int = 0,
+    ) -> np.ndarray:
+        """uint8 HWC -> uint8 host array, streamed through the device in
+        bands of ``band_tile_rows`` whole tile rows (0: from the band
+        budget), bit-identical to the whole-image run.
+
+        Each band goes up with its 2 x prepadding context rows (real
+        neighbour rows; the whole image's reflect-101 at its edges), so every
+        tile's padded window is the whole-image run's, and each of its
+        buckets runs at the chunk batch the whole image's plan gives that
+        bucket, so every chunk has a shape the whole-image run launches too.
+        Each band's u8 output comes down into the host array before the
+        next band starts."""
+        _check_image(image)
+        if self.bundle is None:
+            raise RuntimeError("call load() first")
+        h, w, c = image.shape
+        s, pad, ts = self.scale, self.prepadding, self.tilesize
+        dev = self.device.torch_device
+        plan = plan_tiles(w, h, ts, pad)
+        btr = self._equalized_band_rows(plan.ytiles, band_tile_rows or self._auto_band_tile_rows(w, c, ts))
+        batches = {shape: self._chunking(len(idxs))[0] for shape, idxs in plan.buckets.items()}
+        rows_idx = reflect101_indices(h, pad, pad)
+        by_row: dict = {}
+        for t in plan.tiles:
+            by_row.setdefault(t.yi, []).append(t)
+        out = np.empty((h * s, w * s, c), np.uint8)
+        done = 0
+        for r0 in range(0, plan.ytiles, btr):
+            r1 = min(r0 + btr, plan.ytiles)
+            y0, y1 = r0 * ts, min(r1 * ts, h)
+            with tracer.span("h2d+prep(band)"):
+                band = torch.tensor(image[rows_idx[y0 : y1 + 2 * pad]][None], device=dev)
+                padded, alpha = self._prep_band(band)
+            buf = torch.zeros((1, (y1 - y0) * s, w * s, c), dtype=torch.uint8, device=dev)
+            buckets: dict = {}
+            for yi in range(r0, r1):
+                for t in by_row[yi]:
+                    buckets.setdefault(t.padded_shape(pad), []).append((0, t.x0, t.y0 - y0))
+            done = self._dispatch_buckets(
+                padded, alpha, buf, buckets, c, progress_cb, done, len(plan.tiles), batches,
+            )
+            with tracer.span("fetch(D2H)"):
+                torch.from_numpy(out[y0 * s : y1 * s]).copy_(buf[0])
+        return out
 
     def process_batch(self, images) -> list:
         """Batch of SAME-SHAPE uint8 HWC images -> list of host outputs; the
@@ -393,6 +509,34 @@ class RealSR:
             return out
         out = self.fetch(self._process_stack_device(images))
         return [out[i] for i in range(out.shape[0])]
+
+    def process_cpu(
+        self,
+        image: np.ndarray,
+        progress_cb: Optional[Callable[[float], None]] = None,
+    ) -> np.ndarray:
+        """The reference's second entry point (src/realsr.h:31-33): the
+        image processed on the CPU, also by an engine bound to a card. There
+        it is answered by a CPU sibling built on first use from the same
+        model files and config, with the tile size re-picked for the CPU
+        and the kernel variant and its trunk forms re-resolved there (plain
+        convs), as the JAX engine's sibling does. The sibling's chunks enter
+        the TF32 scope like any engine's, so the card engine's chunks never
+        run under its setting."""
+        if self.device.platform == "cpu":
+            return self.process(image, progress_cb)
+        if self._model_paths is None:
+            raise RuntimeError("call load() first")
+        with self._sibling_lock:
+            if self._cpu_sibling is None:
+                cfg = dataclasses.replace(
+                    self.config, tilesize=0, trunk="auto", sched="scatter",
+                    variant="auto" if self.config.variant == "cuda" else self.config.variant,
+                )
+                sib = RealSR(gpuid=-1, tta_mode=self.tta_mode, config=cfg)
+                sib.load(*self._model_paths)
+                self._cpu_sibling = sib
+        return self._cpu_sibling.process(image, progress_cb)
 
     # -- device budget ---------------------------------------------------
 
@@ -415,3 +559,8 @@ class RealSR:
         """How many images of ``shape`` one device stack may hold."""
         h, w, c = shape
         return max(1, self._band_budget_bytes() // max(1, self._footprint_bytes(h, w, c)))
+
+
+def _check_image(image: np.ndarray) -> None:
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] not in (3, 4):
+        raise ValueError("expected uint8 HWC image with 3 or 4 channels")

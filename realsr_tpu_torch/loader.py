@@ -2,8 +2,9 @@
 
 Counterpart of ``realsr_tpu/loader.py``: parse the .param, read the .bin,
 match the RRDBNet structure and stack (and, for the CUDA kernels, pack) the
-weights. Graphs the matcher rejects need the generic ncnn executor, which is
-not ported yet: they raise ``NotImplementedError``.
+weights. Graphs the matcher rejects, and every graph with
+``allow_fast_path=False``, run on the generic ncnn executor
+(``graph/executor.py``) at the operand type, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from realsr_tpu_torch.graph.executor import build_forward, convert_weights_oihw
 from realsr_tpu_torch.ncnn.bin import load_weights
 from realsr_tpu_torch.ncnn.param import ParamGraph, parse_param_file
 from realsr_tpu_torch.graph.rrdb_match import extract_stacked_params, match_rrdbnet
@@ -52,9 +54,21 @@ class ModelBundle:
     forward: Callable[[Any, torch.Tensor], torch.Tensor]
     params: Any  # numpy arrays, or CPU tensors for the packed kernel weights
     scale: int
-    spec: RRDBNetSpec
+    spec: Optional[RRDBNetSpec]  # None: the generic executor runs the graph
     graph: ParamGraph
-    tail: str = "interleaved"  # the forward's tail form (models.rrdbnet.TAIL_MODES)
+    # the forward's tail form (models.rrdbnet.TAIL_MODES); None on the
+    # generic executor, where tail forms do not apply
+    tail: Optional[str] = "interleaved"
+
+
+def _infer_scale(forward, params, in_ch: int = 3) -> int:
+    """Output / input side of one 1 x 8 x 8 forward on the CPU."""
+    y = forward(params, torch.zeros((1, 8, 8, in_ch)))
+    scale_h, rem_h = divmod(y.shape[1], 8)
+    scale_w, rem_w = divmod(y.shape[2], 8)
+    if rem_h or rem_w or scale_h != scale_w:
+        raise ValueError(f"non-uniform model scale: 8x8 -> {y.shape[1]}x{y.shape[2]}")
+    return scale_h
 
 
 def load_model(
@@ -66,6 +80,7 @@ def load_model(
     tail: str = "interleaved",
     trunk: str = "per_rdb",
     sched: str = "scatter",
+    allow_fast_path: bool = True,
 ) -> ModelBundle:
     """``variant``: 'dense' (the graph's concat-input convs), 'scatter'
     (weights regrouped by source, the same math) or 'cuda' (the trunk on the
@@ -79,16 +94,20 @@ def load_model(
     type has no instance for raises. ``trunk`` and ``sched``: the kernel
     trunk's form (``models.rrdbnet.TRUNK_MODES``, ``SCHEDS``); the weights
     are packed for ``sched``, and a combination the JAX package cannot run
-    raises ``ValueError``."""
+    raises ``ValueError``. A graph the matcher rejects, or any graph with
+    ``allow_fast_path=False``, runs on the generic executor at ``op_dtype``
+    (``spec`` None; variant, tail, trunk and sched do not apply)."""
     graph = parse_param_file(param_path)
-    match = match_rrdbnet(graph)
-    if match is None:
-        raise NotImplementedError(
-            f"{param_path} is not an RRDBNet graph; other ncnn graphs need the "
-            "generic executor (realsr_tpu/graph/executor.py), which the PyTorch "
-            "port does not have yet (ROADMAP queue 1)"
-        )
     op_dtype = op_dtype if op_dtype is not None else storage_dtype
+    match = match_rrdbnet(graph) if allow_fast_path else None
+    if match is None:
+        generic = build_forward(graph, storage_dtype=op_dtype)
+
+        def forward(p, x):
+            return generic(p, x).float()
+
+        params = convert_weights_oihw(load_weights(graph, bin_path))
+        return ModelBundle(forward, params, _infer_scale(forward, params), None, graph, None)
     err = trunk_mode_error(variant, trunk, sched, storage_dtype, op_dtype)
     if err:
         raise ValueError(err)

@@ -22,6 +22,16 @@ def reflect101_indices(n: int, pad_lo: int, pad_hi: int) -> np.ndarray:
     return np.where(idx > n - 1, period - idx, idx)
 
 
+def reflect101_pad_w(img: torch.Tensor, pad: int) -> torch.Tensor:
+    """Pad only W of ``[..., H, W, C]`` by ``pad`` with reflect-101: a band
+    of the image arrives with its vertical context rows already attached
+    (real neighbour rows, or the whole image's reflection at its edges), so
+    only the horizontal halo is padded here."""
+    w = img.shape[-2]
+    xi = torch.from_numpy(reflect101_indices(w, pad, pad)).to(img.device)
+    return img.index_select(img.dim() - 2, xi)
+
+
 def reflect101_pad2d(img: torch.Tensor, pad: int) -> torch.Tensor:
     """Pad H and W of ``[..., H, W, C]`` by ``pad`` with reflect-101."""
     h, w = img.shape[-3], img.shape[-2]

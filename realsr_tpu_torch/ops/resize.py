@@ -1,9 +1,10 @@
 """Image resize ops with ncnn ``Interp`` numerics (NHWC tensors).
 
 Counterpart of ``realsr_tpu/ops/resize.py``: nearest x2 for the RRDBNet
-upsampler, and bicubic x4 for the alpha channel with ncnn's cubic
-(``A = -0.75``, half-pixel mapping, replicate-clamped borders) as two
-matmuls with the same numpy interpolation matrix. ``F.interpolate``'s
+upsampler, bicubic x4 for the alpha channel with ncnn's cubic
+(``A = -0.75``, half-pixel mapping, replicate-clamped borders), and the
+generic executor's Interp layer (nearest, bilinear, bicubic), each as two
+matmuls with the same numpy interpolation matrices. ``F.interpolate``'s
 bicubic differs at the borders, so it is not used.
 """
 
@@ -27,30 +28,53 @@ def _cubic_coeffs(fx: np.ndarray, a: float = -0.75) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=128)
-def _bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """Dense [out_size, in_size] bicubic interpolation matrix (f32):
-    ``src = (dst + 0.5) * in/out - 0.5``, taps clamped to the valid range."""
+def _resize_matrix(in_size: int, out_size: int, kind: str) -> np.ndarray:
+    """Dense [out_size, in_size] interpolation matrix (f32): half-pixel
+    mapping ``src = (dst + 0.5) * in/out - 0.5``, taps clamped to the valid
+    range (replicate border); nearest takes ``floor(dst * in/out)``, as
+    ncnn's resize_*_image do."""
     scale = in_size / out_size
     dst = np.arange(out_size, dtype=np.float64)
     src = (dst + 0.5) * scale - 0.5
-    sx = np.floor(src).astype(np.int64)
-    coeffs = _cubic_coeffs(src - sx)
     m = np.zeros((out_size, in_size), dtype=np.float64)
-    for tap in range(4):
-        idx = np.clip(sx - 1 + tap, 0, in_size - 1)
-        np.add.at(m, (np.arange(out_size), idx), coeffs[:, tap])
+    rows = np.arange(out_size)
+    if kind == "nearest":
+        idx = np.clip(np.floor(dst * scale).astype(np.int64), 0, in_size - 1)
+        m[rows, idx] = 1.0
+    elif kind == "bilinear":
+        sx = np.floor(src).astype(np.int64)
+        fx = src - sx
+        for tap, w in ((0, 1.0 - fx), (1, fx)):
+            np.add.at(m, (rows, np.clip(sx + tap, 0, in_size - 1)), w)
+    elif kind == "bicubic":
+        sx = np.floor(src).astype(np.int64)
+        coeffs = _cubic_coeffs(src - sx)
+        for tap in range(4):
+            np.add.at(m, (rows, np.clip(sx - 1 + tap, 0, in_size - 1)), coeffs[:, tap])
+    else:
+        raise ValueError(f"unknown resize kind {kind!r}")
     return m.astype(np.float32)
+
+
+def resize_nhwc(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torch.Tensor:
+    """Separable resize of NHWC ``x`` to (out_h, out_w), computed in
+    float32 and returned in ``x``'s dtype; an axis whose size does not
+    change is left as it is."""
+    n, h, w, c = x.shape
+    xf = x.float()
+    if out_h != h:
+        my = torch.from_numpy(_resize_matrix(h, out_h, kind)).to(x.device)
+        xf = torch.einsum("oh,nhwc->nowc", my, xf)
+    if out_w != w:
+        mx = torch.from_numpy(_resize_matrix(w, out_w, kind)).to(x.device)
+        xf = torch.einsum("ow,nhwc->nhoc", mx, xf)
+    return xf.to(x.dtype)
 
 
 def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """ncnn-parity bicubic resize of NHWC ``x``, computed in float32 (the
     alpha channel's 4x, src/realsr.cpp:326-331)."""
-    n, h, w, c = x.shape
-    my = torch.from_numpy(_bicubic_matrix(h, out_h)).to(x.device)
-    mx = torch.from_numpy(_bicubic_matrix(w, out_w)).to(x.device)
-    xf = torch.einsum("oh,nhwc->nowc", my, x.float())
-    return torch.einsum("ow,nhwc->nhoc", mx, xf).to(x.dtype)
-
+    return resize_nhwc(x, out_h, out_w, "bicubic")
 
 
 def nearest_x2(x: torch.Tensor) -> torch.Tensor:

@@ -87,12 +87,6 @@ def test_gpu_without_cuda_fails(cli_model_dir, tmp_path, capsys):
     assert not (tmp_path / "o.png").exists()
 
 
-def test_unported_modes_raise(engines):
-    _, port = engines
-    with pytest.raises(NotImplementedError, match="process_banded"):
-        port.process_banded(np.zeros((8, 8, 3), np.uint8))
-
-
 def test_tf32_scoped_to_each_engines_chunks(tiny_model_dir):
     """A float32 engine's chunks run with TF32 off, a mixed engine's with it
     on, and neither loading nor running an engine changes the process's

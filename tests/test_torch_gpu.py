@@ -549,3 +549,56 @@ def test_trunk_kernels_match_per_rdb_kernel(cuda, trunk):
     want = TK.rdb_trunk(x, stacked)
     fn = TK.rdb_trunk_chained if trunk == "chained" else TK.rdb_trunk_paired
     assert _rel(fn(x, stacked), want) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["mixed", "float32"])
+def test_banded_equals_whole_on_card(cuda, tmp_path, monkeypatch, storage):
+    """An image streamed in bands, on K1 and K6 (at nf = 64), is
+    bit-identical to the whole-image run: a ragged RGBA grid at 1 and 2 tile
+    rows per band, and through process() at a forced zero budget against a
+    whole run at that budget's chunk batch."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
+    e = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage=storage))
+    e.load(*files)
+    assert (e.variant, e.tail) == ("cuda", "kernel")
+    img = np.random.default_rng(5).integers(0, 256, (75, 50, 4), np.uint8)
+    whole = e.process(img)
+    for btr in (1, 2):
+        rdb, tail = TK.LAUNCHES["rdb_apply"], TLK.LAUNCHES["up2_hr_last_packed"]
+        banded = e.process_banded(img, band_tile_rows=btr)
+        assert TK.LAUNCHES["rdb_apply"] > rdb and TLK.LAUNCHES["up2_hr_last_packed"] > tail
+        np.testing.assert_array_equal(banded, whole)
+    # a zero budget also caps chunks at one tile (_auto_batch), and cuDNN
+    # picks its algorithm by batch: hold it to a whole run at that batch
+    one = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage=storage, max_batch=1))
+    one.load(*files)
+    whole = one.process(img)
+    monkeypatch.setenv("REALSR_TPU_BAND_BUDGET_MB", "0")
+    assert e.needs_banding(img.shape) and e._chunking(8) == (1, 8)
+    np.testing.assert_array_equal(e.process(img), whole)
+
+
+@pytest.mark.gpu
+def test_process_cpu_on_card_engine(cuda, tmp_path):
+    """A card engine answers process_cpu from its CPU sibling (float32, plain
+    convs): >= 99.9 % of u8 values equal to a float32 plain card engine's,
+    max diff 1; the card engine's own output does not move."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
+    e = RealSR(gpuid=0, config=EngineConfig(tilesize=32))
+    e.load(*files)
+    img = np.random.default_rng(6).integers(0, 256, (24, 31, 3), np.uint8)
+    before = e.process(img)
+    got = e.process_cpu(img)
+    assert e._cpu_sibling.device.platform == "cpu" and e._cpu_sibling.variant == "dense"
+    plain = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32", variant="dense"))
+    plain.load(*files)
+    d = np.abs(got.astype(int) - plain.process(img).astype(int))
+    assert (d == 0).mean() >= 0.999 and d.max() <= 1
+    np.testing.assert_array_equal(e.process(img), before)
