@@ -39,8 +39,9 @@ Phases (each prints its lines; any failure exits non-zero):
    chained one bit-equal to the float32 K1 trunk) against the plain ones;
 4. the main path: ``realsr_tpu_torch.cli.main`` on three images with the
    committed DF2K graph (23 RRDB, nf = 64, gc = 32) and synthesized weights,
-   checking the outputs and that the trunk and the tail ran on the kernels
-   (69 RDB launches and one tail launch per chunk); then the CLI with the
+   each at the tile the engine picks for it, checking the outputs and that
+   the trunk and the tail ran on the kernels (69 RDB launches and one tail
+   launch per chunk); then the CLI with the
    K7 tail (REALSR_TPU_PACKED_TAIL=2), with TTA (``-x``) and in float32
    (REALSR_TPU_STORAGE=float32: K1's and K6's float32 instances, also with
    the K7 tail, the chained trunk and the packed schedule) on one image;
@@ -74,6 +75,32 @@ Phases (each prints its lines; any failure exits non-zero):
    the CLI on a graph the RRDBNet matcher rejects (the DF2K graph with
    bilinear upsamplers); (f) ``variant="dense"`` and ``"scatter"`` resolve
    ``tail="auto"`` to the interleaved tail.
+   Phases 5-7 pin tile 128 (``TILE128``), so their numbers stay comparable
+   with PRs 8 and 9 (7c passes ``-t 128`` to the CLI);
+8. slice 10, the per-image tile pick: (a) K1 and K6, mixed and float32,
+   against their plain versions at the chunk shapes of tiles 192 and 256
+   (8 x 212², 6 x 276²), timed beside their bounds; (b) the planner's rate
+   anchors (``tiling/calibrate.py``: the default engine's forward per
+   padded pixel at 148², 212², 276²), printed as a
+   ``REALSR_TPU_RATE_ANCHORS`` spec; (c) the pick on 1024 x 768, 1000 x
+   700 RGBA, 4096 x 3072 and 200 x 150; (d) each picked output against the
+   tile-128 engine's, by PSNR against a float32 engine at each one's tile
+   (within 1 dB), and on the three small images the float32 engine at its
+   own pick against the float32 plain engine at that tile by phase 5's u8
+   parity gate; (e) banded against whole under the pick, bit-equal; (f)
+   device-resident output MP/s with the pick and at 128;
+9. mesh mode: ``make_mesh([cuda:0, cuda:0])`` (two shards on the one card)
+   against the single engine, bit-equal, mixed, float32 and TTA on a
+   ragged RGBA image, and banded; K1/K6 launches on each shard, each
+   chunk's charged to the shard whose private output it changed; the CLI
+   with ``REALSR_TPU_MESH=all``;
+10. the native bridge in process (``init`` on gpu 0, ``process_async`` /
+   ``fetch`` against ``process``, a batch of 3 against singles, an
+   over-budget image banded), then the port's C++ CLI
+   (``realsr_tpu_torch/native``, cmake) on a directory against ``python -m
+   realsr_tpu_torch``, PNG bytes equal; where the machine lacks cmake, a
+   codec header or an embeddable Python, that one step prints what is
+   missing and is left out.
 
 The engines set TF32 for each chunk from their operand type (off for
 float32); the plain versions here run with TF32 off, except where a line
@@ -129,6 +156,7 @@ SAME_MIN = 0.999  # float32 kernel vs float32 plain: share of equal u8 values
 # route lands near or above that; 30 dB catches a broken one
 F16_MIN_DB = 30.0
 STEADY_HW = (768, 1024)  # phase 6 image
+TILE128 = 128  # phases 5-7's tile: their numbers rest on it (PRs 8, 9)
 BAND_HW = (700, 1000)  # phase 7a: a ragged grid at tile 128
 BIG_HW = (6000, 6200)  # phase 7b: above the default band budget (37.2 MP)
 # phase 7c: 12.6 MP, whose whole-image footprint (722 MB in mixed mode) is
@@ -295,16 +323,18 @@ def tail_check(tk, name, x, tp_bf16, tp_f32, timed):
 
 
 def chunk_counts(engine, images: dict) -> tuple:
-    """(chunks, forward batches) an engine's CLI run takes on ``images``:
-    with TTA a chunk of non-square tiles runs two forwards."""
+    """(chunks, forward batches) an engine's CLI run takes on ``images``, at
+    the tile the engine picks for each: with TTA a chunk of non-square tiles
+    runs two forwards."""
     from realsr_tpu_torch.tiling.planner import plan_tiles
 
     chunks = batches = 0
     for img in images.values():
         h, w = img.shape[:2]
-        plan = plan_tiles(w, h, engine.tilesize, engine.prepadding)
+        ts = engine._pick_tilesize(w, h)
+        plan = plan_tiles(w, h, ts, engine.prepadding)
         for (ph, pw), idx in plan.buckets.items():
-            n = engine._chunking(len(idx))[1]
+            n = engine._chunking(ts, len(idx))[1]
             chunks += n
             batches += n * (2 if engine.tta_mode and ph != pw else 1)
     return chunks, batches
@@ -479,9 +509,10 @@ def band_chunks(eng, shape, btr: int) -> list:
     from realsr_tpu_torch.tiling.planner import plan_tiles
 
     h, w, _ = shape
-    plan = plan_tiles(w, h, eng.tilesize, eng.prepadding)
+    ts = eng._pick_tilesize(w, h)
+    plan = plan_tiles(w, h, ts, eng.prepadding)
     btr = eng._equalized_band_rows(plan.ytiles, btr)
-    batch = {sh: eng._chunking(len(ix))[0] for sh, ix in plan.buckets.items()}
+    batch = {sh: eng._chunking(ts, len(ix))[0] for sh, ix in plan.buckets.items()}
     chunks = []
     for r0 in range(0, plan.ytiles, btr):
         n: dict = {}
@@ -533,7 +564,7 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     from realsr_tpu_torch.ncnn.synth import synth_weights
 
     no_budget = {"REALSR_TPU_BAND_BUDGET_MB": None}
-    no_budget_batch = with_env(no_budget, lambda: engine._chunking(64))
+    no_budget_batch = with_env(no_budget, lambda: engine._chunking(TILE128, 64))
     dev = engine.device.torch_device
     gpu = dev.index if dev.type == "cuda" else -1
 
@@ -590,11 +621,12 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     outs = {}
     for label, budget in (("whole", "2048"), ("banded", CLI_BAND_BUDGET)):
         env = {"REALSR_TPU_BAND_BUDGET_MB": budget}
-        check(with_env(env, lambda: (engine.needs_banding((*CLI_BAND_HW, 3)), engine._chunking(64)))
+        check(with_env(env, lambda: (engine.needs_banding((*CLI_BAND_HW, 3)), engine._chunking(TILE128, 64)))
               == (label == "banded", no_budget_batch),
               f"7c: at {budget} MB the {CLI_BAND_HW} image is not {label}, or its chunk batch moved")
         dst = os.path.join(work, f"band_{label}.png")
-        _, counts, k6, _ = run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", os.path.dirname(mparam), "-g", "0"], env)
+        _, counts, k6, _ = run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", os.path.dirname(mparam), "-g", "0",
+                                                  "-t", str(TILE128)], env)
         with Image.open(dst) as im:
             outs[label] = (np.asarray(im), counts["rdb_apply"], k6)
     check(np.array_equal(outs["banded"][0], outs["whole"][0])
@@ -679,6 +711,391 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     check(set(tails.values()) == {"interleaved"}, f"7f: auto tails {tails}")
     print(json.dumps({"phase": "7f", "what": 'tail="auto" on the card', "tails": tails,
                       "cuda (default engine)": engine.tail, "card": card}), flush=True)
+
+
+def kernel_at(rk, tk, mparam, mbin, dev, b_, side) -> dict:
+    """Phase 8a at one chunk shape: K1 and K6, mixed and float32, against
+    their plain versions with phase 3's tolerances, each timed beside its
+    plain version and its bound: {kernel: {max_abs_err, ms, plain_ms,
+    bound_ms, bound_by}}."""
+    from realsr_tpu_torch.loader import load_model
+    from realsr_tpu_torch.models.rrdbnet import tf32
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(side)
+    x = torch.from_numpy(rng.normal(0.0, 0.5, (b_, side, side, NF)).astype(np.float32)).to(dev)
+    p1 = np.abs(rng.normal(0.0, 0.5, (b_, side + 1, side + 1, 4 * NF))).astype(np.float32)
+    macs = RDB_MACS_PER_PX * b_ * side * side
+    tail_macs = b_ * 16 * side * side * tk.tail_macs_per_pixel(True)
+    rows = {}
+    for mode, op in (("mixed", torch.bfloat16), ("float32", torch.float32)):
+        key = "K1" if mode == "mixed" else "K1 float32"
+        bundle = load_model(mparam, mbin, torch.float32, op, variant="cuda")
+        p0 = rk._rdb_k({k: v.to(dev) for k, v in bundle.params["rdb"].items()}, 0)
+        geo = (rk.rdb_geometry if mode == "mixed" else rk.tf32_geometry)(b_, side, side, NF, GC, sms)
+        with tf32(False):
+            got = rk.rdb_apply(x, p0)
+            torch.cuda.synchronize()
+            want = rk.rdb_reference(x, p0, torch.float32, op)
+            err, rel = rel_err(got, want)
+            check(bool(torch.isfinite(got).all()) and rel <= RDB_TOL[mode] and torch.equal(got, rk.rdb_apply(x, p0)),
+                  f"8a {key} at {b_} x {side}²: rel {rel} > {RDB_TOL[mode]}, non-finite, or two runs differ")
+            if mode == "mixed":
+                xs = x.to(torch.bfloat16)  # as the trunk runs it, on the bf16 plane
+                ms = cuda_ms(lambda: rk._rdb_wgmma(x, xs, p0, None, False), 2, 10)
+                moved = nbytes(x, p0["wg"], p0["b"], x)
+                del xs
+            else:
+                ms = cuda_ms(lambda: rk.rdb_apply(x, p0), 2, 10)
+                moved = nbytes(x, p0["wt"], p0["b"], x)
+            pms = cuda_ms(lambda: rk.rdb_reference(x, p0, torch.float32, op), 1, 3)
+        b_ms, b_by = bound(macs, moved, tf32=mode == "float32")
+        rows[key] = {"max_abs_err": err, "rel": rel, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                     "bound_by": b_by, "patch_side": geo.tile}
+        del p0, got, want, bundle
+        # K6: up1's packed phases in, [B, 4H, 4W, 3] f32 out
+        key = "K6" if mode == "mixed" else "K6 float32"
+        bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
+        tp16 = {k: v.to(dev) for k, v in bundle.params["tail"].items()}
+        tp32 = {k: v.to(dev) for k, v in tk.pack_tail_params(bundle.params, torch.float32).items()}
+        if mode == "mixed":
+            xin = torch.from_numpy(p1).to(dev, torch.bfloat16)
+            with tf32(False):
+                err, e_k, e_p, ms, pms = tail_check(tk, "up2_hr_last_packed", xin, tp16, tp32, True)
+            moved = nbytes(xin, *tp16.values()) + b_ * 16 * side * side * 3 * 4
+            geo = tk.tail_geometry(b_, side, side, True, sms)
+            extra = {"vs_float32_plain": e_k, "plain_bf16_vs_float32": e_p}
+        else:
+            xin = torch.from_numpy(p1).to(dev)
+            with tf32(False):
+                got = tk.up2_hr_last_packed(xin, tp32)
+                torch.cuda.synchronize()
+                want = tk.up2_hr_last_reference(xin, tp32)
+                err, rel = rel_err(got, want)
+                check(tuple(got.shape) == (b_, 4 * side, 4 * side, 3) and bool(torch.isfinite(got).all())
+                      and rel <= RDB_TOL["float32"] and torch.equal(got, tk.up2_hr_last_packed(xin, tp32)),
+                      f"8a K6 float32 at {b_} x {side}²: rel {rel} > {RDB_TOL['float32']}, bad shape or two runs differ")
+                ms = cuda_ms(lambda: tk.up2_hr_last_packed(xin, tp32), 2, 10)
+                pms = cuda_ms(lambda: tk.up2_hr_last_reference(xin, tp32), 1, 2)
+                del got, want
+            w_keys = ("w2t", "b2", "w1t", "b1", "w9t", "b3")
+            moved = nbytes(xin, *(tp32[k] for k in w_keys)) + b_ * 16 * side * side * 12
+            geo = tk.tail_tf32_geometry(b_, side, side, True, sms)
+            extra = {"rel": rel}
+        b_ms, b_by = bound(tail_macs, moved, tf32=mode == "float32")
+        rows[key] = {"max_abs_err": err, **extra, "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
+                     "patch": list(geo.tile)}
+        del xin, tp16, tp32, bundle
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slice10_pick(rk, tk, mparam, mbin, card, auto_engine, engine, plain32, kern32, kern32_auto) -> dict:
+    """Phase 8, the per-image tile pick: K1/K6 at the new chunk shapes, the
+    rate anchors, the pick on four images, the picked engine against the
+    tile-128 engine by PSNR against float32, the float32 engine at its pick
+    against the float32 plain engine by phase 5's u8 parity, banded against
+    whole under the pick, and output MP/s with the pick and at 128. Returns
+    phase 8a's rows by shape ({"8x212": {kernel: row}, ...})."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.tiling import calibrate, planner
+
+    dev = engine.device.torch_device
+    check(auto_engine.tilesize == 0 and auto_engine.variant == "cuda", "8: the default engine does not pick per image")
+    # 8a: K1 and K6 at the chunk shapes of tiles 192 and 256
+    shapes = {}
+    for b_, tile in ((8, 192), (6, 256)):
+        side = tile + 2 * auto_engine.prepadding
+        check(auto_engine._auto_batch(tile) == b_, f"8a: tile {tile} runs chunks of {auto_engine._auto_batch(tile)}")
+        rows = kernel_at(rk, tk, mparam, mbin, dev, b_, side)
+        shapes[f"{b_}x{side}"] = rows
+        print(json.dumps({"phase": "8a", "what": f"K1 / K6, mixed and float32, at {b_} x {side}² against plain "
+                          "(phase 3's tolerances), two runs bit-equal", "rows": rows, "card": card}), flush=True)
+
+    # 8b: the anchors, as python -m realsr_tpu_torch.tiling.calibrate measures them
+    measured = calibrate.measure(auto_engine)
+    spec = calibrate.anchors_spec(measured)
+    print(json.dumps({"phase": "8b", "what": "rate anchors: the default engine's forward per padded pixel",
+                      "chunks": {s: {"batch": b, "ms": ms, "us_per_padded_px": us} for s, (b, ms, us)
+                                 in measured.items()},
+                      "REALSR_TPU_RATE_ANCHORS": spec, "shipped": planner._RATE_ANCHORS, "card": card}), flush=True)
+
+    # 8c/8d/8e: the pick on four images; each picked output against the
+    # tile-128 engine's by PSNR against a float32 engine at the same tile
+    images = {
+        "1024x768 RGB 1/f": natural_image(np.random.default_rng(1), *STEADY_HW),
+        "1000x700 RGBA": np.random.default_rng(7).integers(0, 256, (*BAND_HW, 4), np.uint8),
+        "4096x3072 RGB": np.random.default_rng(10).integers(0, 256, (*CLI_BAND_HW, 3), np.uint8),
+        "200x150 RGB": np.random.default_rng(14).integers(0, 256, (150, 200, 3), np.uint8),
+    }
+    refs: dict = {("plain", TILE128): plain32, ("kernel", TILE128): kern32}
+
+    def ref_engine(kind: str, tile: int):
+        # float32 plain (dense convs) for the small images; the float32
+        # kernel engine, held to it by phase 5, for the 12.6 MP one
+        if (kind, tile) not in refs:
+            cfg = dict(storage="float32", tilesize=tile)
+            if kind == "plain":
+                cfg.update(variant="dense", tail="interleaved")
+            refs[(kind, tile)] = RealSR(gpuid=0, config=EngineConfig(**cfg))
+            refs[(kind, tile)].load(mparam, mbin)
+        return refs[(kind, tile)]
+
+    picks = {}
+    for label, img in images.items():
+        h, w, c = img.shape
+        tile = auto_engine._pick_tilesize(w, h)
+        work = {t: sum(len(ix) * ph * pw for (ph, pw), ix in planner.plan_tiles(w, h, t, 10).buckets.items())
+                for t in (128, 192, 256)}
+        got = auto_engine.process(img)
+        check(auto_engine.last_tilesize == tile and got.shape == (4 * h, 4 * w, c), f"8c {label}: tile or shape")
+        t128 = engine.process(img)
+        kind = "kernel" if h * w > 4e6 else "plain"
+        ref_pick = ref_engine(kind, tile).process(img)
+        db_pick = psnr(got, ref_pick)
+        db_128 = psnr(t128, ref_engine(kind, TILE128).process(img))
+        check(db_pick >= db_128 - PSNR_SLACK,
+              f"8d {label}: tile {tile} vs float32 {db_pick:.2f} dB, below tile 128's {db_128:.2f} dB by more "
+              f"than {PSNR_SLACK} dB")
+        row = {"tile": tile, "padded_px_by_tile": work, "psnr_vs_float32_at_its_tile": db_pick,
+               "tile128_psnr_vs_float32": db_128, "float32_reference": f"{kind} float32 engine"}
+        if kind == "plain":
+            # the float32 kernel engine at its own pick against the float32
+            # plain engine at that tile, by phase 5's u8 parity gate
+            tile32 = kern32_auto._pick_tilesize(w, h)
+            got32 = kern32_auto.process(img)
+            want32 = ref_pick if tile32 == tile else ref_engine("plain", tile32).process(img)
+            same, dmax = u8_same(got32, want32)
+            check(kern32_auto.last_tilesize == tile32 and same >= SAME_MIN and dmax <= 1,
+                  f"8d {label}: float32 engine at tile {kern32_auto.last_tilesize} (pick {tile32}) vs float32 "
+                  f"plain: {same} of u8 values equal (want >= {SAME_MIN}), max diff {dmax}")
+            row["float32_at_its_pick"] = {"tile": tile32, "equal_u8_share_vs_plain": same, "max_diff": dmax}
+            del got32, want32
+        if label == "200x150 RGB":
+            # a small image stays small: the pick pads no more than tile 128
+            check(work[tile] <= work[128], f"8c {label}: tile {tile} pads {work[tile]} px > tile 128's {work[128]}")
+        if c == 4:
+            # 8e: banded against whole under the pick
+            banded = auto_engine.process_banded(img, band_tile_rows=1)
+            check(auto_engine.last_tilesize == tile and np.array_equal(banded, got),
+                  f"8e {label}: banded under the pick (tile {auto_engine.last_tilesize}) not bit-equal to whole")
+            row["banded_bit_equal"] = True
+        picks[label] = row
+        del got, t128
+    check(picks["200x150 RGB"]["tile"] <= 256 and picks["1024x768 RGB 1/f"]["tile"] in (128, 192, 256), "8c: picks")
+    print(json.dumps({"phase": "8c-e", "what": "the pick per image (default engine) vs tile 128", "images": picks,
+                      "card": card}), flush=True)
+    del refs
+
+    # 8f: device-resident output MP/s, the pick against tile 128, in turns
+    big = images["1024x768 RGB 1/f"]
+    big_mp = 16 * big.shape[0] * big.shape[1] / 1e6
+    runs: dict = {"pick": [], "128": []}
+    for order in (("pick", "128"), ("128", "pick")):
+        for k in order:
+            runs[k].append(steady_s(auto_engine if k == "pick" else engine, big))
+    s_pick, s_128 = (float(np.median(runs[k])) for k in ("pick", "128"))
+    print(json.dumps({"phase": "8f", "what": f"steady {STEADY_HW[1]}x{STEADY_HW[0]} RGB, mixed, device-resident",
+                      "tile_picked": auto_engine._pick_tilesize(big.shape[1], big.shape[0]),
+                      "pick_s": s_pick, "tile128_s": s_128, "pick_out_mp_s": big_mp / s_pick,
+                      "tile128_out_mp_s": big_mp / s_128, "card": card}), flush=True)
+    return shapes
+
+
+def shard_launches(m, x: np.ndarray, rk, tk) -> tuple:
+    """``m.process(x)`` on a mesh engine, and its K1 / K6 launches per
+    shard ([[K1, K6], ...]), each chunk's charged to the one shard whose
+    private output that chunk changed. The outputs are compared before and
+    after every chunk, so this measures where the engine wrote, not its
+    dealing rule: a chunk that changes no output or more than one fails."""
+    per = [[0, 0] for _ in range(m.mesh.size)]
+    st = {"shards": [], "snap": [], "pending": None}
+    inner_shards, inner_chunk, inner_merge = m._shards, m._compute_chunk, m._merge
+
+    def settle():
+        if st["pending"] is not None:
+            changed = [k for k, (sh, old) in enumerate(zip(st["shards"], st["snap"])) if not torch.equal(sh[2], old)]
+            check(len(changed) == 1, f"9: a chunk changed the outputs of shards {changed}, not of one")
+            per[changed[0]][0] += st["pending"][0]
+            per[changed[0]][1] += st["pending"][1]
+            st["pending"] = None
+        st["snap"] = [sh[2].clone() for sh in st["shards"]]
+
+    def shards(*args, **kwargs):
+        st["shards"], st["pending"] = inner_shards(*args, **kwargs), None
+        settle()
+        return st["shards"]
+
+    def chunk(*args, **kwargs):
+        settle()
+        r0, t0 = rk.LAUNCHES["rdb_apply"], tk.LAUNCHES["up2_hr_last_packed"]
+        out = inner_chunk(*args, **kwargs)
+        st["pending"] = (rk.LAUNCHES["rdb_apply"] - r0, tk.LAUNCHES["up2_hr_last_packed"] - t0)
+        return out
+
+    def merge(parts):
+        settle()
+        return inner_merge(parts)
+
+    m._shards, m._compute_chunk, m._merge = shards, chunk, merge
+    try:
+        got = m.process(x)
+    finally:
+        del m._shards, m._compute_chunk, m._merge
+    return got, per
+
+
+def slice10_mesh(cli, rk, tk, mparam, mbin, work, card, auto_engine, auto_tta, single32, one_in, one_out) -> None:
+    """Phase 9, mesh mode on one card: a mesh of two shards of cuda:0
+    against the single engine (mixed, float32, TTA on a ragged RGBA image,
+    banded), the CLI with REALSR_TPU_MESH=all, and K1/K6 launches per
+    shard."""
+    from PIL import Image
+
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.parallel.mesh import make_mesh
+
+    dev = auto_engine.device.torch_device
+    mesh = make_mesh([dev, dev])
+    img = natural_image(np.random.default_rng(1), *STEADY_HW)
+    rgba = np.random.default_rng(7).integers(0, 256, (*BAND_HW, 4), np.uint8)
+    ragged = np.random.default_rng(15).integers(0, 256, (250, 333, 4), np.uint8)
+    rows = {}
+    for label, single, cfg, tta in (("mixed", auto_engine, {}, False),
+                                    ("float32", single32, {"storage": "float32"}, False),
+                                    ("mixed TTA", auto_tta, {}, True)):
+        m = RealSR(tta_mode=tta, config=EngineConfig(**cfg), mesh=mesh)
+        m.load(mparam, mbin)
+        x = ragged if tta else img
+        zero_counts(rk, tk)
+        got, per = shard_launches(m, x, rk, tk)
+        want = single.process(x)
+        check(np.array_equal(got, want), f"9 {label}: the 2-shard mesh is not bit-equal to the single engine")
+        check(all(k6 > 0 and k1 == 69 * k6 for k1, k6 in per), f"9 {label}: K1 / K6 launches per shard {per}")
+        row = {"bit_equal": True, "tile": m.last_tilesize, "k1_k6_launches_per_shard": per}
+        if label == "mixed":
+            banded = m.process_banded(rgba, band_tile_rows=1)
+            check(np.array_equal(banded, auto_engine.process(rgba)),
+                  "9: banded under the mesh not bit-equal to the single engine's whole image")
+            row["banded_1000x700_rgba_bit_equal"] = True
+        rows[label] = row
+        del m, got, want
+    torch.cuda.empty_cache()
+    # the CLI, one mesh engine over every card (one here)
+    out = os.path.join(work, "b_mesh.png")
+    _, counts, k6, _ = run_cli(cli, rk, tk, ["-i", one_in, "-o", out, "-m", os.path.dirname(mparam), "-g", "0",
+                                             "-v"], {"REALSR_TPU_MESH": "all"})
+    with Image.open(out) as a, Image.open(one_out) as b:
+        check(np.array_equal(np.asarray(a), np.asarray(b)), "9: REALSR_TPU_MESH=all CLI PNG differs from the single run")
+    check(counts["rdb_apply"] > 0 and k6 > 0, f"9: mesh CLI launches {counts}, K6 {k6}")
+    rows["CLI REALSR_TPU_MESH=all"] = {"pixels_equal_to_single_cli": True, "k1": counts["rdb_apply"], "k6": k6}
+    print(json.dumps({"phase": "9", "what": f"make_mesh([{dev}, {dev}]) vs the single engine, "
+                      f"{STEADY_HW[1]}x{STEADY_HW[0]} RGB (TTA: 333x250 RGBA)", "runs": rows, "card": card}),
+          flush=True)
+
+
+def _missing_native_deps() -> list:
+    """What the native step needs and this machine lacks: cmake, a C++
+    compiler, the libpng / libjpeg / libwebp headers and an embeddable
+    Python (python3-config --embed)."""
+    missing = [tool for tool in ("cmake", "c++") if shutil.which(tool) is None]
+    roots = ("/usr/include", "/usr/local/include", os.path.join(sys.prefix, "include"))
+    for header in ("png.h", "jpeglib.h", os.path.join("webp", "decode.h")):
+        if not any(os.path.isfile(os.path.join(r, header)) for r in roots):
+            missing.append(f"{header} (header)")
+    cfg = shutil.which("python3-config")
+    if cfg is None or subprocess.run([cfg, "--embed", "--ldflags"], capture_output=True).returncode != 0:
+        missing.append("python3-config --embed")
+    return missing
+
+
+def slice10_bridge(mparam, mbin, work, card, auto_engine, kern32_auto) -> None:
+    """Phase 10, the native bridge in process (init on gpu 0, async against
+    sync, a batch of 3 against singles, an over-budget image banded), then
+    the port's C++ CLI where this machine can build it."""
+    from PIL import Image
+
+    from realsr_tpu_torch import native_bridge as nb
+
+    check(nb.device_count() == torch.cuda.device_count(), f"10: device_count {nb.device_count()}")
+    scale = nb.init(json.dumps({"gpuid": [0], "tilesize": [0], "jobs_proc": [2], "prepadding": 10,
+                                "tta_mode": False, "parampath": mparam, "modelpath": mbin}))
+    check(scale == 4 and nb.num_engines() == 1, f"10: init scale {scale}, {nb.num_engines()} engines")
+    rows = {}
+    rng = np.random.default_rng(16)
+    img = rng.integers(0, 256, (200, 300, 3), np.uint8)
+    sync = nb.process(0, img.tobytes(), 300, 200, 3)
+    handle = nb.process_async(0, img.tobytes(), 300, 200, 3)
+    check(nb.fetch(handle) == sync and sync == auto_engine.process(img).tobytes(),
+          "10: process_async + fetch not bit-equal to process, or to the engine's output")
+    rows["async_vs_sync"] = {"bit_equal": True}
+    # a batch of 3: its chunks hold the tiles of all three, so the batch
+    # may differ from a single image's; held by PSNR against float32
+    imgs = [natural_image(np.random.default_rng(20 + k), 200, 300) for k in range(3)]
+    handles = nb.process_batch_async(0, [im.tobytes() for im in imgs], 300, 200, 3)
+    outs = [np.frombuffer(nb.fetch(h), np.uint8).reshape(800, 1200, 3) for h in handles]
+    ref_stack = kern32_auto.process_batch(imgs)
+    dbs = []
+    for k, im in enumerate(imgs):
+        single = np.frombuffer(nb.process(0, im.tobytes(), 300, 200, 3), np.uint8).reshape(800, 1200, 3)
+        db_b, db_s = psnr(outs[k], ref_stack[k]), psnr(single, kern32_auto.process(im))
+        check(db_b >= db_s - PSNR_SLACK, f"10: batch image {k} {db_b:.2f} dB vs single {db_s:.2f} dB")
+        dbs.append((db_b, db_s))
+    rows["batch_of_3_vs_singles"] = {"psnr_vs_float32_batch_single": dbs,
+                                     "tile_batch": auto_engine._pick_tilesize(300, 200, 3),
+                                     "tile_single": auto_engine._pick_tilesize(300, 200)}
+    # an image over the band budget goes through process_banded
+    rgba = np.random.default_rng(7).integers(0, 256, (*BAND_HW, 4), np.uint8)
+    env = {"REALSR_TPU_BAND_BUDGET_MB": "40"}
+    check(with_env(env, lambda: auto_engine.needs_banding(rgba.shape)), "10: the RGBA image does not need banding")
+    want = with_env(env, lambda: auto_engine.process_banded(rgba)).tobytes()
+    got = with_env(env, lambda: nb.process(0, rgba.tobytes(), BAND_HW[1], BAND_HW[0], 4))
+    handle = with_env(env, lambda: nb.process_async(0, rgba.tobytes(), BAND_HW[1], BAND_HW[0], 4))
+    check(got == want and nb.fetch(handle) == want, "10: the over-budget image through the bridge is not banded")
+    rows["over_budget_banded"] = {"bit_equal_to_process_banded": True, "budget_mb": 40}
+    nb._engines = []
+    torch.cuda.empty_cache()
+
+    # the port's C++ CLI, built from realsr_tpu_torch/native
+    missing = _missing_native_deps()
+    if missing:
+        print(f"10: the realsr-tpu-torch binary step is left out: this machine lacks {', '.join(missing)}",
+              flush=True)
+        rows["binary"] = {"left_out": missing}
+    else:
+        build = os.path.join(work, "native_build")
+        src = os.path.join(ROOT, "realsr_tpu_torch", "native")
+        for cmd in (["cmake", "-S", src, "-B", build, "-DCMAKE_BUILD_TYPE=Release"],
+                    ["cmake", "--build", build, "-j", "4"]):
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            check(r.returncode == 0, f"10: {' '.join(cmd)} failed:\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        in_dir, outs_dir = os.path.join(work, "bin_in"), {k: os.path.join(work, f"bin_{k}") for k in ("cpp", "py")}
+        for d in (in_dir, *outs_dir.values()):
+            os.makedirs(d)
+        for k in range(3):
+            Image.fromarray(np.random.default_rng(30 + k).integers(0, 256, (96 + 8 * k, 128, 3 + k % 2),
+                                                                     np.uint8)).save(os.path.join(in_dir, f"{k}.png"))
+        # the Python CLI encodes with the library just built, as the binary does
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                   REALSR_IO_LIB=os.path.join(build, "librealsr_io_torch.so"))
+        args = ["-i", in_dir, "-m", os.path.dirname(mparam), "-g", "0"]
+        t0 = time.perf_counter()
+        r = subprocess.run([os.path.join(build, "realsr-tpu-torch"), *args, "-o", outs_dir["cpp"]],
+                           capture_output=True, text=True, env=env, timeout=300)
+        s_cpp = time.perf_counter() - t0
+        check(r.returncode == 0, f"10: realsr-tpu-torch exit {r.returncode}: {r.stderr[-2000:]}")
+        r = subprocess.run([sys.executable, "-m", "realsr_tpu_torch", *args, "-o", outs_dir["py"]],
+                           capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+        check(r.returncode == 0, f"10: python -m realsr_tpu_torch exit {r.returncode}: {r.stderr[-2000:]}")
+        for k in range(3):
+            with open(os.path.join(outs_dir["cpp"], f"{k}.png"), "rb") as a, \
+                    open(os.path.join(outs_dir["py"], f"{k}.png"), "rb") as b:
+                check(a.read() == b.read(), f"10: {k}.png from the binary differs from the Python CLI's")
+        rows["binary"] = {"png_bytes_equal_to_python_cli": True, "files": 3, "s": s_cpp}
+    print(json.dumps({"phase": "10", "what": "realsr_tpu_torch.native_bridge on gpu 0", "runs": rows, "card": card}),
+          flush=True)
 
 
 def main() -> int:
@@ -1255,13 +1672,14 @@ def main() -> int:
                 out = np.asarray(im)
             check(out.shape == (4 * h, 4 * w, c), f"{fn}: output {out.shape}, want {(4 * h, 4 * w, c)}")
             out_mp += 16 * h * w / 1e6
+        picks = {fn: engine._pick_tilesize(img.shape[1], img.shape[0]) for fn, img in images.items()}
         want_k6 = chunks if engine.tail == "kernel" else 0
         check(launches == 69 * chunks and chunks > 0 and sum(counts.values()) == launches,
               f"rdb_kernel launches {counts} != 69 x {chunks} chunks of K1")
         check(k6_main == want_k6 and k7 == 0,
               f"tail launches K6 {k6_main}, K7 {k7}; want {want_k6} (tail {engine.tail}) and 0")
         print(f"main path: cli.main rc 0, 3 images -> 4x outputs (RGBA kept 4 channels), "
-              f"tile {engine.tilesize}, tail {engine.tail}, {chunks} chunks, {launches} rdb_kernel "
+              f"tiles picked {picks}, tail {engine.tail}, {chunks} chunks, {launches} rdb_kernel "
               f"launches, {k6_main} K6 launches; {out_mp:.3f} output MP in {wall:.3f} s = "
               f"{out_mp / wall:.3f} output MP/s (model load and first calls included) {card}",
               flush=True)
@@ -1359,13 +1777,21 @@ def main() -> int:
                   f"{wall:.3f} s {card}", flush=True)
 
         # -- 5. numerics of the slice ------------------------------------
+        # phases 5-7 pin tile 128, so their engines share one tile plan and
+        # their numbers stay comparable with PRs 8 and 9; the CLI runs of
+        # phase 4 picked their tile per image (phase 8 holds the pick)
+        auto_engine, auto_tta = engine, tta_engine
+        engine = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128))
+        engine.load(mparam, mbin)
+        tta_engine = RealSR(gpuid=0, tta_mode=True, config=EngineConfig(tilesize=TILE128))
+        tta_engine.load(mparam, mbin)
         # repair check: TF32 belongs to each engine's chunks, so a float32
         # engine leaves a mixed engine's pixels as they were (torch's
         # default flags before and after)
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
         before = engine.process(images["a.png"])
         # the float32 reference: plain convs for the trunk and the tail alike
-        plain32 = RealSR(gpuid=0, config=EngineConfig(storage="float32", variant="dense", tail="interleaved"))
+        plain32 = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, storage="float32", variant="dense", tail="interleaved"))
         plain32.load(mparam, mbin)
         ref_a = plain32.process(images["a.png"])
         after = engine.process(images["a.png"])
@@ -1379,48 +1805,48 @@ def main() -> int:
 
         # float16 on "auto" takes plain convs, as the JAX engine's float16
         # takes its conv path; an explicit "cuda" raises (no kernel instance)
-        f16 = RealSR(gpuid=0, config=EngineConfig(storage="float16"))
+        f16 = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, storage="float16"))
         f16.load(mparam, mbin)
         out16 = f16.process(images["a.png"])
         db16 = psnr(out16, ref_a)
         check(f16.variant == "dense" and out16.shape == ref_a.shape and db16 >= F16_MIN_DB,
               f"float16 engine: variant {f16.variant}, output {out16.shape}, {db16:.2f} dB vs float32")
         try:
-            RealSR(gpuid=0, config=EngineConfig(storage="float16", variant="cuda")).load(mparam, mbin)
+            RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, storage="float16", variant="cuda")).load(mparam, mbin)
             fail("float16 with variant='cuda' loaded; it has no kernel instance")
         except NotImplementedError:
             pass
         print(f"float16 engine, variant auto -> {f16.variant}: 1/f image vs float32 plain {db16:.2f} dB "
               f"(>= {F16_MIN_DB}); variant='cuda' raises {card}", flush=True)
 
-        plain_mixed = RealSR(gpuid=0, config=EngineConfig(variant="dense", tail="interleaved"))
+        plain_mixed = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, variant="dense", tail="interleaved"))
         plain_mixed.load(mparam, mbin)
         k6_engine = engine
         if engine.tail != "kernel":
-            k6_engine = RealSR(gpuid=0, config=EngineConfig(tail="kernel"))
+            k6_engine = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, tail="kernel"))
             k6_engine.load(mparam, mbin)
-        kern32 = RealSR(gpuid=0, config=EngineConfig(storage="float32"))
+        kern32 = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, storage="float32"))
         kern32.load(mparam, mbin)
         # the float32 engines held to the float32 plain engine by u8 equality:
         # the default (K1 and K6's float32 instances), the chained and the
         # packed trunk (K3's, K5's)
         f32_engines = {"auto (K1, K6)": kern32}
         for mode, cfg in (("chained", dict(trunk="chained")), ("packed", dict(sched="packed"))):
-            f32_engines[mode] = RealSR(gpuid=0, config=EngineConfig(storage="float32", **cfg))
+            f32_engines[mode] = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, storage="float32", **cfg))
             f32_engines[mode].load(mparam, mbin)
             check((f32_engines[mode].variant, f32_engines[mode].tail, f32_engines[mode].trunk,
                    f32_engines[mode].sched) == ("cuda", "kernel", cfg.get("trunk", "per_rdb"),
                                                 cfg.get("sched", "scatter")),
                   f"float32 {mode} engine: variant {f32_engines[mode].variant}, tail {f32_engines[mode].tail}")
         tta32 = RealSR(gpuid=0, tta_mode=True,
-                       config=EngineConfig(storage="float32", variant="dense", tail="interleaved"))
+                       config=EngineConfig(tilesize=TILE128, storage="float32", variant="dense", tail="interleaved"))
         tta32.load(mparam, mbin)
         tta_plain = RealSR(gpuid=0, tta_mode=True,
-                           config=EngineConfig(variant="dense", tail="interleaved"))
+                           config=EngineConfig(tilesize=TILE128, variant="dense", tail="interleaved"))
         tta_plain.load(mparam, mbin)
         modes = {}
         for mode, (cfg, _, _, _) in MODES.items():
-            modes[mode] = RealSR(gpuid=0, config=EngineConfig(**cfg))
+            modes[mode] = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, **cfg))
             modes[mode].load(mparam, mbin)
             check((modes[mode].trunk, modes[mode].sched) == (cfg.get("trunk", "per_rdb"),
                                                               cfg.get("sched", "scatter")),
@@ -1463,7 +1889,7 @@ def main() -> int:
         big_mp = 16 * STEADY_HW[0] * STEADY_HW[1] / 1e6
         tails = {}
         for t in TAILS:
-            tails[t] = engine if t == engine.tail else RealSR(gpuid=0, config=EngineConfig(tail=t))
+            tails[t] = engine if t == engine.tail else RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, tail=t))
             if tails[t] is not engine:
                 tails[t].load(mparam, mbin)
         # the tail forms and the trunk modes in turns, forward then
@@ -1478,7 +1904,7 @@ def main() -> int:
                   f"{modes[m].tail} tail", float(np.median(runs[f"{m} trunk"]))) for m in modes]
         rows.append(("mixed, plain trunk and interleaved tail", steady_s(plain_mixed, big)))
         # the float32 engines in turns, as the mixed ones
-        kern32_int = RealSR(gpuid=0, config=EngineConfig(storage="float32", tail="interleaved"))
+        kern32_int = RealSR(gpuid=0, config=EngineConfig(tilesize=TILE128, storage="float32", tail="interleaved"))
         kern32_int.load(mparam, mbin)
         steady32 = {"float32, kernel trunk, K6 tail (auto)": kern32,
                     "float32, kernel trunk, interleaved (cuDNN) tail": kern32_int,
@@ -1531,6 +1957,16 @@ def main() -> int:
 
         # -- 7. slice 9 --------------------------------------------------
         slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_engine, rng)
+        del tails, steady, steady32, modes, f32_engines, kern32_int, tta32, tta_plain, plain_mixed, f16, k6_engine
+        torch.cuda.empty_cache()
+
+        # -- 8-10. slice 10: the tile pick, mesh mode, the native bridge ----
+        kern32_auto = RealSR(gpuid=0, config=EngineConfig(storage="float32"))
+        kern32_auto.load(mparam, mbin)
+        new_shapes = slice10_pick(rk, tk, mparam, mbin, card, auto_engine, engine, plain32, kern32, kern32_auto)
+        slice10_mesh(cli, rk, tk, mparam, mbin, work, card, auto_engine, auto_tta, kern32_auto, one_in,
+                     os.path.join(out_dir, "b.png"))
+        slice10_bridge(mparam, mbin, work, card, auto_engine, kern32_auto)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1582,6 +2018,9 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library.get(key),
             "checked_against_plain": True,  # phases 3-3c fail on any disagreement
         })
+        if key in ("K1", "K1 float32", "K6", "K6 float32"):
+            # phase 8a: the chunk shapes of tiles 192 and 256
+            kernels[-1]["at_new_shapes"] = {shape: rows[key] for shape, rows in new_shapes.items()}
         check(n > 0, f"{key}: no launch on the main path")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,7 +18,10 @@ kernel, 3 the K6 tail kernel; unset, the engine's own choice).
 ``REALSR_TPU_SHARD`` / ``REALSR_TPU_NUM_SHARDS`` give this process the
 ``[shard::num_shards]`` slice of the file list, as the JAX CLI's env vars
 do (there is no distributed runtime to ask). On ``-g -1``, ``-j``'s proc
-count sets torch's CPU thread count (default 2).
+count sets torch's CPU thread count (default 2). ``REALSR_TPU_MESH`` (``all``
+or a comma list of device ids) runs one engine that deals each image's tile
+chunks to those devices (``parallel/mesh.py``) in place of one engine per
+``-g`` id.
 """
 
 from __future__ import annotations
@@ -271,11 +274,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     jobs_save = min(jobs_save, cpu_count)
 
     storage = os.environ.get("REALSR_TPU_STORAGE", "auto")
+
+    # multi-GPU mesh mode (REALSR_TPU_MESH=all|i,j,...): ONE engine dealing
+    # each image's tile chunks to the selected devices, instead of the
+    # reference's independent per-device engines stealing whole images (-g)
+    mesh_env = os.environ.get("REALSR_TPU_MESH", "")
+    mesh = None
+    if mesh_env:
+        from realsr_tpu_torch.parallel.mesh import mesh_from_env, pool_for
+
+        try:
+            # -g -1 draws the mesh from the CPU, else from the CUDA devices
+            mesh = mesh_from_env(mesh_env, pool_for(gpuid))
+        except ValueError as ex:
+            print(str(ex), file=sys.stderr)
+            return -1
+        gpuid = gpuid[:1]  # one mesh engine replaces the per-device pool
+
     engines = []
     for i, g in enumerate(gpuid):
         cfg = EngineConfig(tilesize=tilesize[i], prepadding=prepadding, storage=storage)
         try:
-            e = RealSR(gpuid=g, tta_mode=tta_mode, num_threads=jobs_proc[i], config=cfg)
+            e = RealSR(gpuid=g, tta_mode=tta_mode, num_threads=jobs_proc[i], config=cfg, mesh=mesh)
             e.load(parampath, modelpath)
         except (ValueError, OSError, NotImplementedError) as ex:
             # corrupt or unsupported model files, or a mode the port lacks:
@@ -283,6 +303,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"load model failed: {ex}", file=sys.stderr)
             return -1
         engines.append(e)
+        if mesh is not None and verbose:
+            print(
+                f"mesh mode: {mesh.size} devices, whole tile chunks dealt in turn to "
+                + ", ".join(str(d) for d in mesh.devices),
+                file=sys.stderr,
+            )
 
     run_pipeline(
         input_files,

@@ -1,14 +1,19 @@
-"""ctypes bindings for the native C++ I/O runtime (librealsr_io.so).
+"""ctypes bindings for the port's native C++ I/O runtime
+(``librealsr_io_torch.so``).
 
-The port's own copy of ``realsr_tpu/io/native.py``; it loads the same
-``native/build/librealsr_io.so`` from the repo root.
+The port's own copy of ``realsr_tpu/io/native.py``. It loads the port's own
+codec library, built from ``realsr_tpu_torch/native/`` into
+``realsr_tpu_torch/native/build/`` (``cmake -S realsr_tpu_torch/native -B
+realsr_tpu_torch/native/build && cmake --build realsr_tpu_torch/native/build``);
+``REALSR_IO_LIB`` names another file.
 
 The reference's codec layer is native C (stb_image, libwebp, WIC — SURVEY.md
-§2.4); this module binds our C++ equivalent built from native/ (libpng +
-libjpeg + libwebp). See native/realsr_io.cpp for the exported C ABI.
+§2.4); this module binds our C++ equivalent (libpng + libjpeg + libwebp). See
+``realsr_tpu_torch/native/realsr_io.cpp`` for the exported C ABI.
 
-If the library isn't built, ``available()`` is False and callers fall back
-to the PIL backend in codecs.py.
+If the library isn't built, ``available()`` is False and callers use the PIL
+backend in codecs.py: the codec layer's documented behaviour, not a device
+fallback.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ _TRIED = False
 
 
 def _lib_path() -> str:
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    return os.path.join(root, "native", "build", "librealsr_io.so")
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(pkg, "native", "build", "librealsr_io_torch.so")
 
 
 def _load():

@@ -118,3 +118,18 @@ def resolve_model_files(
         except OSError:
             continue  # not writable: try the next target
     return None
+
+
+def ensure_model(model: str, scale: int = 4) -> str:
+    """C++-bridge entry: returns ``parampath\\nbinpath`` or raises.
+
+    Called by the port's native CLI before engine init so both CLIs share
+    one resolution/synthesis path (realsr_tpu_torch/native/cli/main.cpp
+    model check)."""
+    r = resolve_model_files(model, scale)
+    if r is None:
+        raise FileNotFoundError(
+            f"model files not found under -m {model} "
+            f"(tried {', '.join(_candidate_dirs(model))})"
+        )
+    return "\n".join(r)

@@ -177,7 +177,7 @@ def test_chunking_matches_jax(tiny_model_dir, max_batch, tta, monkeypatch):
     for budget_mb in ("1", "2048"):
         monkeypatch.setenv("REALSR_TPU_BAND_BUDGET_MB", budget_mb)
         for n in range(1, 41):
-            assert port._chunking(n) == jax_e._chunking(16, n)
+            assert port._chunking(16, n) == jax_e._chunking(16, n)
 
 
 def test_max_batch_caps_chunks(tiny_model_dir):

@@ -134,7 +134,9 @@ def test_port_never_imports_jax(tmp_path):
         import sys
         import numpy as np
         import realsr_tpu_torch
-        from realsr_tpu_torch import cli
+        from realsr_tpu_torch import cli, native_bridge
+        from realsr_tpu_torch.parallel import mesh
+        from realsr_tpu_torch.tiling import calibrate
         from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
         from realsr_tpu_torch.ncnn.synth import make_model_dir
         m = {str(tmp_path / "models-DF2K")!r}
@@ -188,6 +190,24 @@ def test_port_source_imports_no_jax_package(rel):
             if top in ("jax", "jaxlib", "realsr_tpu"):
                 found.append(f"{rel}:{node.lineno} imports {n}")
     assert not found, found
+
+
+def test_port_native_sources_name_only_the_port():
+    """The port's C++ CLI embeds Python modules of the port only, and sets
+    no JAX platform; its codec library is the port's own."""
+    import re
+
+    native = os.path.join(ROOT, "realsr_tpu_torch", "native")
+    with open(os.path.join(native, "cli", "main.cpp"), encoding="utf-8") as f:
+        main = f.read()
+    mods = re.findall(r'PyImport_ImportModule\("([^"]+)"\)', main)
+    assert sorted(set(mods)) == ["realsr_tpu_torch.modelzoo", "realsr_tpu_torch.native_bridge"], mods
+    assert "JAX_PLATFORMS" not in main
+    with open(os.path.join(native, "CMakeLists.txt"), encoding="utf-8") as f:
+        cmake = f.read()
+    assert "add_library(realsr_io_torch SHARED" in cmake and "add_executable(realsr-tpu-torch" in cmake
+    with open(os.path.join(native, "realsr_io.cpp"), encoding="utf-8") as f:
+        assert "zs.avail_in == 0" in f.read()
 
 
 @pytest.mark.parametrize("storage", ["float32", "mixed", "bfloat16", "float16"])

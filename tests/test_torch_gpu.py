@@ -578,7 +578,7 @@ def test_banded_equals_whole_on_card(cuda, tmp_path, monkeypatch, storage):
     one.load(*files)
     whole = one.process(img)
     monkeypatch.setenv("REALSR_TPU_BAND_BUDGET_MB", "0")
-    assert e.needs_banding(img.shape) and e._chunking(8) == (1, 8)
+    assert e.needs_banding(img.shape) and e._chunking(32, 8) == (1, 8)
     np.testing.assert_array_equal(e.process(img), whole)
 
 
@@ -602,3 +602,44 @@ def test_process_cpu_on_card_engine(cuda, tmp_path):
     d = np.abs(got.astype(int) - plain.process(img).astype(int))
     assert (d == 0).mean() >= 0.999 and d.max() <= 1
     np.testing.assert_array_equal(e.process(img), before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["mixed", "float32"])
+def test_mesh_of_two_shards_on_card(cuda, tmp_path, storage):
+    """A mesh of two shards of the one card deals whole chunks to them and
+    is bit-equal to the single engine, whole and banded, with the pick."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+    from realsr_tpu_torch.parallel.mesh import make_mesh
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
+    single = RealSR(gpuid=0, config=EngineConfig(storage=storage, max_batch=2))
+    single.load(*files)
+    mesh = RealSR(config=EngineConfig(storage=storage, max_batch=2), mesh=make_mesh([cuda, cuda]))
+    mesh.load(*files)
+    img = np.random.default_rng(9).integers(0, 256, (300, 420, 4), np.uint8)
+    want = single.process(img)
+    assert mesh.tilesize == 0 and mesh.last_tilesize == 0
+    np.testing.assert_array_equal(mesh.process(img), want)
+    assert mesh.last_tilesize == single.last_tilesize == single._pick_tilesize(420, 300)
+    np.testing.assert_array_equal(mesh.process_banded(img, band_tile_rows=1), want)
+
+
+@pytest.mark.gpu
+def test_pick_on_card(cuda, tmp_path):
+    """The card engine picks per image among 128 / 192 / 256 (kernel
+    variant) and 128 / 192 (plain convs); banded output equals whole."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
+    e = RealSR(gpuid=0, config=EngineConfig())
+    e.load(*files)
+    dense = RealSR(gpuid=0, config=EngineConfig(variant="dense"))
+    dense.load(*files)
+    assert e.tilesize == 0 and e._pick_tilesize(1024, 768) == 256 and dense._pick_tilesize(1024, 768) == 128
+    img = np.random.default_rng(10).integers(0, 256, (290, 300, 3), np.uint8)
+    whole = e.process(img)
+    assert e.last_tilesize == e._pick_tilesize(300, 290)
+    np.testing.assert_array_equal(e.process_banded(img, band_tile_rows=1), whole)
