@@ -100,19 +100,50 @@ Phases (each prints its lines; any failure exits non-zero):
    (``realsr_tpu_torch/native``, cmake) on a directory against ``python -m
    realsr_tpu_torch``, PNG bytes equal; where the machine lacks cmake, a
    codec header or an embeddable Python, that one step prints what is
-   missing and is left out.
+   missing and is left out;
+11. the run-time dispatch, one JSON line a step: (a) each engine's output
+   through its chunk program table (a CUDA graph per key) bit-equal to the
+   same engine run eagerly (``config.cuda_graphs`` off): the default engine at
+   its pick and at tile 128 on 1024 x 768, float32 ``auto``, TTA at 256 x
+   192, the 1000 x 700 RGBA image banded, each trunk mode and the K7 tail,
+   a mesh of two shards of cuda:0; (b) in a fresh process, the kernel rows
+   of each program's replay alone (69 of the trunk's kernel and one of the
+   tail's, as its recording counted; a program with no kernel row fails) for
+   the default, TTA, float32, each trunk mode and K7 engine; (c)
+   steady ``process_device`` MP/s and idle share, graphs against eager in
+   turns, mixed and float32; (d) ``fetch`` of one image while the next
+   image computes, against the copy alone, and the old ``.cpu()`` route's
+   time; (e) each program's capture seconds and the pool's growth for it,
+   the shared pool (and, from (b)'s fresh process, the pool after each
+   engine's programs), the 6200 x 6000 banded image's peak reserved memory
+   with graphs (7b) and eagerly; (f) ``precompile`` on a fresh engine and
+   its first image; (g) the CLI on a directory of photos of mixed sizes,
+   file to file, graphs against eager in turns, outputs bit-equal.
+
+Every card engine runs a key's first chunk eagerly, its second through the
+capture of the key's graph (the warm-up computes the chunk; the kernel
+wrappers count its launches, and again for the recording, which runs
+nothing) and every later chunk as a replay (the wrappers count nothing);
+``precompile`` captures ahead. The smoke's graph class (``counting``,
+installed over the engine's) records each graph's launches and replays, so
+phases 4, 7a, 7b and 9 count the launches run on the card per chunk, band
+and shard (``executed``: the wrappers' counts less the recordings' plus the
+replays'); phase 11b holds a replay's kernel rows to its recording's
+count.
 
 The engines set TF32 for each chunk from their operand type (off for
 float32); the plain versions here run with TF32 off, except where a line
 says that it times them as a mixed engine runs them.
 
 The line before the card's line lists every kernel with its launches on
-the main path, its error against its plain version, its time, its plain
+the main path (the wrapper's count in that run, and the launches its graph
+replays ran), its error against its plain version, its time, its plain
 version's and its bound on this card (``bound_ms``: the larger of the
 operations over the data sheet's dense peak, bf16 or, for the float32
 instances, tf32 with three products per MAC, and the bytes over its memory
 rate); for the float32 instances ``library_ms`` is the cuDNN route's time
-for the same work (the plain RDB's convs; the interleaved tail's convs).
+for the same work (the plain RDB's convs; the interleaved tail's convs),
+for K6 and K7 that of the interleaved tail's convs with bf16 operands.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 or of the JAX package.
 """
@@ -120,12 +151,15 @@ or of the JAX package.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
+import hashlib
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -156,6 +190,8 @@ SAME_MIN = 0.999  # float32 kernel vs float32 plain: share of equal u8 values
 # route lands near or above that; 30 dB catches a broken one
 F16_MIN_DB = 30.0
 STEADY_HW = (768, 1024)  # phase 6 image
+# phase 11g: photos of mixed sizes (h, w), each size met once
+MIXED_HW = ((360, 480), (480, 640), (300, 533), (600, 800), (450, 600), (512, 683), (240, 320), (700, 933))
 TILE128 = 128  # phases 5-7's tile: their numbers rest on it (PRs 8, 9)
 BAND_HW = (700, 1000)  # phase 7a: a ragged grid at tile 128
 BIG_HW = (6000, 6200)  # phase 7b: above the default band budget (37.2 MP)
@@ -240,14 +276,29 @@ def sass_counts(lib_name: str) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP", "LDSM")}
 
 
-def cudnn_tail(fea, params, up2: bool):
+def cudnn_tail(fea, params, up2: bool, dtype=torch.float32):
     """The interleaved tail's cuDNN convs for the work of K6 (``up2``: from
     the 2x image, nearest-x2 + up2 conv + LeakyReLU, HRconv + LeakyReLU,
-    conv_last) or K7 (from the 4x image after up2): NCHW float32 ``fea``,
-    ``params`` the graph's OIHW groups as tensors on its device."""
+    conv_last) or K7 (from the 4x image after up2): NCHW ``fea``, ``params``
+    the graph's OIHW groups as tensors on its device. ``dtype`` float32:
+    float32 convs (TF32 as the caller's scope sets it); bfloat16: cuDNN's
+    bf16 convs (bf16 operands and outputs, channels-last), K6's and K7's
+    operand type."""
     from realsr_tpu_torch.models.rrdbnet import LRELU_SLOPE, conv3x3
     from realsr_tpu_torch.ops.resize import nearest_x2
 
+    if dtype == torch.bfloat16:
+        import torch.nn.functional as F
+
+        def conv(x, g, k=None, slope=None):
+            w, b = (params[g]["w"], params[g]["b"]) if k is None else (params[g]["w"][k], params[g]["b"][k])
+            y = F.conv2d(x, w.to(dtype).contiguous(memory_format=torch.channels_last), b.to(dtype), padding=1)
+            return y if slope is None else F.leaky_relu(y, slope)
+
+        x = fea.to(dtype).contiguous(memory_format=torch.channels_last)
+        if up2:
+            x = conv(F.interpolate(x, scale_factor=2.0, mode="nearest"), "up", 1, LRELU_SLOPE)
+        return conv(conv(x, "hr", None, LRELU_SLOPE), "last")
     f32 = torch.float32
     if up2:
         fea = nearest_x2(fea.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -340,26 +391,136 @@ def chunk_counts(engine, images: dict) -> tuple:
     return chunks, batches
 
 
+# what the smoke's counted graphs (counting) recorded and their replays ran
+# since zero_counts: {wrapper: launches} each; the captures, their seconds
+# (warm-ups included) and the replays
+GRAPH_COUNTS: dict = {"recorded": {}, "replayed": {}, "captures": 0, "replays": 0, "capture_s": 0.0}
+
+
+_THREAD = threading.local()
+
+
+class ThreadCounts(dict):
+    """A kernel module's ``LAUNCHES``, which also adds each of a thread's
+    increments (``LAUNCHES[w] += 1``: a read, then a write of one more) to
+    that thread's own tally while it has one (``_THREAD.tally``): eager
+    chunks of other threads run beside a capture, outside the device's
+    lock, and must not count as its recording's."""
+
+    def __getitem__(self, k):
+        v = super().__getitem__(k)
+        _THREAD.read = (k, v)
+        return v
+
+    def __setitem__(self, k, v):
+        tally, read = getattr(_THREAD, "tally", None), getattr(_THREAD, "read", None)
+        if tally is not None and read is not None and read[0] == k and v > read[1]:
+            tally[k] = tally.get(k, 0) + v - read[1]
+        _THREAD.read = None
+        super().__setitem__(k, v)
+
+
+def thread_counts(*modules) -> None:
+    """Give each kernel module's ``LAUNCHES`` a :class:`ThreadCounts`."""
+    for mod in modules:
+        mod.LAUNCHES = ThreadCounts(mod.LAUNCHES)
+
+
+def counting(base, rk, tk):
+    """The engine's graph class ``base`` with what the smoke reads of each
+    graph: ``launches`` ({wrapper: n}, the wrappers' counts during the
+    recording, the second run of the chunk's work: what one replay runs),
+    ``replays``, ``capture_s`` (the warm-up, which computes the key's first
+    chunk, included) and ``pool_bytes`` (how far the device's reserved
+    memory grew during the recording alone: the shared pool's growth for
+    it), each also summed into GRAPH_COUNTS. The engine serializes a
+    device's captures and replays under the device's lock, so the sums take
+    no lock; the recording's launches are the capturing thread's own tally
+    (:class:`ThreadCounts`, installed by :func:`thread_counts`)."""
+
+    def add(into: dict, launches: dict) -> None:
+        for k, n in launches.items():
+            into[k] = into.get(k, 0) + n
+
+    class Counting(base):
+        launches: dict = {}
+        replays = pool_bytes = 0
+        capture_s = 0.0
+
+        def capture(self, fn):
+            runs = []
+
+            def body():
+                if runs:
+                    self.pool_bytes = -torch.cuda.memory_reserved()
+                    _THREAD.tally = {}
+                    try:
+                        fn()
+                        self.launches = _THREAD.tally
+                    finally:
+                        _THREAD.tally = None
+                else:
+                    fn()
+                runs.append(1)
+
+            t0 = time.perf_counter()
+            super().capture(body)
+            self.capture_s = time.perf_counter() - t0
+            self.pool_bytes += torch.cuda.memory_reserved()
+            add(GRAPH_COUNTS["recorded"], self.launches)
+            GRAPH_COUNTS["captures"] += 1
+            GRAPH_COUNTS["capture_s"] += self.capture_s
+
+        def replay(self):
+            super().replay()
+            self.replays += 1
+            GRAPH_COUNTS["replays"] += 1
+            add(GRAPH_COUNTS["replayed"], self.launches)
+
+    return Counting
+
+
+def executed(rk, tk) -> dict:
+    """{wrapper: launches} run on the card since zero_counts: the wrappers'
+    counts (eager chunks, and each capture's warm-up, which computes a
+    chunk, and its recording) less the recordings' plus what the replays
+    ran. Phase 11b holds one replay's kernel rows to its recording's count
+    with torch.profiler."""
+    rec, rep = GRAPH_COUNTS["recorded"], GRAPH_COUNTS["replayed"]
+    return {k: n - rec.get(k, 0) + rep.get(k, 0) for k, n in {**rk.LAUNCHES, **tk.LAUNCHES}.items()}
+
+
 def run_cli(cli, rk, tk, args, env=None, flag=None):
     """cli.main with the launch counts set to 0 just before it and read just
     after, with ``env`` set and the rrdbnet module flag ``flag`` True during
-    the call: (wall s, {RDB wrapper: launches}, K6 launches, K7 launches)."""
+    the call: (wall s, {RDB wrapper: launches}, K6 launches, K7 launches,
+    {wrapper: its own count}). The CLI's engines run chunks through captured
+    graphs, so the launches per chunk are what ran on the card
+    (:func:`executed`), not the wrappers' own counts."""
+    from realsr_tpu_torch import engine as engine_mod
     from realsr_tpu_torch.models import rrdbnet
 
     old = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
     if flag:
         setattr(rrdbnet, flag, True)
+    made = []
+    load = engine_mod.RealSR.load
+
+    def recorded_load(self, *a, **kw):
+        made.append(self)
+        return load(self, *a, **kw)
+
+    engine_mod.RealSR.load = recorded_load
     try:
-        for counts in (rk.LAUNCHES, tk.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
+        zero_counts(rk, tk)
         t0 = time.perf_counter()
         rc = cli.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = (dict(rk.LAUNCHES), tk.LAUNCHES["up2_hr_last_packed"], tk.LAUNCHES["hr_last_packed"])
+        wrappers = {**rk.LAUNCHES, **tk.LAUNCHES}
     finally:
+        engine_mod.RealSR.load = load
         if flag:
             setattr(rrdbnet, flag, False)
         for k, v in old.items():
@@ -368,7 +529,10 @@ def run_cli(cli, rk, tk, args, env=None, flag=None):
             else:
                 os.environ[k] = v
     check(rc == 0, f"cli.main {args} returned {rc}")
-    return (wall, *counts)
+    ran = executed(rk, tk)
+    for e in made:
+        check(e.graphs == (e.bundle.spec is not None), f"cli.main {args}: an engine with graphs {e.graphs}")
+    return (wall, {k: ran[k] for k in rk.LAUNCHES}, ran["up2_hr_last_packed"], ran["hr_last_packed"], wrappers)
 
 
 def plain_trunk(rk, x, stacked, ref=None):
@@ -478,19 +642,27 @@ def zero_counts(rk, tk) -> None:
     for counts in (rk.LAUNCHES, tk.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    GRAPH_COUNTS.update(recorded={}, replayed={}, captures=0, replays=0, capture_s=0.0)
+
+
+def k1_k6(rk, tk) -> tuple:
+    """(K1, K6) launches run on the card since zero_counts (:func:`executed`)."""
+    ran = executed(rk, tk)
+    return ran["rdb_apply"], ran["up2_hr_last_packed"]
 
 
 def band_runs(eng, rk, tk, fn):
     """``fn()`` with the launch counts set to 0 just before it, and the K1
     and K6 launches of each band (each ``_dispatch_buckets`` call) read as
-    it returns: (result, [(K1, K6) per band])."""
+    it returns (:func:`executed`): (result, [(K1, K6) per band])."""
     per = []
     inner = eng._dispatch_buckets
 
     def counted(*args, **kwargs):
-        r0, t0 = rk.LAUNCHES["rdb_apply"], tk.LAUNCHES["up2_hr_last_packed"]
+        r0, t0 = k1_k6(rk, tk)
         done = inner(*args, **kwargs)
-        per.append((rk.LAUNCHES["rdb_apply"] - r0, tk.LAUNCHES["up2_hr_last_packed"] - t0))
+        r1, t1 = k1_k6(rk, tk)
+        per.append((r1 - r0, t1 - t0))
         return done
 
     eng._dispatch_buckets = counted
@@ -551,9 +723,11 @@ def timed(fn) -> tuple:
     return out, time.perf_counter() - t0
 
 
-def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_engine, rng) -> None:
+def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_engine, rng, big_band) -> None:
     """Phase 7: band streaming, process_cpu, the generic executor and the
-    dense tail's resolution on the card; one JSON line per step."""
+    dense tail's resolution on the card; one JSON line per step. 7b's
+    banded run leaves (peak reserved bytes, output digest, s) in
+    ``big_band["graphs"]`` for phase 11e."""
     from PIL import Image
 
     from realsr_tpu_torch.engine import EngineConfig, RealSR
@@ -593,8 +767,11 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     big = np.random.default_rng(9).integers(0, 256, (*BIG_HW, 3), np.uint8)
     out_mp = 16 * big.shape[0] * big.shape[1] / 1e6
     check(with_env(no_budget, lambda: engine.needs_banding(big.shape)), f"7b: {big.shape} does not need banding")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     (banded, per), s_band = timed(lambda: with_env(no_budget, lambda: band_runs(
         engine, rk, tk, lambda: engine.process(big))))
+    big_band["graphs"] = (torch.cuda.max_memory_reserved(), hashlib.sha256(banded.tobytes()).hexdigest(), s_band)
     want = band_chunks(engine, big.shape, with_env(no_budget, lambda: engine._auto_band_tile_rows(
         big.shape[1], 3, engine.tilesize)))
     check(per == [(69 * n, n) for n in want], f"7b: launches per band {per}, want 69 x / 1 x {want}")
@@ -625,7 +802,7 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
               == (label == "banded", no_budget_batch),
               f"7c: at {budget} MB the {CLI_BAND_HW} image is not {label}, or its chunk batch moved")
         dst = os.path.join(work, f"band_{label}.png")
-        _, counts, k6, _ = run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", os.path.dirname(mparam), "-g", "0",
+        _, counts, k6, _, _ = run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", os.path.dirname(mparam), "-g", "0",
                                                   "-t", str(TILE128)], env)
         with Image.open(dst) as im:
             outs[label] = (np.asarray(im), counts["rdb_apply"], k6)
@@ -690,7 +867,7 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     src = os.path.join(work, "rej.png")
     Image.fromarray(np.random.default_rng(13).integers(0, 256, (96, 128, 4), np.uint8)).save(src)
     dst = os.path.join(work, "rej_out.png")
-    (_, counts, k6, _), s_rej = timed(lambda: run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", rej_dir, "-g", "0"]))
+    (_, counts, k6, _, _), s_rej = timed(lambda: run_cli(cli, rk, tk, ["-i", src, "-o", dst, "-m", rej_dir, "-g", "0"]))
     with Image.open(dst) as im:
         rej_out = np.asarray(im)
     check(rej_out.shape == (384, 512, 4) and sum(counts.values()) == 0 and k6 == 0,
@@ -912,7 +1089,7 @@ def shard_launches(m, x: np.ndarray, rk, tk) -> tuple:
     dealing rule: a chunk that changes no output or more than one fails."""
     per = [[0, 0] for _ in range(m.mesh.size)]
     st = {"shards": [], "snap": [], "pending": None}
-    inner_shards, inner_chunk, inner_merge = m._shards, m._compute_chunk, m._merge
+    inner_shards, inner_chunk, inner_merge = m._shards, m._run_chunk, m._merge
 
     def settle():
         if st["pending"] is not None:
@@ -930,20 +1107,21 @@ def shard_launches(m, x: np.ndarray, rk, tk) -> tuple:
 
     def chunk(*args, **kwargs):
         settle()
-        r0, t0 = rk.LAUNCHES["rdb_apply"], tk.LAUNCHES["up2_hr_last_packed"]
+        r0, t0 = k1_k6(rk, tk)
         out = inner_chunk(*args, **kwargs)
-        st["pending"] = (rk.LAUNCHES["rdb_apply"] - r0, tk.LAUNCHES["up2_hr_last_packed"] - t0)
+        r1, t1 = k1_k6(rk, tk)
+        st["pending"] = (r1 - r0, t1 - t0)
         return out
 
     def merge(parts):
         settle()
         return inner_merge(parts)
 
-    m._shards, m._compute_chunk, m._merge = shards, chunk, merge
+    m._shards, m._run_chunk, m._merge = shards, chunk, merge
     try:
         got = m.process(x)
     finally:
-        del m._shards, m._compute_chunk, m._merge
+        del m._shards, m._run_chunk, m._merge
     return got, per
 
 
@@ -985,7 +1163,7 @@ def slice10_mesh(cli, rk, tk, mparam, mbin, work, card, auto_engine, auto_tta, s
     torch.cuda.empty_cache()
     # the CLI, one mesh engine over every card (one here)
     out = os.path.join(work, "b_mesh.png")
-    _, counts, k6, _ = run_cli(cli, rk, tk, ["-i", one_in, "-o", out, "-m", os.path.dirname(mparam), "-g", "0",
+    _, counts, k6, _, _ = run_cli(cli, rk, tk, ["-i", one_in, "-o", out, "-m", os.path.dirname(mparam), "-g", "0",
                                              "-v"], {"REALSR_TPU_MESH": "all"})
     with Image.open(out) as a, Image.open(one_out) as b:
         check(np.array_equal(np.asarray(a), np.asarray(b)), "9: REALSR_TPU_MESH=all CLI PNG differs from the single run")
@@ -994,6 +1172,413 @@ def slice10_mesh(cli, rk, tk, mparam, mbin, work, card, auto_engine, auto_tta, s
     print(json.dumps({"phase": "9", "what": f"make_mesh([{dev}, {dev}]) vs the single engine, "
                       f"{STEADY_HW[1]}x{STEADY_HW[0]} RGB (TTA: 333x250 RGBA)", "runs": rows, "card": card}),
           flush=True)
+
+
+def eagerly(eng, fn):
+    """``fn()`` with ``eng``'s chunks launched from Python (its config's
+    ``cuda_graphs`` off), its config back after."""
+    config = eng.config
+    eng.config = dataclasses.replace(config, cuda_graphs=False)
+    try:
+        return fn()
+    finally:
+        eng.config = config
+
+
+def kernel_of(name: str):
+    """Which kernel (K1, K1 float32, K3-K7) a profiler row of that name is,
+    demangled or not, or None."""
+    for key, tag in (("K1 float32", "rdb_tf32_kernel"), ("K1", "rdb_kernel"), ("K3", "chained_kernel"),
+                     ("K4", "paired_kernel"), ("K5", "packed_kernel")):
+        if tag in name:
+            return key
+    if "tail_kernel" in name:
+        return "K6" if "true" in name or "ELb1E" in name else "K7"
+    return None
+
+
+def profiled(fn) -> tuple:
+    """One ``fn()`` under torch.profiler: ({K1..K7: device rows}, [(count,
+    name)] of every device row, device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler keeps only device records inside its window on the
+        # host's clock: idle margins keep a skew between the clocks from
+        # cutting kernels off at either end
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    nodes: dict = {}
+    rows = []
+    dev_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_ms += e.self_device_time_total / 1e3
+        rows.append((e.count, e.key[:80]))
+        k = kernel_of(e.key)
+        if k is not None:
+            nodes[k] = nodes.get(k, 0) + e.count
+    return nodes, sorted(rows, reverse=True), dev_ms
+
+
+def replay_nodes(eng, img: np.ndarray) -> tuple:
+    """One profiled ``process_device`` of an image whose programs are all
+    captured: ({kernel: device rows}, chunks replayed, wall s, idle share of
+    the wall time)."""
+    before = GRAPH_COUNTS["replays"]
+    n_prog = len(eng.programs())
+    times = []
+
+    def run():
+        t0 = time.perf_counter()
+        eng.process_device(img)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    nodes, _, dev_ms = profiled(run)
+    check(len(eng.programs()) == n_prog, "11c: the profiled image captured a program")
+    chunks = GRAPH_COUNTS["replays"] - before
+    return nodes, chunks, times[0], (1 - dev_ms / (1e3 * times[0])) if dev_ms else None
+
+
+# phase 11b: the kernel each wrapper launches, as kernel_of names it
+WRAPPER_KERNEL = {"rdb_apply": "K1", "rdb_apply_chained": "K3", "rdb_apply_paired": "K4", "rdb_apply_packed": "K5",
+                  "up2_hr_last_packed": "K6", "hr_last_packed": "K7"}
+
+
+def program_nodes(eng, key) -> tuple:
+    """One replay of the program of ``key`` alone under torch.profiler:
+    (the kernels its recording counted, {kernel: device rows} of up to three
+    profiles until one matches, every device row of the last)."""
+    p = eng.programs()[key]
+    want: dict = {}
+    for w, n in p.graph.launches.items():
+        k = WRAPPER_KERNEL[w]
+        k = "K1 float32" if k == "K1" and eng.op_dtype == torch.float32 else k
+        want[k] = want.get(k, 0) + n
+    attempts = []
+    for _ in range(3):
+        nodes, rows, _ = profiled(p.graph.replay)
+        attempts.append(nodes)
+        if nodes == want:
+            break
+    return want, attempts, rows
+
+
+# phases 11b and 11e in a fresh process: late in the smoke's own process the
+# profiler dropped kernel records of a replay (57 of one program's 69 float32
+# K1 nodes, alike in three profiles, while 11a held that replay's output
+# bit-equal to eager and a fresh process counted all 69; the cause is not
+# known). Each engine captures its programs for an image by precompile;
+# then the shared pool's size (its segments in the allocator's snapshot)
+# and, for each program, the kernel rows of one replay alone against its
+# recording's launches.
+FRESH = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[3])
+import chip_smoke as cs
+from realsr_tpu_torch import engine as em
+from realsr_tpu_torch.ops import rdb_kernel as rk
+from realsr_tpu_torch.ops import tail_kernel as tk
+cs.thread_counts(rk, tk)
+em._CudaGraph = cs.counting(em._CudaGraph, rk, tk)
+m, b = sys.argv[1:3]
+dev = torch.device("cuda", 0)
+out = []
+for label, tta, cfg, w, h in (("default", False, {}, 1024, 768), ("TTA", True, {}, 1024, 768),
+                              ("float32", False, {"storage": "float32"}, 1024, 768),
+                              ("float32", False, {"storage": "float32"}, 300, 200),
+                              ("chained", False, {"tilesize": 128, "trunk": "chained"}, 300, 200),
+                              ("paired", False, {"tilesize": 128, "trunk": "paired"}, 300, 200),
+                              ("packed", False, {"tilesize": 128, "sched": "packed"}, 300, 200),
+                              ("K7 tail", False, {"tilesize": 128, "tail": "kernel_hr"}, 300, 200)):
+    e = em.RealSR(gpuid=0, tta_mode=tta, config=em.EngineConfig(**cfg))
+    e.load(m, b)
+    e.precompile(w, h)
+    pool = tuple(em._device_state(dev).pool)
+    seg = sum(s["total_size"] for s in torch.cuda.memory_snapshot() if tuple(s.get("segment_pool_id", ())) == pool)
+    nodes = {}
+    for key in sorted(e.program_keys(w, h), key=str):
+        want, attempts, rows = cs.program_nodes(e, key)
+        nodes[str(key[1:4])] = {"want": want, "profiles": attempts, "rows": rows[:6] if attempts[-1] != want else []}
+    out.append({"engine": f"{label} {w}x{h}", "pool_growth": {str(k[1:4]): p.graph.pool_bytes
+                                                               for k, p in e.programs().items()},
+                "pool_bytes": seg, "reserved": torch.cuda.memory_reserved(dev), "nodes": nodes})
+print(json.dumps(out))
+"""
+
+
+def slice11(rk, tk, mparam, mbin, card, auto_engine, engine, kern32_auto, auto_tta, modes, k7_engine,
+            big_band) -> None:
+    """Phase 11, the run-time dispatch: graph replay against the eager path
+    of the same engine (bit-equal), one replay's kernel nodes by the
+    profiler, steady MP/s and idle share graphs against eager, the download
+    of one image overlapping the next image's compute, each program's
+    capture cost and the pool, precompile on a fresh engine, and a directory
+    of photos of mixed sizes file to file, graphs against eager."""
+    from realsr_tpu_torch import engine as engine_mod
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ops import build
+    from realsr_tpu_torch.parallel.mesh import make_mesh
+
+    dev = auto_engine.device.torch_device
+    big = natural_image(np.random.default_rng(1), *STEADY_HW)
+    big_mp = 16 * big.shape[0] * big.shape[1] / 1e6
+    small = np.random.default_rng(16).integers(0, 256, (200, 300, 3), np.uint8)
+    tta_img = natural_image(np.random.default_rng(17), 192, 256)
+    rgba = np.random.default_rng(7).integers(0, 256, (*BAND_HW, 4), np.uint8)
+    check(all(e.graphs for e in (auto_engine, engine, kern32_auto, auto_tta, k7_engine, *modes.values())),
+          "11: an engine of the card runs eagerly")
+
+    # 11a: graph replay bit-equal to the eager path of the same engine
+    m = RealSR(config=EngineConfig(), mesh=make_mesh([dev, dev]))
+    m.load(mparam, mbin)
+    cases = [
+        ("default at its pick, 1024x768", auto_engine, big, lambda e: e.process(big)),
+        ("default at tile 128, 1024x768", engine, big, lambda e: e.process(big)),
+        ("float32 auto at its pick, 300x200", kern32_auto, small, lambda e: e.process(small)),
+        ("TTA at its pick, 256x192", auto_tta, tta_img, lambda e: e.process(tta_img)),
+        ("1000x700 RGBA banded, 1 tile row a band", auto_engine, rgba,
+         lambda e: e.process_banded(rgba, band_tile_rows=1)),
+        *((f"{mode} trunk ({e.trunk}, {e.sched}), tile 128, 300x200", e, small, lambda e: e.process(small))
+          for mode, e in modes.items()),
+        ("K7 tail (kernel_hr), tile 128, 300x200", k7_engine, small, lambda e: e.process(small)),
+        (f"make_mesh([{dev}, {dev}]), 1024x768", m, big, lambda e: e.process(big)),
+    ]
+    rows = {}
+    for label, eng, img, fn in cases:
+        eng.precompile(img.shape[1], img.shape[0], img.shape[2])
+        zero_counts(rk, tk)
+        got = fn(eng)
+        check(GRAPH_COUNTS["captures"] == 0 and GRAPH_COUNTS["replays"] > 0,
+              f"11a {label}: after precompile {GRAPH_COUNTS['captures']} captures, {GRAPH_COUNTS['replays']} replays")
+        replays = GRAPH_COUNTS["replays"]
+        want = eagerly(eng, lambda: fn(eng))
+        check(np.array_equal(got, want), f"11a {label}: the graph replay differs from the eager path")
+        rows[label] = {"bit_equal": True, "replays": replays, "programs": len(eng.programs()),
+                       "tile": eng.last_tilesize}
+    check(np.array_equal(auto_engine.process(rgba), auto_engine.process_banded(rgba, band_tile_rows=1)),
+          "11a: banded replay not bit-equal to the whole image's replay")
+    print(json.dumps({"phase": "11a", "what": "process through the chunk program table after precompile (every chunk "
+                      "a replay) vs the same engine eagerly (config.cuda_graphs off)", "runs": rows, "card": card}),
+          flush=True)
+
+    # 11b (and 11e's pool per key): a fresh process
+    r = subprocess.run([sys.executable, "-c", FRESH, mparam, mbin, ROOT], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    check(r.returncode == 0, f"11b/11e: the fresh process failed: {r.stderr[-2000:]}")
+    fresh = json.loads(r.stdout.strip().splitlines()[-1])
+    rows = {}
+    for run in fresh:
+        for key, n in run["nodes"].items():
+            check(n["profiles"][-1] == n["want"] and sum(n["want"].values()) == 70,
+                  f"11b {run['engine']} {key}: kernel rows {n['profiles']} of one replay, want {n['want']} (the "
+                  f"capture's launches); device rows of the last profile: {n['rows']}")
+            rows[f"{run['engine']} {key}"] = {"kernel_nodes": n["profiles"][-1], "profiles": len(n["profiles"])}
+    print(json.dumps({"phase": "11b", "what": "kernel rows of each program's replay alone, in a fresh process (69 of "
+                      "the trunk's kernel, 1 of the tail's, as its recording counted)", "programs": rows,
+                      "card": card}), flush=True)
+
+    # 11c: steady process_device MP/s, graphs against eager, in turns
+    def one_s(eng, img) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.process_device(img)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    rows = {}
+    for label, eng in (("mixed at its pick", auto_engine), ("float32 auto at its pick", kern32_auto)):
+        runs: dict = {"graphs": [], "eager": []}
+        eng.precompile(big.shape[1], big.shape[0])
+        one_s(eng, big)
+        eagerly(eng, lambda: one_s(eng, big))
+        for order in (("graphs", "eager"), ("eager", "graphs")) * 3:
+            for k in order:
+                runs[k].append(one_s(eng, big) if k == "graphs" else eagerly(eng, lambda: one_s(eng, big)))
+        s_g, s_e = (float(np.median(runs[k])) for k in ("graphs", "eager"))
+        idle_g = replay_nodes(eng, big)[3]
+        wall_e, groups_e, _ = eagerly(eng, lambda: profile_image(eng, big))
+        dev_e = sum(groups_e.values())
+        rows[label] = {"tile": eng.last_tilesize, "graphs_s": s_g, "eager_s": s_e, "graphs_out_mp_s": big_mp / s_g,
+                       "eager_out_mp_s": big_mp / s_e, "graphs_idle_share": idle_g,
+                       "eager_idle_share": (1 - dev_e / (1e3 * wall_e)) if dev_e else None}
+    print(json.dumps({"phase": "11c", "what": f"steady process_device {STEADY_HW[1]}x{STEADY_HW[0]} RGB, graphs vs "
+                      "eager in turns, median of 6; idle share of one profiled image", "runs": rows, "card": card}),
+          flush=True)
+    s_img = rows["mixed at its pick"]["graphs_s"]
+
+    # 11d: image 1's download while image 2 computes
+    img2 = natural_image(np.random.default_rng(18), *STEADY_HW)
+    # two pinned blocks into the host allocator's cache, so no timed fetch
+    # pays a cudaHostAlloc
+    warm = [auto_engine.fetch(auto_engine.process_device(big)) for _ in range(2)]
+    del warm
+    b = auto_engine.process_device(big)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = auto_engine.fetch(b)
+    copy_s = time.perf_counter() - t0  # the copy alone, nothing else on the card
+    limit = 3 * copy_s + 0.002
+    b1 = auto_engine.process_device(big)
+    b2 = auto_engine.process_device(img2)
+    done1, done2 = engine_mod.done_event(b1), engine_mod.done_event(b2)
+    check(done1 is not None and done2 is not None, "11d: process_device left no done event")
+    done1.synchronize()
+    t0 = time.perf_counter()
+    got = auto_engine.fetch(b1)
+    fetch_s = time.perf_counter() - t0
+    busy = not done2.query()
+    done2.synchronize()
+    rest_s = time.perf_counter() - t0
+    check(np.array_equal(got, want), "11d: the overlapped download differs")
+    check(busy and fetch_s <= limit and limit < 0.5 * s_img,
+          f"11d: fetch of image 1 took {fetch_s:.4f} s (limit {limit:.4f} s = 3 x the copy alone {copy_s:.4f} s + "
+          f"2 ms), image 2 still computing when it returned: {busy}")
+    b1 = auto_engine.process_device(big)
+    b2 = auto_engine.process_device(img2)
+    engine_mod.done_event(b1).synchronize()
+    t0 = time.perf_counter()
+    b1.cpu().numpy()
+    old_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    del b, b1, b2
+    print(json.dumps({"phase": "11d", "what": "fetch(image 1) after image 1's done event, image 2 enqueued behind it",
+                      "fetch_s": fetch_s, "copy_alone_s": copy_s, "limit_s": limit, "image2_running_at_return": busy,
+                      "image2_left_after_fetch_start_s": rest_s, "steady_image_s": s_img,
+                      "old_cpu_route_s": old_s, "bytes": int(want.nbytes), "card": card}), flush=True)
+
+    # 11e: each program's capture, the pool, and the 6200x6000 banded peak
+    keys = {}
+    for label, eng in (("default", auto_engine), ("tile 128", engine), ("float32", kern32_auto)):
+        for key, p in eng.programs().items():
+            keys[f"{label} {key[1]}x{key[2]} b{key[3]}{' tta' if key[4] else ''}{' alpha' if key[5] else ''}"] = {
+                "capture_s": p.graph.capture_s, "pool_growth_bytes": p.graph.pool_bytes}
+    pool_bytes = None
+    try:
+        pool_id = tuple(engine_mod._device_state(dev).pool)
+        pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg.get("segment_pool_id", ())) == pool_id)
+    except (TypeError, KeyError, RuntimeError) as ex:
+        print(f"11e: the pool's size from memory_snapshot: not measured ({ex!r})", flush=True)
+    fresh_pool = [{k: run[k] for k in ("engine", "pool_growth", "pool_bytes", "reserved")} for run in fresh]
+    big_img = np.random.default_rng(9).integers(0, 256, (*BIG_HW, 3), np.uint8)
+    no_budget = {"REALSR_TPU_BAND_BUDGET_MB": None}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eager_out, s_eager = timed(lambda: with_env(no_budget, lambda: eagerly(engine, lambda: engine.process(big_img))))
+    peak_eager = torch.cuda.max_memory_reserved()
+    peak_g, digest, s_g = big_band["graphs"]
+    check(hashlib.sha256(eager_out.tobytes()).hexdigest() == digest,
+          "11e: the eager banded 6200x6000 run differs from 7b's graph run")
+    check(max(peak_g, peak_eager) <= 80e9, "11e: peak reserved above the card")
+    del eager_out, big_img
+    print(json.dumps({"phase": "11e", "what": "per program: capture s (warm-up included) and the shared pool's "
+                      "growth for it; the pool's segments; peak reserved of the 6200x6000 banded image",
+                      "programs": keys, "pool_bytes": pool_bytes, "fresh_process": fresh_pool,
+                      "banded_6200x6000": {"graphs_peak_reserved": peak_g, "eager_peak_reserved": peak_eager,
+                                           "graphs_s": s_g, "eager_s": s_eager, "bit_equal": True},
+                      "card": card}), flush=True)
+
+    # 11f: precompile on a fresh engine
+    fresh = RealSR(gpuid=0, config=EngineConfig())
+    fresh.load(mparam, mbin)
+    t0 = time.perf_counter()
+    n = fresh.precompile(big.shape[1], big.shape[0])
+    s_pre = time.perf_counter() - t0
+    progs = fresh.programs()
+    check(n == len(progs) > 0 and set(progs) == fresh.program_keys(big.shape[1], big.shape[0]),
+          f"11f: precompile returned {n}, captured {len(progs)}")
+    first = one_s(fresh, big)
+    check(len(fresh.programs()) == n, "11f: the first image after precompile captured a program")
+    steady = float(np.median([one_s(fresh, big) for _ in range(3)]))
+    srcs = fresh.kernel_sources()
+    print(json.dumps({"phase": "11f", "what": "precompile(1024, 768) on a fresh default engine",
+                      "programs": n, "precompile_s": s_pre, "capture_s": {str(k[1:4]): p.graph.capture_s
+                                                                           for k, p in progs.items()},
+                      "sources": {s_: build.BUILD_SECONDS.get(s_) for s_ in srcs},
+                      "sources_note": "built by phase 2's nvcc (seconds above); precompile found them loaded",
+                      "first_image_s": first, "steady_image_s": steady, "card": card}), flush=True)
+    del m, fresh
+    torch.cuda.empty_cache()
+
+    slice11_mixed(rk, tk, mparam, card)
+
+
+def slice11_mixed(rk, tk, mparam, card) -> None:
+    """Phase 11g: the CLI on a directory of photos of mixed sizes, file to
+    file (model load included), graphs against eager in turns, median of 5,
+    outputs bit-equal, and the chunks each way ran (eager, computed by a
+    capture, replayed). Most of its keys are met once, and they outnumber
+    an engine's table."""
+    from PIL import Image
+
+    from realsr_tpu_torch import cli
+    from realsr_tpu_torch.engine import RealSR
+
+    mixed_dir = tempfile.mkdtemp(prefix="realsr_mixed_")
+    in_dir = os.path.join(mixed_dir, "in")
+    os.makedirs(in_dir)
+    rng = np.random.default_rng(19)
+    for k, (h, w) in enumerate(MIXED_HW):
+        Image.fromarray(natural_image(rng, h, w)).save(os.path.join(in_dir, f"{k}.png"))
+    mixed_mp = sum(16 * h * w for h, w in MIXED_HW) / 1e6
+    load = RealSR.load
+
+    def eager_load(self, *a, **kw):
+        rc = load(self, *a, **kw)
+        self.config = dataclasses.replace(self.config, cuda_graphs=False)
+        return rc
+
+    def dir_run(mode: str, n: int) -> dict:
+        out_dir = os.path.join(mixed_dir, f"{mode}{n}")
+        os.makedirs(out_dir)
+        if mode == "eager":
+            RealSR.load = eager_load
+        try:
+            zero_counts(rk, tk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", in_dir, "-o", out_dir, "-m", os.path.dirname(mparam), "-g", "0"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            RealSR.load = load
+        check(rc == 0, f"11g: cli.main ({mode}) returned {rc}")
+        chunks = executed(rk, tk)["rdb_apply"] // 69
+        return {"s": wall, "dir": out_dir, "chunks": chunks,
+                "eager_chunks": chunks - GRAPH_COUNTS["captures"] - GRAPH_COUNTS["replays"],
+                **{k: GRAPH_COUNTS[k] for k in ("captures", "replays", "capture_s")}}
+
+    try:
+        runs = {"graphs": [], "eager": []}
+        for mode in ("graphs", "eager", "eager", "graphs") * 2 + ("graphs", "eager"):
+            runs[mode].append(dir_run(mode, len(runs[mode])))
+        for k in range(len(MIXED_HW)):
+            a, b = (np.asarray(Image.open(os.path.join(runs[m_][0]["dir"], f"{k}.png")))
+                    for m_ in ("graphs", "eager"))
+            check(np.array_equal(a, b), f"11g: image {k} through graphs differs from eager")
+        every = runs["graphs"] + runs["eager"]
+        check(len({r["chunks"] for r in every}) == 1 and every[0]["chunks"] > 0
+              and all(r["captures"] == r["replays"] == 0 for r in runs["eager"]),
+              f"11g: chunks {[r['chunks'] for r in every]}, captures {[r['captures'] for r in every]}, replays "
+              f"{[r['replays'] for r in every]} (graphs, then eager)")
+        med = {m_: float(np.median([r["s"] for r in rs])) for m_, rs in runs.items()}
+        print(json.dumps({"phase": "11g", "what": f"cli.main on a directory of {len(MIXED_HW)} photos of mixed sizes "
+                          f"{MIXED_HW}, file to file (model load included), graphs vs eager in turns, median of 5",
+                          "output_mp": mixed_mp, "graphs_s": med["graphs"], "eager_s": med["eager"],
+                          "graphs_out_mp_s": mixed_mp / med["graphs"], "eager_out_mp_s": mixed_mp / med["eager"],
+                          "runs": {m_: [{k: r[k] for k in ("s", "chunks", "eager_chunks", "captures", "replays",
+                                                           "capture_s")} for r in rs] for m_, rs in runs.items()},
+                          "bit_equal": True, "card": card}), flush=True)
+    finally:
+        shutil.rmtree(mixed_dir, ignore_errors=True)
 
 
 def _missing_native_deps() -> list:
@@ -1105,9 +1690,13 @@ def main() -> int:
     from realsr_tpu_torch.loader import load_model
     from realsr_tpu_torch.models.rrdbnet import tf32
     from realsr_tpu_torch.ops import build
+    from realsr_tpu_torch import engine as engine_mod
     from realsr_tpu_torch.ops import rdb_kernel as rk
     from realsr_tpu_torch.ops import tail_kernel as tk
 
+    # every engine's graphs count their launches and replays for the smoke
+    thread_counts(rk, tk)
+    engine_mod._CudaGraph = counting(engine_mod._CudaGraph, rk, tk)
     # the default run: the engines' own choice of tail
     os.environ.pop("REALSR_TPU_PACKED_TAIL", None)
 
@@ -1276,6 +1865,8 @@ def main() -> int:
         bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
         tp16 = {k: v.to(dev) for k, v in bundle.params["tail"].items()}
         tp32 = {k: v.to(dev) for k, v in tk.pack_tail_params(bundle.params, torch.float32).items()}
+        graph_p = {g: {k: torch.as_tensor(v, device=dev) for k, v in bundle.params[g].items()}
+                   for g in ("up", "hr", "last")}
         for up, label in ((True, "K6"), (False, "K7")):
             for b_, h_, w_ in TAIL_SHAPES:
                 g = tk.tail_geometry(b_, h_, w_, up, sms)
@@ -1301,6 +1892,13 @@ def main() -> int:
                       f"1e-3), two runs bit-equal{times} {card}", flush=True)
                 if timed:
                     results[(label, "mixed")] = (err, ms, pms)
+                    # library: cuDNN's bf16 convs of the interleaved tail for the same work
+                    fea = torch.zeros((b_, NF, (2 if label == "K6" else 4) * h_, (2 if label == "K6" else 4) * w_),
+                                      device=dev)
+                    library[label] = cuda_ms(lambda: cudnn_tail(fea, graph_p, label == "K6", torch.bfloat16), 2, 10)
+                    del fea
+                    print(f"tail {label}: the interleaved tail's cuDNN bf16 convs for the same work "
+                          f"{library[label]:.3f} ms (library) {card}", flush=True)
                     # the input, the packed tail weights, the [B, 4H, 4W, 3] f32 output
                     results[(label, "io")] = nbytes(xin, *tp16.values()) + b_ * 16 * h_ * w_ * 3 * 4
                     # the patch shape alone: the kernel at each shape it is built for
@@ -1323,8 +1921,6 @@ def main() -> int:
         # the float32 instances (3xTF32) against the float32 plain versions
         # with TF32 off, as float32 K1; timed beside the interleaved tail's
         # cuDNN convs for the same work (the float32 engine's other tail)
-        graph_p = {g: {k: torch.as_tensor(v, device=dev) for k, v in bundle.params[g].items()}
-                   for g in ("up", "hr", "last")}
         tol32 = RDB_TOL["float32"]
         for up, label in ((True, "K6"), (False, "K7")):
             for b_, h_, w_ in TAIL_SHAPES:
@@ -1659,7 +2255,7 @@ def main() -> int:
         # the CLI's engine: the same default config, so the same tile plan
         engine = RealSR(gpuid=0, config=EngineConfig())
         engine.load(mparam, mbin)
-        wall, counts, k6_main, k7 = run_cli(
+        wall, counts, k6_main, k7, wrappers_main = run_cli(
             cli, rk, tk, ["-i", in_dir, "-o", out_dir, "-m", model_dir, "-g", "0"])
         launches = counts["rdb_apply"]
         chunks, _ = chunk_counts(engine, images)
@@ -1679,22 +2275,26 @@ def main() -> int:
         check(k6_main == want_k6 and k7 == 0,
               f"tail launches K6 {k6_main}, K7 {k7}; want {want_k6} (tail {engine.tail}) and 0")
         print(f"main path: cli.main rc 0, 3 images -> 4x outputs (RGBA kept 4 channels), "
-              f"tiles picked {picks}, tail {engine.tail}, {chunks} chunks, {launches} rdb_kernel "
-              f"launches, {k6_main} K6 launches; {out_mp:.3f} output MP in {wall:.3f} s = "
-              f"{out_mp / wall:.3f} output MP/s (model load and first calls included) {card}",
+              f"tiles picked {picks}, tail {engine.tail}, {chunks} chunks ({GRAPH_COUNTS['captures']} computed "
+              f"by a capture's warm-up, {GRAPH_COUNTS['replays']} graph replays, the rest eagerly: a key's first "
+              f"chunk): {launches} rdb_kernel launches, {k6_main} K6 launches run on the card; the wrappers "
+              f"counted {wrappers_main['rdb_apply']} K1 and {wrappers_main['up2_hr_last_packed']} K6 (eager "
+              f"chunks, and each capture's warm-up and recording); "
+              f"{out_mp:.3f} output MP in {wall:.3f} s = "
+              f"{out_mp / wall:.3f} output MP/s (model load, first calls and captures included) {card}",
               flush=True)
         one = {"b.png": images["b.png"]}
         one_in = os.path.join(in_dir, "b.png")
         n1, _ = chunk_counts(engine, one)
-        k6_cli = k6_main
+        k6_cli, wrappers_k6 = k6_main, wrappers_main
         if engine.tail != "kernel":
             # auto kept the interleaved tail: drive K6 through the CLI too
-            _, counts3, k6_cli, _ = run_cli(
+            _, counts3, k6_cli, _, wrappers_k6 = run_cli(
                 cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_k6.png"),
                               "-m", model_dir, "-g", "0"], {"REALSR_TPU_PACKED_TAIL": "3"})
             check(k6_cli == n1 and counts3["rdb_apply"] == 69 * n1,
                   f"K6 CLI run: {k6_cli} K6 launches != {n1}")
-        _, counts2, k6, k7 = run_cli(
+        _, counts2, k6, k7, wrappers_k7 = run_cli(
             cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_k7.png"), "-m", model_dir,
                           "-g", "0"], {"REALSR_TPU_PACKED_TAIL": "2"})
         launches2 = counts2["rdb_apply"]
@@ -1706,7 +2306,7 @@ def main() -> int:
         tta_engine = RealSR(gpuid=0, tta_mode=True, config=EngineConfig())
         tta_engine.load(mparam, mbin)
         tta_out = os.path.join(out_dir, "b_tta.png")
-        wall, counts_x, k6_x, k7_x = run_cli(
+        wall, counts_x, k6_x, k7_x, _ = run_cli(
             cli, rk, tk, ["-i", one_in, "-o", tta_out, "-m", model_dir, "-g", "0", "-x"])
         launches_x = counts_x["rdb_apply"]
         chunks_x, batches_x = chunk_counts(tta_engine, one)
@@ -1724,7 +2324,7 @@ def main() -> int:
         eng32.load(mparam, mbin)
         n32, _ = chunk_counts(eng32, one)
         out32 = os.path.join(out_dir, "b_f32.png")
-        wall, counts32, k6_32, k7_32 = run_cli(
+        wall, counts32, k6_32, k7_32, wrappers_32 = run_cli(
             cli, rk, tk, ["-i", one_in, "-o", out32, "-m", model_dir, "-g", "0"], {"REALSR_TPU_STORAGE": "float32"})
         f32_launches = counts32["rdb_apply"]
         with Image.open(out32) as im:
@@ -1739,31 +2339,32 @@ def main() -> int:
         del eng32
         # the float32 K7 tail, chained trunk and packed schedule through the CLI
         f32_env = {"REALSR_TPU_STORAGE": "float32"}
-        _, c, k6_x32, k7_32 = run_cli(cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_f32_k7.png"), "-m",
+        _, c, k6_x32, k7_32, wrappers_k7_32 = run_cli(cli, rk, tk, ["-i", one_in, "-o", os.path.join(out_dir, "b_f32_k7.png"), "-m",
                                                     model_dir, "-g", "0"], {**f32_env, "REALSR_TPU_PACKED_TAIL": "2"})
         check(k7_32 == n32 and k6_x32 == 0 and c["rdb_apply"] == 69 * n32,
               f"float32 K7 CLI run: {k7_32} K7 / {k6_x32} K6 / {c} RDB launches for {n32} chunks")
-        f32_modes = {}
+        f32_modes, f32_modes_w = {}, {}
         for mode, flag, env, key in (("chained", "CHAINED_TRUNK", {}, "rdb_apply_chained"),
                                      ("packed", None, {"REALSR_TPU_SCHED": "packed"}, "rdb_apply_packed")):
             out_m = os.path.join(out_dir, f"b_f32_{mode}.png")
-            wall, c, k6_m, _ = run_cli(cli, rk, tk, ["-i", one_in, "-o", out_m, "-m", model_dir, "-g", "0"],
+            wall, c, k6_m, _, w_m = run_cli(cli, rk, tk, ["-i", one_in, "-o", out_m, "-m", model_dir, "-g", "0"],
                                        {**f32_env, **env}, flag)
             with Image.open(out_m) as im:
                 check(np.asarray(im).shape == (800, 1200, 3), f"float32 {mode}: output {np.asarray(im).shape}")
             check(c[key] == 69 * n32 and sum(c.values()) == c[key] and k6_m == n32,
                   f"float32 {mode} CLI run: launches {c}, K6 {k6_m}; want 69 x {n32} of {key} only")
             f32_modes[key] = c[key]
+            f32_modes_w[key] = w_m[key]
             print(f"main path, REALSR_TPU_STORAGE=float32, trunk mode {mode}: b.png, {n32} chunks, {c[key]} {key} "
                   f"launches (float32 instances), 0 rdb_apply, {k6_m} K6, {wall:.3f} s {card}", flush=True)
         print(f"main path, REALSR_TPU_STORAGE=float32 REALSR_TPU_PACKED_TAIL=2: b.png, {n32} chunks, {k7_32} K7 "
               f"launches (its float32 instance) {card}", flush=True)
 
         # the trunk modes through the CLI, each on one image
-        mode_launches = {}
+        mode_launches, mode_w = {}, {}
         for mode, (_, flag, sched, key) in MODES.items():
             out_m = os.path.join(out_dir, f"b_{mode}.png")
-            wall, counts_m, k6_m, _ = run_cli(
+            wall, counts_m, k6_m, _, w_m = run_cli(
                 cli, rk, tk, ["-i", one_in, "-o", out_m, "-m", model_dir, "-g", "0"],
                 {"REALSR_TPU_SCHED": sched} if sched else None, flag)
             with Image.open(out_m) as im:
@@ -1772,6 +2373,7 @@ def main() -> int:
                   and k6_m == (n1 if engine.tail == "kernel" else 0),
                   f"{mode} CLI run: launches {counts_m}, K6 {k6_m}; want 69 x {n1} of {key} only")
             mode_launches[key] = counts_m[key]
+            mode_w[key] = w_m[key]
             print(f"main path, trunk mode {mode} ({flag or f'REALSR_TPU_SCHED={sched}'}): b.png, {n1} "
                   f"chunks, {counts_m[key]} {key} launches, 0 rdb_apply, {k6_m} K6 launches, "
                   f"{wall:.3f} s {card}", flush=True)
@@ -1956,8 +2558,10 @@ def main() -> int:
                   + "; ".join(f"{ms:.1f} ms {n[:90]}" for ms, n in top) + f" {card}", flush=True)
 
         # -- 7. slice 9 --------------------------------------------------
-        slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_engine, rng)
-        del tails, steady, steady32, modes, f32_engines, kern32_int, tta32, tta_plain, plain_mixed, f16, k6_engine
+        big_band: dict = {}
+        slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_engine, rng, big_band)
+        k7_engine = tails["kernel_hr"]  # phase 11, with the trunk modes' engines
+        del tails, steady, steady32, f32_engines, kern32_int, tta32, tta_plain, plain_mixed, f16, k6_engine
         torch.cuda.empty_cache()
 
         # -- 8-10. slice 10: the tile pick, mesh mode, the native bridge ----
@@ -1967,6 +2571,11 @@ def main() -> int:
         slice10_mesh(cli, rk, tk, mparam, mbin, work, card, auto_engine, auto_tta, kern32_auto, one_in,
                      os.path.join(out_dir, "b.png"))
         slice10_bridge(mparam, mbin, work, card, auto_engine, kern32_auto)
+
+        # -- 11. slice 11: the chunk program table, the fences, precompile --
+        t11 = time.perf_counter()
+        slice11(rk, tk, mparam, mbin, card, auto_engine, engine, kern32_auto, auto_tta, modes, k7_engine, big_band)
+        print(f"phase 11: {time.perf_counter() - t11:.1f} s {card}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1974,7 +2583,19 @@ def main() -> int:
     # on the main path (K1/K2: the default CLI run, their float32 instances
     # and K6's the REALSR_TPU_STORAGE=float32 run; K6: K6's; K7: the
     # REALSR_TPU_PACKED_TAIL=2 run; K3-K5: their modes' runs; the float32 K3,
-    # K5 and K7: the float32 runs of their modes) and its bound
+    # K5 and K7: the float32 runs of their modes) and its bound. "launches"
+    # is what the wrapper counted in that run (eager chunks, and each
+    # capture's warm-up, which computes a chunk, and its recording);
+    # "launches_replayed" what ran on the card (executed: eager chunks,
+    # warm-ups and replays)
+    wrapped = {
+        "K1": wrappers_main["rdb_apply"], "K2": wrappers_main["rdb_apply"],
+        "K1 float32": wrappers_32["rdb_apply"], "K2 float32": wrappers_32["rdb_apply"],
+        "K3": mode_w["rdb_apply_chained"], "K4": mode_w["rdb_apply_paired"], "K5": mode_w["rdb_apply_packed"],
+        "K6": wrappers_k6["up2_hr_last_packed"], "K7": wrappers_k7["hr_last_packed"],
+        "K3 float32": f32_modes_w["rdb_apply_chained"], "K5 float32": f32_modes_w["rdb_apply_packed"],
+        "K6 float32": wrappers_32["up2_hr_last_packed"], "K7 float32": wrappers_k7_32["hr_last_packed"],
+    }
     tail_px = B * 16 * SIDE * SIDE
     kernels = []
     for key, kname, src, replaces, n, macs, result in (
@@ -2014,14 +2635,15 @@ def main() -> int:
         b_ms, b_by = bound(macs, results[(key, "io")], tf32=key.endswith("float32"))
         kernels.append({
             "name": f"{key} {kname}", "route": "cuda", "source": f"realsr_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "replaces": replaces, "launches": wrapped[key], "launches_replayed": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library.get(key),
             "checked_against_plain": True,  # phases 3-3c fail on any disagreement
         })
         if key in ("K1", "K1 float32", "K6", "K6 float32"):
             # phase 8a: the chunk shapes of tiles 192 and 256
             kernels[-1]["at_new_shapes"] = {shape: rows[key] for shape, rows in new_shapes.items()}
-        check(n > 0, f"{key}: no launch on the main path")
+        check(n > 0 and wrapped[key] > 0, f"{key}: no launch on the main path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ do (there is no distributed runtime to ask). On ``-g -1``, ``-j``'s proc
 count sets torch's CPU thread count (default 2). ``REALSR_TPU_MESH`` (``all``
 or a comma list of device ids) runs one engine that deals each image's tile
 chunks to those devices (``parallel/mesh.py``) in place of one engine per
-``-g`` id.
+``-g`` id. ``REALSR_TPU_PRECOMPILE=1`` makes every engine's chunk programs
+for the first input's shape (and the ``REALSR_TPU_IMAGE_BATCH`` stack)
+ready before the pipeline starts (``RealSR.precompile``).
 """
 
 from __future__ import annotations
@@ -310,6 +312,31 @@ def main(argv: Optional[List[str]] = None) -> int:
                 file=sys.stderr,
             )
 
+    # Optional warm-up (REALSR_TPU_PRECOMPILE=1): build the kernels the
+    # engines launch and capture the first image's chunk programs before
+    # the pipeline starts, as the JAX CLI compiles its programs
+    image_batch = max(1, _atoi(os.environ.get("REALSR_TPU_IMAGE_BATCH", "1")))
+    if os.environ.get("REALSR_TPU_PRECOMPILE", "0") not in ("0", "") and input_files:
+        try:
+            # decode with the pipeline's own codec path, so the channel
+            # count cannot differ from what proc_worker will see
+            from realsr_tpu_torch.io.codecs import decode_image
+
+            img0 = decode_image(input_files[0])
+            if img0 is None:
+                raise ValueError(f"cannot decode {input_files[0]}")
+            h0, w0, ch = img0.shape
+            for e in engines:
+                n = e.precompile(w0, h0, channels=ch)
+                # the stack a proc thread drains is another program set
+                nb = min(image_batch, e.max_batch_images((h0, w0, ch)))
+                if nb > 1:
+                    n += e.precompile(w0, h0, channels=ch, n_img=nb)
+                if verbose:
+                    print(f"precompiled {n} programs for {w0}x{h0}", file=sys.stderr)
+        except Exception as ex:  # warm-up must never break processing
+            print(f"precompile skipped: {ex}", file=sys.stderr)
+
     run_pipeline(
         input_files,
         output_files,
@@ -318,6 +345,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         jobs_load=jobs_load,
         jobs_save=jobs_save,
         verbose=verbose,
-        image_batch=max(1, _atoi(os.environ.get("REALSR_TPU_IMAGE_BATCH", "1"))),
+        image_batch=image_batch,
     )
     return 0

@@ -25,10 +25,23 @@ measured on the H100); the CPU keeps the reference's fixed 200. With a
 ``mesh`` (``parallel.mesh``) one engine deals an image's whole chunks
 round-robin to the mesh's devices: each writes its own tiles into a private
 u8 output, and the outputs merge once per image.
+
+On a card the chunks of a program key ``(ph, pw, batch, tta, alpha)`` on a
+device run through a CUDA graph of that key (the JAX engine's AOT table of
+compiled chunk programs): the key's first chunk eagerly, so a size met once
+pays no capture, its second by the capture, later ones as replays
+(:meth:`RealSR.precompile` fills the table ahead of a request). The graph
+holds the chunk's forward, halo crop, rounding and alpha bicubic between
+static tile and u8 buffers; the dispatch loop copies each chunk's tiles in,
+replays, and scatters out. An image's download runs on a copy stream that
+waits only for that image's last scatter, so it overlaps the next image's
+compute; the progress fence waits on events of its own chunks.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import os
 import sys
@@ -88,6 +101,12 @@ class EngineConfig:
     # the per-RDB kernel's schedule: "scatter" (K1) | "packed" (K5).
     # REALSR_TPU_SCHED overrides it on the kernel trunk (sched_env).
     sched: str = "scatter"
+    # on a card, run each chunk as the replay of a CUDA graph captured once
+    # per chunk program (RealSR.graphs); False launches every chunk's work
+    # from Python. The CPU and the generic executor always run eagerly: the
+    # executor's layers upload constants on each call, which a capture
+    # cannot hold.
+    cuda_graphs: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +216,169 @@ def _to_device(tree, device: torch.device):
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
 
 
+def kernel_sources(variant, trunk, sched, tail, op_dtype) -> tuple:
+    """The nvcc sources (``ops/build.py::SOURCES``) whose kernels a forward
+    of this resolved form launches: the trunk's (K1/K2, or the mode
+    kernels K3-K5) and the kernel tail's (K6/K7), in the operand type's
+    instance (3xTF32 for float32)."""
+    f32 = op_dtype == torch.float32
+    out = []
+    if variant == "cuda":
+        if trunk == "per_rdb" and sched == "scatter":
+            out.append("rdb_tf32" if f32 else "rdb_wgmma")
+        else:
+            out.append("rdb_modes_tf32" if f32 else "rdb_modes_wgmma")
+    if tail in ("kernel", "kernel_hr"):
+        out.append("tail_tf32" if f32 else "tail_kernel")
+    return tuple(out)
+
+
+class _DeviceState:
+    """What the engines of a process share on one device. ``lock``
+    serializes the capture and the replay of every chunk program on the
+    device, each with its copy-in and scatter-out; ``last`` orders those
+    replays on the GPU when callers' threads use different streams. The
+    graphs' scratch shares one ``pool``, which is safe only because no
+    graph's pool memory outlives its replay (the static buffers live
+    outside it) and no two replays on a device overlap. Captures run on
+    ``capture_stream`` (one stream, so that later captures reuse the pool's
+    freed blocks) and downloads on ``copy_stream``. The pool lives as long
+    as the process: the allocator refuses a capture into a pool whose
+    graphs have all been freed, as an engine's graphs are when it is, so a
+    graph that is never replayed (``_keeper``) holds it. On the CPU, where
+    only the tests' stand-in graphs run, only ``lock`` is used."""
+
+    def __init__(self, device: torch.device):
+        self.lock = threading.Lock()
+        self.pool = self.capture_stream = self.copy_stream = self.last = None
+        if device.type != "cuda":
+            return
+        self.pool = torch.cuda.graph_pool_handle()
+        self.capture_stream = torch.cuda.Stream(device)
+        self.copy_stream = torch.cuda.Stream(device)
+        self.last = torch.cuda.Event()
+        self._keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.capture_stream):
+            self._keeper.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            torch.zeros(1, device=device)
+            self._keeper.capture_end()
+
+
+_DEVICE_STATES: dict = {}
+_DEVICE_STATES_LOCK = threading.Lock()
+
+
+def _device_state(device: torch.device) -> _DeviceState:
+    with _DEVICE_STATES_LOCK:
+        if device not in _DEVICE_STATES:
+            _DEVICE_STATES[device] = _DeviceState(device)
+        return _DEVICE_STATES[device]
+
+
+class _CudaGraph:
+    """A chunk program as a CUDA graph. :meth:`capture` runs ``fn`` once
+    eagerly on the device's capture stream, on the chunk the static buffers
+    hold, so its output is that chunk's (the warm-up also loads the kernel
+    libraries, fills the ops' device caches and lets cuDNN and cuBLAS set up,
+    none of which a capture may do), then records it in
+    ``capture_error_mode="thread_local"``, so that the other threads'
+    allocations and syncs do not void the capture; a capture that fails
+    raises. The recording runs nothing, so the static output keeps the
+    warm-up's result. :meth:`replay` enqueues the graph on the current
+    stream."""
+
+    def __init__(self, state: _DeviceState):
+        self._state = state
+        self.graph = torch.cuda.CUDAGraph()
+
+    @staticmethod
+    def supports(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    def capture(self, fn: Callable[[], None]) -> None:
+        side = self._state.capture_stream
+        cur = torch.cuda.current_stream(side.device)
+        side.wait_stream(cur)  # the static inputs were written on cur
+        with torch.cuda.stream(side):
+            fn()
+            self.graph.capture_begin(pool=self._state.pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+        cur.wait_stream(side)  # the warm-up's output precedes cur's next use
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+# keys an engine keeps per device (captured programs, and keys met once),
+# least recently used evicted first: four image shapes' four buckets
+# (interior, right, bottom, corner). A mixed 6 x 276^2 key's static buffers
+# are 24.4 MB; its scratch is in the device's shared pool, which a freed
+# graph's blocks return to.
+MAX_PROGRAMS = 16
+
+
+@dataclasses.dataclass
+class _ChunkProgram:
+    """One entry of the table: the static tiles ``[B, ph, pw, 3]`` (storage
+    dtype), alpha ``[B, hn, wn, 1]`` f32 (RGBA) and u8 output the graph
+    reads and writes, and the graph."""
+
+    tiles: torch.Tensor
+    alpha: Optional[torch.Tensor]
+    out: torch.Tensor
+    graph: object = None
+
+
+def done_event(buf: torch.Tensor):
+    """The CUDA event recorded after the last scatter (and the merge) of the
+    image ``buf`` belongs to, or None (a CPU buffer, or one this engine did
+    not make). It rides on the output tensor, which a view of one image of
+    a stack reaches as its ``_base``."""
+    ev = getattr(buf, "_realsr_done", None)
+    if ev is None and buf._base is not None:
+        ev = getattr(buf._base, "_realsr_done", None)
+    return ev
+
+
+def _download(buf: torch.Tensor, done, host: Optional[torch.Tensor] = None) -> tuple:
+    """Start ``buf``'s download on its device's copy stream, after ``done``
+    and nothing else, into ``host`` (pinned) or a new pinned tensor: (host
+    tensor, event recorded after the copy). ``record_stream`` keeps the
+    allocator from handing ``buf``'s memory out again before the copy has
+    read it."""
+    stream = _device_state(buf.device).copy_stream
+    if host is None:
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        stream.wait_event(done)
+        host.copy_(buf, non_blocking=True)
+        buf.record_stream(stream)
+        copied = torch.cuda.Event()
+        copied.record(stream)
+    return host, copied
+
+
+def _fence(devices) -> None:
+    """Wait for the work this thread enqueued so far on each CUDA device of
+    ``devices``: an event recorded on the device's current stream, waited
+    on, so other threads' work and copies in flight are not waited for (the
+    JAX engine fences a chunk by fetching one element of its output)."""
+    events = []
+    for d in devices:
+        if d.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            events.append(ev)
+    for ev in events:
+        ev.synchronize()
+
+
 class RealSR:
     """Engine bound to one device; mirrors the reference's ctor/load/process
     (src/realsr.h:20-27). ``gpuid=-1`` runs on the CPU; ``gpuid >= 0``
@@ -218,6 +400,15 @@ class RealSR:
     between threads: the CLI's proc threads on one engine (same setting) run
     their chunks concurrently, and a chunk of an engine of the other operand
     type waits until none of them holds the scope.
+
+    With :attr:`graphs` each chunk of a key ``(device, ph, pw, batch, tta,
+    alpha)`` met before runs as a replay of that key's graph, captured
+    (:class:`_CudaGraph`) on the key's second chunk, whose output the
+    capture's warm-up computes, or by :meth:`precompile`; a key's first
+    chunk runs eagerly, so a size met once pays no capture. The capture
+    holds the TF32 setting of the chunk's scope, so a replay needs no
+    scope. An engine keeps :data:`MAX_PROGRAMS` keys per device, the least
+    recently used evicted first.
     """
 
     def __init__(
@@ -267,6 +458,9 @@ class RealSR:
         else:
             self.tilesize = 0
         self.last_tilesize = self.tilesize
+        # the chunk program table: {device: OrderedDict((device, ph, pw,
+        # batch, tta, alpha) -> _ChunkProgram)}, least recently used first
+        self._programs: dict = {}
 
     def load(self, parampath: str, modelpath: str) -> int:
         """Parse and load the model files onto the device. Returns 0 like
@@ -296,6 +490,7 @@ class RealSR:
             variant = trunk = sched = None
         self.variant, self.tail, self.trunk, self.sched = variant, self.bundle.tail, trunk, sched
         self.scale = self.bundle.scale
+        self._programs = {}  # graphs of the previous model read its parameters
         # the planner's rate table, read once here, not once per image
         self._rate_anchors = _anchors()
         if variant == "cuda":
@@ -312,6 +507,18 @@ class RealSR:
                 self._params_on[d] = _to_device(self.bundle.params, d)
         self._params = self._params_on[self.device.torch_device]
         return 0
+
+    @property
+    def graphs(self) -> bool:
+        """Whether chunks run through the chunk program table: asked for by
+        ``config.cuda_graphs``, on a device :class:`_CudaGraph` supports (a
+        card), with the RRDBNet fast path loaded. The CPU and the generic
+        executor always run eagerly: the executor's layers upload constants
+        on each call, which a capture cannot hold."""
+        return bool(
+            self.config.cuda_graphs and self.bundle is not None and self.bundle.spec is not None
+            and _CudaGraph.supports(self.device.torch_device)
+        )
 
     def _device_kind(self) -> str:
         dev = self.device.torch_device
@@ -429,47 +636,150 @@ class RealSR:
             out = torch.maximum(out, part.to(out.device))
         return out
 
-    def _dispatch_buckets(
-        self, shards: list, buckets: dict, tilesize: int, c: int,
-        progress_cb, done: int, total: int, batches: Optional[dict] = None,
-    ) -> int:
-        """Run every chunk of ``buckets`` ({(ph, pw): [(image, x0, y0)]},
-        origins in the padded input's coordinates: band-local under band
-        streaming) and scatter the u8 tiles into the outputs. ``shards``
-        (:meth:`_shards`) takes the chunks in turn, whole: chunk j runs on
-        shard ``j % len(shards)``, reads its input and writes its output.
-        ``batches`` gives a bucket's chunk batch ({(ph, pw): batch}); a
-        bucket it lacks takes :meth:`_chunking`'s. Returns the tiles done."""
-        s, pad = self.scale, self.prepadding
-        chunks = []  # (ph, pw, the chunk's triples, its tiles that are not pad duplicates)
+    def _chunk_list(self, buckets: dict, tilesize: int, batches: Optional[dict] = None) -> list:
+        """The chunks of ``buckets`` ({(ph, pw): [(image, x0, y0)]}) in
+        dispatch order: [(ph, pw, the chunk's triples, its tiles that are
+        not pad duplicates)]. ``batches`` gives a bucket's chunk batch
+        ({(ph, pw): batch}); a bucket it lacks takes :meth:`_chunking`'s.
+        Duplicated pad tiles rewrite identical bytes."""
+        chunks = []
         for (ph, pw), triples in buckets.items():
             n = len(triples)
             bsz = (batches or {}).get((ph, pw)) or self._chunking(tilesize, n)[0]
             nc = -(-n // bsz)
-            # duplicated pad tiles rewrite identical bytes
             triples = triples + [triples[-1]] * (nc * bsz - n)
             chunks += [(ph, pw, triples[k * bsz : (k + 1) * bsz], min(bsz, n - k * bsz)) for k in range(nc)]
+        return chunks
+
+    def _dispatch_buckets(
+        self, shards: list, buckets: dict, tilesize: int, c: int,
+        progress_cb, done: int, total: int, batches: Optional[dict] = None,
+    ) -> int:
+        """Run every chunk of ``buckets`` (origins in the padded input's
+        coordinates: band-local under band streaming; :meth:`_chunk_list`)
+        and scatter the u8 tiles into the outputs. ``shards``
+        (:meth:`_shards`) takes the chunks in turn, whole: chunk j runs on
+        shard ``j % len(shards)``, reads its input and writes its output.
+        Returns the tiles done."""
+        chunks = self._chunk_list(buckets, tilesize, batches)
         for j, (ph, pw, chunk, real) in enumerate(chunks):
-            hn, wn = ph - 2 * pad, pw - 2 * pad
             padded, alpha, out = shards[j % len(shards)]
             with tracer.span("dispatch"):
-                tiles = torch.stack([padded[i, y : y + ph, x : x + pw] for i, x, y in chunk])
-                atiles = None
-                if c == 4:
-                    atiles = torch.stack([alpha[i, y : y + hn, x : x + wn] for i, x, y in chunk])
-                tiles_u8 = self._compute_chunk(tiles, atiles, hn, wn)
-                for (i, x, y), t in zip(chunk, tiles_u8):
-                    out[i, y * s : (y + hn) * s, x * s : (x + wn) * s] = t
+                self._run_chunk(padded, alpha, out, ph, pw, chunk, c)
             done += real
             if progress_cb is not None and ((j + 1) % len(shards) == 0 or j + 1 == len(chunks)):
                 # fence the round's chunks (one on each shard's device, so
                 # the devices run concurrently) so the % reports completed
                 # work, like the reference's per-tile counter (realsr.cpp:481)
-                for d in {sh[2].device for sh in shards[: j % len(shards) + 1]}:
-                    if d.type == "cuda":
-                        torch.cuda.synchronize(d)
+                _fence({sh[2].device for sh in shards[: j % len(shards) + 1]})
                 progress_cb(done / total)
         return done
+
+    def _gather(self, padded, alpha, chunk, ph: int, pw: int, c: int, into: Optional[_ChunkProgram] = None):
+        """The chunk's padded tiles [B, ph, pw, 3] and, for RGBA, its alpha
+        tiles [B, hn, wn, 1]; written into ``into``'s static buffers when
+        given."""
+        pad = self.prepadding
+        hn, wn = ph - 2 * pad, pw - 2 * pad
+        kw = {} if into is None else {"out": into.tiles}
+        tiles = torch.stack([padded[i, y : y + ph, x : x + pw] for i, x, y in chunk], **kw)
+        atiles = None
+        if c == 4:
+            kw = {} if into is None else {"out": into.alpha}
+            atiles = torch.stack([alpha[i, y : y + hn, x : x + wn] for i, x, y in chunk], **kw)
+        return tiles, atiles
+
+    def _scatter(self, out, chunk, tiles_u8, hn: int, wn: int) -> None:
+        s = self.scale
+        for (i, x, y), t in zip(chunk, tiles_u8):
+            out[i, y * s : (y + hn) * s, x * s : (x + wn) * s] = t
+
+    def _run_chunk(self, padded, alpha, out, ph: int, pw: int, chunk: list, c: int) -> None:
+        """One chunk: gather its tiles from ``padded`` / ``alpha``, run them,
+        scatter the u8 tiles into ``out``. With ``graphs`` the first chunk of
+        its key runs eagerly (a size met once pays no capture), the second
+        by the capture of the key's program, whose warm-up computes it, and
+        every later one as a replay of that program. Captures and replays
+        run under the device's lock, so no two threads share a program's
+        static buffers and no two replays on a device overlap; eager chunks
+        run beside them, as with graphs off."""
+        pad = self.prepadding
+        hn, wn = ph - 2 * pad, pw - 2 * pad
+        if self.graphs and self._run_program(padded, alpha, out, ph, pw, chunk, c):
+            return
+        tiles, atiles = self._gather(padded, alpha, chunk, ph, pw, c)
+        self._scatter(out, chunk, self._compute_chunk(tiles, atiles, hn, wn), hn, wn)
+
+    def _run_program(self, padded, alpha, out, ph: int, pw: int, chunk: list, c: int) -> bool:
+        """Run the chunk through the table's program of its key: a replay,
+        or the capture on the key's second chunk. Returns False, having
+        remembered the key, for its first chunk, which the caller runs
+        eagerly."""
+        pad = self.prepadding
+        hn, wn = ph - 2 * pad, pw - 2 * pad
+        dev = padded.device
+        key = (dev, ph, pw, len(chunk), self.tta_mode, c == 4)
+        state = _device_state(dev)
+        with state.lock:
+            table = self._programs.setdefault(dev, collections.OrderedDict())
+            if key not in table:
+                self._remember(table, key, None, state)
+                return False
+            cur = torch.cuda.current_stream(dev) if state.last is not None else None
+            if cur is not None:
+                cur.wait_event(state.last)
+            prog = table[key]
+            if prog is None:
+                prog = self._program(key, state, lambda into: self._gather(padded, alpha, chunk, ph, pw, c, into))
+            else:
+                table.move_to_end(key)
+                self._gather(padded, alpha, chunk, ph, pw, c, into=prog)
+                prog.graph.replay()
+            self._scatter(out, chunk, prog.out, hn, wn)
+            if cur is not None:
+                state.last.record(cur)
+        return True
+
+    def _program(self, key: tuple, state: _DeviceState, fill=None) -> _ChunkProgram:
+        """Capture the program of ``key`` into the table (call with
+        ``state.lock`` held): static buffers allocated outside the capture,
+        ``fill(program)`` writing a chunk into them (zeros without it), the
+        chunk's work recorded between them; the static output then holds
+        that chunk's result."""
+        dev, ph, pw, bsz, _, with_alpha = key
+        s, pad = self.scale, self.prepadding
+        hn, wn = ph - 2 * pad, pw - 2 * pad
+        prog = _ChunkProgram(
+            tiles=torch.zeros((bsz, ph, pw, 3), dtype=self.storage_dtype, device=dev),
+            alpha=torch.zeros((bsz, hn, wn, 1), device=dev) if with_alpha else None,
+            out=torch.zeros((bsz, hn * s, wn * s, 4 if with_alpha else 3), dtype=torch.uint8, device=dev),
+        )
+        if fill is not None:
+            fill(prog)
+        prog.graph = _CudaGraph(state)
+        prog.graph.capture(lambda: prog.out.copy_(self._compute_chunk(prog.tiles, prog.alpha, hn, wn)))
+        self._remember(self._programs.setdefault(dev, collections.OrderedDict()), key, prog, state)
+        return prog
+
+    @staticmethod
+    def _remember(table, key: tuple, prog: Optional[_ChunkProgram], state: _DeviceState) -> None:
+        """Enter ``key`` into its device's ``table`` as the most recently
+        used: its program, or None for a key met once. Past
+        :data:`MAX_PROGRAMS` entries the least recently used goes, once the
+        device's replays so far are done (a graph's scratch returns to the
+        shared pool)."""
+        table[key] = prog
+        table.move_to_end(key)
+        if len(table) > MAX_PROGRAMS:
+            if state.last is not None:
+                state.last.synchronize()
+            table.popitem(last=False)
+
+    def programs(self) -> dict:
+        """The chunk program table's captured programs: {(device, ph, pw,
+        batch, tta, alpha): program}, least recently used first on each
+        device."""
+        return {k: p for table in self._programs.values() for k, p in table.items() if p is not None}
 
     @torch.no_grad()
     def _process_stack_device(
@@ -496,7 +806,13 @@ class RealSR:
             for shape, idxs in plan.buckets.items()
         }
         self._dispatch_buckets(shards, buckets, tilesize, c, progress_cb, 0, len(plan.tiles) * n_img)
-        return self._merge(shards)
+        out = self._merge(shards)
+        if out.device.type == "cuda":
+            # "done": the image's last scatter and merge are enqueued; its
+            # download waits for this and nothing else (fetch)
+            out._realsr_done = torch.cuda.Event()
+            out._realsr_done.record(torch.cuda.current_stream(out.device))
+        return out
 
     def process_device(
         self,
@@ -509,11 +825,21 @@ class RealSR:
 
     def fetch(self, out_buf) -> np.ndarray:
         """Device output buffer -> host numpy (the one download per image);
-        a host array, such as a banded run's result, passes through."""
+        a host array, such as a banded run's result, passes through. A card
+        buffer of :meth:`process_device` (or one image of a stack) comes
+        down on its device's copy stream into pinned memory once its image's
+        "done" event has fired, waiting for that copy alone: the kernels
+        enqueued after the image, such as the next image's, run on. A card
+        tensor without the event comes down on the current stream."""
         if isinstance(out_buf, np.ndarray):
             return out_buf
         with tracer.span("fetch(D2H)"):
-            return out_buf.cpu().numpy()
+            done = done_event(out_buf) if out_buf.device.type == "cuda" else None
+            if done is None:
+                return out_buf.cpu().numpy()
+            host, copied = _download(out_buf, done)
+            copied.synchronize()
+            return host.numpy()
 
     def process(
         self,
@@ -560,8 +886,10 @@ class RealSR:
         bucket, so every chunk has a shape the whole-image run launches too.
         The tile size is the one picked for the whole image. Under a mesh
         each band's chunks are dealt to the devices and the band's outputs
-        merge. Each band's u8 output comes down into the host array before
-        the next band starts."""
+        merge. On a card the host output is pinned, and each band's u8 output
+        comes down into its rows on the copy stream (:func:`_download`) while
+        the next band computes; once band k is enqueued the host waits for
+        band k - 1's copy, so at most two band outputs are on the device."""
         _check_image(image)
         if self.bundle is None:
             raise RuntimeError("call load() first")
@@ -574,28 +902,52 @@ class RealSR:
         btr = self._equalized_band_rows(plan.ytiles, band_tile_rows or self._auto_band_tile_rows(w, c, ts))
         batches = {shape: self._chunking(ts, len(idxs))[0] for shape, idxs in plan.buckets.items()}
         rows_idx = reflect101_indices(h, pad, pad)
-        by_row: dict = {}
-        for t in plan.tiles:
-            by_row.setdefault(t.yi, []).append(t)
-        out = np.empty((h * s, w * s, c), np.uint8)
+        out = torch.empty((h * s, w * s, c), dtype=torch.uint8, pin_memory=dev.type == "cuda")
         done = 0
-        for r0 in range(0, plan.ytiles, btr):
-            r1 = min(r0 + btr, plan.ytiles)
-            y0, y1 = r0 * ts, min(r1 * ts, h)
+        pending = None  # the previous band's download: the event after its copy
+
+        def land(copied) -> None:
+            with tracer.span("fetch(D2H)"):
+                copied.synchronize()
+
+        for y0, y1, buckets in self._band_buckets(plan, ts, btr, h):
             with tracer.span("h2d+prep(band)"):
                 band = torch.tensor(image[rows_idx[y0 : y1 + 2 * pad]][None], device=dev)
                 padded, alpha = self._prep_band(band)
             shards = self._shards(padded, alpha, (1, (y1 - y0) * s, w * s, c))
+            done = self._dispatch_buckets(
+                shards, buckets, ts, c, progress_cb, done, len(plan.tiles), batches,
+            )
+            merged = self._merge(shards)[0]
+            if merged.device.type != "cuda":
+                out[y0 * s : y1 * s].copy_(merged)
+                continue
+            band_done = torch.cuda.Event()
+            band_done.record(torch.cuda.current_stream(merged.device))
+            copied = _download(merged, band_done, out[y0 * s : y1 * s])[1]
+            if pending is not None:
+                land(pending)
+            pending = copied
+        if pending is not None:
+            land(pending)
+        return out.numpy()
+
+    @staticmethod
+    def _band_buckets(plan, ts: int, btr: int, h: int):
+        """Each band of ``btr`` tile rows of ``plan``: (y0, y1, its buckets
+        {(ph, pw): [(0, x0, y0 - band y0)]}), origins band-local."""
+        pad = plan.prepadding
+        by_row: dict = {}
+        for t in plan.tiles:
+            by_row.setdefault(t.yi, []).append(t)
+        for r0 in range(0, plan.ytiles, btr):
+            r1 = min(r0 + btr, plan.ytiles)
+            y0, y1 = r0 * ts, min(r1 * ts, h)
             buckets: dict = {}
             for yi in range(r0, r1):
                 for t in by_row[yi]:
                     buckets.setdefault(t.padded_shape(pad), []).append((0, t.x0, t.y0 - y0))
-            done = self._dispatch_buckets(
-                shards, buckets, ts, c, progress_cb, done, len(plan.tiles), batches,
-            )
-            with tracer.span("fetch(D2H)"):
-                torch.from_numpy(out[y0 * s : y1 * s]).copy_(self._merge(shards)[0])
-        return out
+            yield y0, y1, buckets
 
     def process_batch(self, images) -> list:
         """Batch of SAME-SHAPE uint8 HWC images -> list of host outputs; the
@@ -643,6 +995,77 @@ class RealSR:
                 sib.load(*self._model_paths)
                 self._cpu_sibling = sib
         return self._cpu_sibling.process(image, progress_cb)
+
+    # -- the chunk program table ahead of a request ------------------------
+
+    def kernel_sources(self) -> tuple:
+        """The nvcc sources whose kernels this engine's forward launches
+        (:func:`kernel_sources` of its resolved variant, trunk, sched, tail
+        and operand type)."""
+        if self.bundle is None:
+            raise RuntimeError("call load() first")
+        return kernel_sources(self.variant, self.trunk, self.sched, self.tail, self.op_dtype)
+
+    def program_keys(self, w: int, h: int, channels: int = 3, n_img: int = 1) -> set:
+        """The chunk program keys ``(device, ph, pw, batch, tta, alpha)``
+        that ``process`` of a ``w`` x ``h`` x ``channels`` image (a stack of
+        ``n_img``) runs: the band walk's where :meth:`needs_banding` says
+        the image streams in bands (each band's buckets at the whole plan's
+        batch, on the devices its chunks are dealt to), else the whole
+        plan's."""
+        c, pad = channels, self.prepadding
+        ts = self._pick_tilesize(w, h, n_img)
+        plan = plan_tiles(w, h, ts, pad)
+        if n_img == 1 and self.needs_banding((h, w, c)):
+            btr = self._equalized_band_rows(plan.ytiles, self._auto_band_tile_rows(w, c, ts))
+            batches = {shape: self._chunking(ts, len(idxs))[0] for shape, idxs in plan.buckets.items()}
+            runs = [b for _, _, b in self._band_buckets(plan, ts, btr, h)]
+        else:
+            batches = None
+            runs = [{
+                shape: [(i, plan.tiles[t].x0, plan.tiles[t].y0) for i in range(n_img) for t in idxs]
+                for shape, idxs in plan.buckets.items()
+            }]
+        devices = self._devices()
+        return {
+            (devices[j % len(devices)], ph, pw, len(chunk), self.tta_mode, c == 4)
+            for buckets in runs
+            for j, (ph, pw, chunk, _) in enumerate(self._chunk_list(buckets, ts, batches))
+        }
+
+    def precompile(self, w: int, h: int, channels: int = 3, n_img: int = 1) -> int:
+        """Make ready every chunk program a ``w`` x ``h`` x ``channels``
+        image (a stack of ``n_img``) will run, so that the first request
+        pays no build and no capture (the JAX engine's ``precompile``; the
+        port has no fast start, so it has no ``fast_start_ramp``). On a card
+        it loads, building them at once if needed (one nvcc each), the
+        kernel sources this engine's forward launches
+        (:meth:`kernel_sources`), then captures the graph of each key of
+        :meth:`program_keys` that the table lacks, banded where
+        :meth:`needs_banding` says so. Returns the number of chunk programs
+        such an image runs; on the CPU, where nothing is captured, that
+        count too."""
+        if self.bundle is None:
+            raise RuntimeError("call load() first")
+        if channels not in (3, 4):
+            raise ValueError("channels must be 3 or 4")
+        keys = self.program_keys(w, h, channels, n_img)
+        if self.device.platform == "gpu" and self.kernel_sources():
+            import concurrent.futures
+
+            from realsr_tpu_torch.ops import build
+
+            srcs = self.kernel_sources()
+            with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+                list(pool.map(build.load_library, srcs))
+        if self.graphs:
+            with torch.no_grad():
+                for key in sorted(keys, key=str):
+                    state = _device_state(key[0])
+                    with state.lock:
+                        if self._programs.get(key[0], {}).get(key) is None:
+                            self._program(key, state)
+        return len(keys)
 
     # -- device budget ---------------------------------------------------
 

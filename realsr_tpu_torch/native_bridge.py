@@ -13,7 +13,7 @@ into this module only for the device work:
     process_batch_async(engine_idx, pixel_list, w, h, c) -> [handle]
     fetch(handle) -> bytes           the one download; frees the handle
     num_engines() -> int
-    warmup(first_path) -> int        build the kernel libraries
+    warmup(first_path) -> int        precompile the first image's programs
 
 The async pair is how the C++ save threads overlap download and encode with
 the proc threads' next image's compute — the proc/save split the
@@ -106,24 +106,30 @@ def init(config_json: str) -> int:
 
 
 def warmup(first_path: str) -> int:
-    """CLI warm-up parity (REALSR_TPU_PRECOMPILE): the port has no
-    ahead-of-time programs to compile. Its cold-start cost is building and
-    loading the CUDA kernel libraries (``ops/build.py``: one nvcc per
-    source, cached by hash), so on a card this builds every source at once
-    and loads them; ``first_path`` is accepted for the C++ CLI's call and
-    not read. Returns 0; never raises (warm-up must not break
-    processing)."""
+    """CLI warm-up parity (REALSR_TPU_PRECOMPILE, cli.py's warm-up block):
+    decode the first input with the pipeline's own codec path and call
+    every engine's ``precompile`` for its shape (once per engine: mesh mode
+    aliases one engine to every slot), and for the REALSR_TPU_IMAGE_BATCH
+    stack. Returns the programs' total; never raises (warm-up must not
+    break processing)."""
     try:
-        if any(e.device.platform == "gpu" for e in _engines):
-            import concurrent.futures
+        from realsr_tpu_torch.io.codecs import decode_image
 
-            from realsr_tpu_torch.ops import build
-
-            with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
-                list(pool.map(build.load_library, build.SOURCES))
+        img = decode_image(first_path)
+        if img is None:
+            raise ValueError(f"cannot decode {first_path}")
+        h, w, c = img.shape
+        ib = max(1, int(os.environ.get("REALSR_TPU_IMAGE_BATCH", "1") or 1))
+        total = 0
+        for e in dict.fromkeys(_engines):
+            total += e.precompile(w, h, channels=c)
+            nb = min(ib, e.max_batch_images((h, w, c)))
+            if nb > 1:
+                total += e.precompile(w, h, channels=c, n_img=nb)
+        return total
     except Exception as ex:
         print(f"precompile skipped: {ex}", file=sys.stderr)
-    return 0
+        return 0
 
 
 def device_count() -> int:

@@ -982,9 +982,11 @@ def rdb_trunk(x: torch.Tensor, stacked: Dict[str, torch.Tensor], sched: str = "s
     return t
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _chain_flags(n: int, device: torch.device) -> torch.Tensor:
-    """int32 [n]: 1 where step k closes an RRDB (k % 3 == 2)."""
+    """int32 [n]: 1 where step k closes an RRDB (k % 3 == 2). Made once per
+    (n, device) and never evicted: a captured CUDA graph of the chained
+    trunk reads it at a fixed address."""
     return torch.tensor([int(k % 3 == 2) for k in range(n)], dtype=torch.int32, device=device)
 
 

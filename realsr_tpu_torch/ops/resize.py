@@ -56,6 +56,16 @@ def _resize_matrix(in_size: int, out_size: int, kind: str) -> np.ndarray:
     return m.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_matrix_on(in_size: int, out_size: int, kind: str, device: torch.device) -> torch.Tensor:
+    """:func:`_resize_matrix` on ``device``, uploaded once and never
+    evicted: a captured CUDA graph reads it at a fixed address for as long
+    as the graph lives, and an upload inside a capture would fail. One
+    matrix per (tile side, output side, kind) and device, 1 MB at most for
+    the engine's alpha tiles."""
+    return torch.from_numpy(_resize_matrix(in_size, out_size, kind)).to(device)
+
+
 def resize_nhwc(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torch.Tensor:
     """Separable resize of NHWC ``x`` to (out_h, out_w), computed in
     float32 and returned in ``x``'s dtype; an axis whose size does not
@@ -63,10 +73,10 @@ def resize_nhwc(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torch.Ten
     n, h, w, c = x.shape
     xf = x.float()
     if out_h != h:
-        my = torch.from_numpy(_resize_matrix(h, out_h, kind)).to(x.device)
+        my = _resize_matrix_on(h, out_h, kind, x.device)
         xf = torch.einsum("oh,nhwc->nowc", my, xf)
     if out_w != w:
-        mx = torch.from_numpy(_resize_matrix(w, out_w, kind)).to(x.device)
+        mx = _resize_matrix_on(w, out_w, kind, x.device)
         xf = torch.einsum("ow,nhwc->nhoc", mx, xf)
     return xf.to(x.dtype)
 

@@ -5,6 +5,9 @@ card): ``python -m pytest --noconftest tests/test_torch_gpu.py -q``
 (tests/conftest.py imports JAX). Without a CUDA device every test skips.
 """
 
+import dataclasses
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -551,6 +554,36 @@ def test_trunk_kernels_match_per_rdb_kernel(cuda, trunk):
     assert _rel(fn(x, stacked), want) <= 1e-3
 
 
+class _Counted:
+    replays = 0  # replays of _counted graphs in the process
+
+
+def _counted(base):
+    """The engine's graph class ``base`` with each graph's recorded
+    launches ({wrapper: n}, the wrappers' counts during the recording, the
+    second run of the chunk's work) and the replays counted."""
+
+    class Counted(base):
+        def capture(self, fn):
+            runs = []
+
+            def body():
+                before = {**TK.LAUNCHES, **TLK.LAUNCHES}
+                fn()
+                if runs:
+                    after = {**TK.LAUNCHES, **TLK.LAUNCHES}
+                    self.launches = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+                runs.append(1)
+
+            super().capture(body)
+
+        def replay(self):
+            _Counted.replays += 1
+            super().replay()
+
+    return Counted
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("storage", ["mixed", "float32"])
 def test_banded_equals_whole_on_card(cuda, tmp_path, monkeypatch, storage):
@@ -558,6 +591,7 @@ def test_banded_equals_whole_on_card(cuda, tmp_path, monkeypatch, storage):
     bit-identical to the whole-image run: a ragged RGBA grid at 1 and 2 tile
     rows per band, and through process() at a forced zero budget against a
     whole run at that budget's chunk batch."""
+    from realsr_tpu_torch import engine as engine_mod
     from realsr_tpu_torch.engine import EngineConfig, RealSR
     from realsr_tpu_torch.ncnn.synth import make_model_dir
 
@@ -566,11 +600,17 @@ def test_banded_equals_whole_on_card(cuda, tmp_path, monkeypatch, storage):
     e.load(*files)
     assert (e.variant, e.tail) == ("cuda", "kernel")
     img = np.random.default_rng(5).integers(0, 256, (75, 50, 4), np.uint8)
+    monkeypatch.setattr(engine_mod, "_CudaGraph", _counted(engine_mod._CudaGraph))
+    e.precompile(50, 75, channels=4)
+    # precompile captured the image's programs, each launching K1 and K6
+    assert e.programs() and all(p.graph.launches.get("rdb_apply") and p.graph.launches.get("up2_hr_last_packed")
+                                for p in e.programs().values())
     whole = e.process(img)
     for btr in (1, 2):
-        rdb, tail = TK.LAUNCHES["rdb_apply"], TLK.LAUNCHES["up2_hr_last_packed"]
+        # each band's chunks replay those programs
+        replays = _Counted.replays
         banded = e.process_banded(img, band_tile_rows=btr)
-        assert TK.LAUNCHES["rdb_apply"] > rdb and TLK.LAUNCHES["up2_hr_last_packed"] > tail
+        assert _Counted.replays > replays
         np.testing.assert_array_equal(banded, whole)
     # a zero budget also caps chunks at one tile (_auto_batch), and cuDNN
     # picks its algorithm by batch: hold it to a whole run at that batch
@@ -643,3 +683,41 @@ def test_pick_on_card(cuda, tmp_path):
     whole = e.process(img)
     assert e.last_tilesize == e._pick_tilesize(300, 290)
     np.testing.assert_array_equal(e.process_banded(img, band_tile_rows=1), whole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["mixed", "float32"])
+def test_graphs_on_card(cuda, tmp_path, storage):
+    """Each chunk of a precompiled key replays its graph, and a key met
+    twice is captured: bit-equal to the same engine run eagerly, RGB and
+    RGBA; fetch comes down after the image's done event, equal to .cpu()."""
+    from realsr_tpu_torch import engine as engine_mod
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
+    e = RealSR(gpuid=0, config=EngineConfig(storage=storage, tilesize=64))
+    e.load(*files)
+    assert e.graphs
+    assert e.precompile(150, 70, channels=4) == len(e.programs()) > 0
+    for shape in ((70, 150, 4), (64, 64, 3), (64, 64, 3)):
+        img = np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)
+        got = e.process(img)
+        graphs = e.config
+        e.config = dataclasses.replace(e.config, cuda_graphs=False)
+        assert not e.graphs
+        want = e.process(img)
+        e.config = graphs
+        np.testing.assert_array_equal(got, want)
+    assert (64 + 20, 64 + 20) in {key[1:3] for key in e.programs()}
+    buf = e.process_device(img)
+    assert engine_mod.done_event(buf) is not None
+    np.testing.assert_array_equal(e.fetch(buf), buf.cpu().numpy())
+    # the device's shared pool outlives an engine's graphs: a later engine
+    # captures into it after the first engine and its graphs are gone
+    del e, buf
+    gc.collect()
+    again = RealSR(gpuid=0, config=EngineConfig(storage=storage, tilesize=64))
+    again.load(*files)
+    assert again.precompile(64, 64) == len(again.programs()) == 1
+    np.testing.assert_array_equal(again.process(img), want)

@@ -268,8 +268,14 @@ def test_binary_mesh_mode_matches_single(build, tmp_path, model_dir):
 
 
 def test_binary_precompile_warmup(build, tmp_path, model_dir):
-    """REALSR_TPU_PRECOMPILE=1 calls the bridge's warm-up (nothing to build
-    for a CPU engine); outputs identical to the run without it."""
+    """REALSR_TPU_PRECOMPILE=1 calls the bridge's warm-up, which counts the
+    chunk programs the first image runs (a CPU engine captures none);
+    outputs identical to the run without it."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+
+    eng = RealSR(gpuid=-1, config=EngineConfig())
+    eng.load(os.path.join(model_dir, "x4.param"), os.path.join(model_dir, "x4.bin"))
+    n = len(eng.program_keys(12, 14, 3))
     inp = tmp_path / "in.png"
     _png(inp, (14, 12, 3), 7)
     out1, out2 = tmp_path / "lazy.png", tmp_path / "warm.png"
@@ -278,7 +284,7 @@ def test_binary_precompile_warmup(build, tmp_path, model_dir):
     r = run_binary(build, ["-i", str(inp), "-o", str(out2), "-m", model_dir, "-g", "-1", "-v"],
                    extra_env={"REALSR_TPU_PRECOMPILE": "1"})
     assert r.returncode == 0, r.stderr
-    assert "precompiled 0 programs" in r.stderr
+    assert n > 0 and f"precompiled {n} programs" in r.stderr
     np.testing.assert_array_equal(np.asarray(Image.open(out1)), np.asarray(Image.open(out2)))
 
 

@@ -166,9 +166,8 @@ def test_async_handles_interleave(bridge, rng):
 
 
 def test_warmup_never_raises(bridge, tmp_path):
-    """The port has no ahead-of-time programs: warm-up builds the kernel
-    libraries on a card (none for CPU engines) and returns 0, whatever the
-    path."""
+    """Warm-up never raises: a first image it cannot decode prints
+    "precompile skipped" and counts 0 programs."""
     assert bridge.warmup(str(tmp_path / "missing.png")) == 0
 
 
