@@ -4,21 +4,26 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
 2. build: the fused RDB and tail kernels from ``realsr_tpu_torch/csrc``, one
-   nvcc for each source, started together (``rdb_wgmma.cu``: K1/K2 for bf16
+   nvcc for each build group of each source (``ops/build.py::GROUPS``: the
+   RDB kernels' state type and nf/gc, the tail's form), all started
+   together (``rdb_wgmma.cu``: K1/K2 for bf16
    operands; ``rdb_tf32.cu``: K1/K2 for float32 operands, 3xTF32 wgmma;
    ``rdb_modes_wgmma.cu``: K3, K4 and K5 on K1's wgmma machinery;
    ``rdb_modes_tf32.cu``: K3 and K5 for float32 operands; ``tail_kernel.cu``
    and ``tail_tf32.cu``: K6/K7 for bf16 and float32 operands), with each
-   kernel's registers and spills from ``-Xptxas -v`` (no kernel may spill)
+   kernel's registers and spills from ``-Xptxas -v`` (no kernel may spill;
+   each group's library holds the instances the group names and no other)
    and the count of wgmma (HGMMA), TMA and bulk-copy instructions in each
-   source's SASS;
+   source's SASS, summed over its groups;
 3. the RDB kernel against its plain PyTorch version at the main path's shape
    (8 tiles of 148 x 148 = tile 128 + 2 x 10 halo, nf = 64, gc = 32): the
    patch geometry of K1 and of its float32 instances, one RDB in mixed and
    float32 mode, the 69-RDB trunk with the RRDB residual, with CUDA-event
    times of both (float32 beside its tf32 bound and the cuDNN route's
    time), and the RDB at each patch side the kernel is built for (float32
-   also at a ragged 2 x 37 x 21);
+   also at a ragged 2 x 37 x 21); beside the mixed ones, cuDNN's bf16 convs
+   (channels-last) for one RDB's work and for the trunk's, the library
+   time of K1, K3-K5 and of K2;
 3b. the tail kernels K6 (up2 + HRconv + conv_last) and K7 (HRconv +
    conv_last) against their plain versions at the same shape, at a ragged
    2 x 37 x 21 and at 9 x 37 x 37 (4x sides no multiple of the patch
@@ -118,7 +123,17 @@ Phases (each prints its lines; any failure exits non-zero):
    engine's programs), the 6200 x 6000 banded image's peak reserved memory
    with graphs (7b) and eagerly; (f) ``precompile`` on a fresh engine and
    its first image; (g) the CLI on a directory of photos of mixed sizes,
-   file to file, graphs against eager in turns, outputs bit-equal.
+   file to file, graphs against eager in turns, outputs bit-equal;
+12. the cold start, one JSON line a step: (a) the default CLI on the 1024 x
+   768 image in a fresh process and a fresh build root, fast start on
+   (the default engine's two groups) and off (every group of its two
+   sources), then warm: wall time to the output, each group's nvcc
+   seconds, outputs bit-equal to the main engine's; (b) a seed of (a)'s
+   root (``python -m realsr_tpu_torch.seed_cache``) installed into a new
+   root, the CLI there with no nvcc, bit-equal with nothing built, and a
+   seed of an altered fingerprint installed inert, the same run failing
+   with a message that names the seed tool; (c) the build fingerprint and
+   the groups each of the smoke's engines built.
 
 Every card engine runs a key's first chunk eagerly, its second through the
 capture of the key's graph (the warm-up computes the chunk; the kernel
@@ -143,14 +158,14 @@ operations over the data sheet's dense peak, bf16 or, for the float32
 instances, tf32 with three products per MAC, and the bytes over its memory
 rate); for the float32 instances ``library_ms`` is the cuDNN route's time
 for the same work (the plain RDB's convs; the interleaved tail's convs),
-for K6 and K7 that of the interleaved tail's convs with bf16 operands.
+for K6 and K7 that of the interleaved tail's convs with bf16 operands, for
+K1, K3-K5 and K2 that of cuDNN's bf16 convs (phase 3).
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 or of the JAX package.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import hashlib
 import json
@@ -260,20 +275,23 @@ def ptxas_rows(log: str) -> list:
     return rows
 
 
-def sass_counts(lib_name: str) -> dict:
+def sass_counts(name: str) -> dict:
     """Counts of wgmma (HGMMA), TMA (UTMALDG), bulk-copy (UBLKCP) and
-    ldmatrix (LDSM) instructions in a built library's SASS, by cuobjdump."""
-    import glob
+    ldmatrix (LDSM) instructions in the SASS of a source's built group
+    libraries, summed over its groups, by cuobjdump."""
     import re
 
     from realsr_tpu_torch.ops import build
 
-    so = sorted(glob.glob(os.path.join(build.build_dir(), f"{lib_name}-*.so")), key=os.path.getmtime)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", so[-1]], capture_output=True, text=True,
-                          check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP", "LDSM")}
+    counts = dict.fromkeys(("HGMMA", "UTMALDG", "UBLKCP", "LDSM"), 0)
+    for group in build.GROUPS[name]:
+        so = os.path.join(build.build_dir(), build.library_name(name, group))
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True, check=True).stdout
+        for op in counts:
+            counts[op] += len(re.findall(rf"\b{op}\b", sass))
+    return counts
 
 
 def cudnn_tail(fea, params, up2: bool, dtype=torch.float32):
@@ -305,6 +323,33 @@ def cudnn_tail(fea, params, up2: bool, dtype=torch.float32):
         fea = conv3x3(fea, params["up"]["w"][1], params["up"]["b"][1], LRELU_SLOPE, f32)
     fea = conv3x3(fea, params["hr"]["w"], params["hr"]["b"], LRELU_SLOPE, f32)
     return conv3x3(fea, params["last"]["w"], params["last"]["b"], None, f32)
+
+
+def cudnn_rdb(x, w, u=None):
+    """cuDNN's bf16 convs for one RDB's work (phase 3's library time for K1,
+    K3, K4 and K5): NCHW channels-last bf16 ``x``, the five 3x3 convs over
+    the dense concat (LeakyReLU 0.2 on c1..c4), ``0.2 c5 + x``, and the RRDB
+    residual ``0.2 y + u`` where ``u`` is given; ``w``: one RDB's OIHW
+    weights and biases (``unpack_rdb_params``) in bf16, channels-last. The
+    state is bf16 here, where the mixed kernel carries float32."""
+    import torch.nn.functional as F
+
+    feats = [x]
+    for i in range(1, 5):
+        feats.append(F.leaky_relu(F.conv2d(torch.cat(feats, 1), w[f"w{i}"], w[f"b{i}"], padding=1), 0.2))
+    y = 0.2 * F.conv2d(torch.cat(feats, 1), w["w5"], w["b5"], padding=1) + x
+    return y if u is None else 0.2 * y + u
+
+
+def cudnn_trunk(x, ws):
+    """:func:`cudnn_rdb` over the 69 RDBs, the RRDB residual every third
+    (K2's library time)."""
+    t = u = x
+    for k, w in enumerate(ws):
+        if k % 3 == 0:
+            u = t
+        t = cudnn_rdb(t, w, u if k % 3 == 2 else None)
+    return t
 
 
 def fail(msg: str) -> None:
@@ -1498,12 +1543,11 @@ def slice11(rk, tk, mparam, mbin, card, auto_engine, engine, kern32_auto, auto_t
     first = one_s(fresh, big)
     check(len(fresh.programs()) == n, "11f: the first image after precompile captured a program")
     steady = float(np.median([one_s(fresh, big) for _ in range(3)]))
-    srcs = fresh.kernel_sources()
     print(json.dumps({"phase": "11f", "what": "precompile(1024, 768) on a fresh default engine",
                       "programs": n, "precompile_s": s_pre, "capture_s": {str(k[1:4]): p.graph.capture_s
                                                                            for k, p in progs.items()},
-                      "sources": {s_: build.BUILD_SECONDS.get(s_) for s_ in srcs},
-                      "sources_note": "built by phase 2's nvcc (seconds above); precompile found them loaded",
+                      "groups": {f"{s_}[{g}]": build.BUILD_SECONDS.get((s_, g)) for s_, g in fresh.kernel_groups()},
+                      "groups_note": "built by phase 2's nvcc (seconds above); precompile found them loaded",
                       "first_image_s": first, "steady_image_s": steady, "card": card}), flush=True)
     del m, fresh
     torch.cuda.empty_cache()
@@ -1579,6 +1623,155 @@ def slice11_mixed(rk, tk, mparam, card) -> None:
                           "bit_equal": True, "card": card}), flush=True)
     finally:
         shutil.rmtree(mixed_dir, ignore_errors=True)
+
+
+COLD_LINE = r"realsr_tpu_torch: built (\d+) kernel groups with nvcc in ([\d.]+) s \((.*)\) into"
+
+
+def cold_cli(label: str, work: str, src: str, mdir: str, root: str, env=None) -> dict:
+    """``python -m realsr_tpu_torch -i src -o <label>.png -m mdir`` in a
+    fresh process with the build root ``root``: its wall time (the first
+    output of a process, model load and builds included), the engine's
+    build line (the groups nvcc built and their seconds), its exit code, its
+    output (None where it wrote none) and its stderr's tail."""
+    import re
+
+    out = os.path.join(work, f"{label}.png")
+    e = {**os.environ, "REALSR_TPU_TORCH_BUILD": root, **(env or {})}
+    e["PYTHONPATH"] = ROOT + os.pathsep + e.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "realsr_tpu_torch", "-i", src, "-o", out, "-m", mdir],
+                       capture_output=True, text=True, env=e, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    m = re.search(COLD_LINE, r.stderr)
+    groups = {g.group(1): float(g.group(2)) for g in re.finditer(r"(\w+\[\w+\]) ([\d.]+) s", m.group(3))} if m else {}
+    return {"rc": r.returncode, "wall_s": wall, "nvcc_wall_s": float(m.group(2)) if m else 0.0,
+            "nvcc_s": groups, "out": out if os.path.isfile(out) else None, "stderr": r.stderr[-1500:]}
+
+
+def seed_tool(*args, env=None) -> dict:
+    """``python -m realsr_tpu_torch.seed_cache *args``: its last stdout line
+    as JSON, its stderr."""
+    e = {**os.environ, **(env or {})}
+    e["PYTHONPATH"] = ROOT + os.pathsep + e.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-m", "realsr_tpu_torch.seed_cache", *args], capture_output=True,
+                       text=True, env=e, cwd=ROOT, timeout=600)
+    check(r.returncode == 0, f"seed_cache {args[0]}: exit {r.returncode}: {r.stderr[-1500:]}")
+    return {"json": json.loads(r.stdout.strip().splitlines()[-1]), "stderr": r.stderr}
+
+
+def altered_seed(seed: str, out: str) -> str:
+    """``seed`` with another fingerprint: each member moved into the other
+    fingerprint's dir, the manifest's fingerprint changed to match."""
+    import io
+    import tarfile
+
+    with tarfile.open(seed, "r:gz") as tar, tarfile.open(out, "w:gz") as dst:
+        for m in tar.getmembers():
+            fp, rest = m.name.split("/", 1)
+            data = tar.extractfile(m).read()
+            if rest == "seed_manifest.json":
+                manifest = json.loads(data)
+                manifest["fingerprint"] = fp[::-1]
+                data = json.dumps(manifest).encode()
+            m.name, m.size = f"{fp[::-1]}/{rest}", len(data)
+            dst.addfile(m, io.BytesIO(data))
+    return out
+
+
+def slice12(mparam, card, auto_engine, engines: dict) -> None:
+    """Phase 12, the cold start: (a) the default CLI on the 1024 x 768 image
+    in a fresh process and a fresh build root, fast start on, then off
+    (``REALSR_TPU_FAST_START=0``) in another fresh root, then on again in
+    the first root (warm): wall time to the output and each group's nvcc
+    seconds, the outputs bit-equal to each other and to the main engine's;
+    (b) a seed built from (a)'s fast-start root and installed into a new
+    root, the CLI there with no nvcc (PATH without it, ``CUDA_HOME``
+    nowhere): bit-equal, nothing built; a seed whose fingerprint is altered
+    makes the same run fail, naming the seed tool; (c) the fingerprint and
+    the groups each of the smoke's engines built."""
+    from PIL import Image
+
+    from realsr_tpu_torch.ops import build
+
+    work = tempfile.mkdtemp(prefix="realsr_cold_")
+    try:
+        img = natural_image(np.random.default_rng(1), *STEADY_HW)
+        src = os.path.join(work, "in.png")
+        Image.fromarray(img).save(src)
+        want = auto_engine.process(img)
+        mdir = os.path.dirname(mparam)
+        torch.cuda.empty_cache()
+
+        def same(run: dict, what: str) -> None:
+            check(run["out"] is not None and run["rc"] == 0,
+                  f"12: {what}: exit {run['rc']}, no output: {run['stderr']}")
+            check(np.array_equal(np.asarray(Image.open(run["out"])), want),
+                  f"12: {what}: output differs from the main engine's")
+
+        # 12a: cold, fast start on and off; warm
+        roots = {k: os.path.join(work, f"root_{k}") for k in ("on", "off", "seeded", "altered")}
+        runs = {"on": cold_cli("on", work, src, mdir, roots["on"]),
+                "off": cold_cli("off", work, src, mdir, roots["off"], {"REALSR_TPU_FAST_START": "0"})}
+        runs["warm"] = cold_cli("warm", work, src, mdir, roots["on"])
+        for k, r in runs.items():
+            same(r, f"the CLI, {k}")
+        check(set(runs["on"]["nvcc_s"]) == {"rdb_wgmma[f32_nf64]", "tail_kernel[k6]"},
+              f"12a: fast start built {sorted(runs['on']['nvcc_s'])}")
+        check(set(runs["off"]["nvcc_s"]) == {f"{s_}[{g}]" for s_ in ("rdb_wgmma", "tail_kernel")
+                                             for g in build.GROUPS[s_]},
+              f"12a: fast start off built {sorted(runs['off']['nvcc_s'])}")
+        check(not runs["warm"]["nvcc_s"], f"12a: a warm root built {runs['warm']['nvcc_s']}")
+        on = runs["on"]["nvcc_s"]
+        print(json.dumps({"phase": "12a", "what": f"python -m realsr_tpu_torch on a {STEADY_HW[1]}x{STEADY_HW[0]} "
+                          "PNG in a fresh process: fresh build root with fast start on, another with it off, "
+                          "then the first root again (warm); outputs bit-equal to the main engine's",
+                          **{f"{k}_wall_s": r["wall_s"] for k, r in runs.items()},
+                          **{f"{k}_nvcc_wall_s": r["nvcc_wall_s"] for k, r in runs.items()},
+                          **{f"{k}_nvcc_s": r["nvcc_s"] for k, r in runs.items() if k != "warm"},
+                          "tail_group_ends_first": on["tail_kernel[k6]"] <= on["rdb_wgmma[f32_nf64]"],
+                          "bit_equal": True, "card": card}), flush=True)
+
+        # 12b: a seed from the fast-start root, on a host without nvcc
+        seed = os.path.join(work, "seed.tar.gz")
+        made = seed_tool("build", seed, "-m", mdir, env={"REALSR_TPU_TORCH_BUILD": roots["on"]})["json"]
+        check(made["fingerprint"] == build.fingerprint() and not any(made["nvcc_seconds"].values()),
+              f"12b: the seed's fingerprint {made['fingerprint']} or nvcc seconds {made['nvcc_seconds']}")
+        info = seed_tool("info", seed)["json"]
+        inst = seed_tool("install", seed, "--build-root", roots["seeded"])
+        check(inst["json"]["fingerprint_match"] and "WARNING" not in inst["stderr"], f"12b: install {inst}")
+        path = os.pathsep.join(p_ for p_ in os.environ.get("PATH", "").split(os.pathsep)
+                               if not os.path.isfile(os.path.join(p_, "nvcc")))
+        no_nvcc = {"PATH": path, "CUDA_HOME": os.path.join(work, "no_cuda")}
+        check(shutil.which("nvcc", path=path) is None, "12b: nvcc still on PATH")
+        seeded = cold_cli("seeded", work, src, mdir, roots["seeded"], no_nvcc)
+        same(seeded, "the CLI on the installed seed without nvcc")
+        check(not seeded["nvcc_s"], f"12b: the seeded run built {seeded['nvcc_s']}")
+        bad = seed_tool("install", altered_seed(seed, os.path.join(work, "altered.tar.gz")),
+                        "--build-root", roots["altered"])
+        check(not bad["json"]["fingerprint_match"] and "WARNING" in bad["stderr"],
+              f"12b: the altered seed installed as a match: {bad}")
+        refused = cold_cli("altered", work, src, mdir, roots["altered"], no_nvcc)
+        check(refused["out"] is None and "nvcc not found" in refused["stderr"]
+              and "realsr_tpu_torch.seed_cache install" in refused["stderr"],
+              f"12b: the altered seed's run: exit {refused['rc']}, output {refused['out']}: {refused['stderr']}")
+        print(json.dumps({"phase": "12b", "what": "seed_cache build from 12a's fast-start root, install into a "
+                          "fresh root, the CLI there with no nvcc (bit-equal, nothing built); a seed whose "
+                          "fingerprint is altered: installed inert, the same run fails naming the seed tool",
+                          "seed": {k: info[k] for k in ("fingerprint", "nvcc", "groups", "files")},
+                          "tarball_bytes": made["tarball_bytes"], "seeded_wall_s": seeded["wall_s"],
+                          "altered_error": next(ln for ln in refused["stderr"].splitlines() if "nvcc not found" in ln),
+                          "card": card}),
+              flush=True)
+
+        # 12c: what this process built, and each engine's groups
+        print(json.dumps({"phase": "12c", "fingerprint": build.fingerprint(), "features": build.host_features(),
+                          "nvcc": build.nvcc_release(build._nvcc()),
+                          "loaded": [f"{s_}[{g}]" for s_, g in build._LIBS],
+                          "engines": {k: [f"{s_}[{g}]" for s_, g in e.kernel_groups()] for k, e in engines.items()},
+                          "card": card}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _missing_native_deps() -> list:
@@ -1710,26 +1903,30 @@ def main() -> int:
     print(f"card: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # -- 2. build: one nvcc per source, started together -----------------
+    # -- 2. build: one nvcc per group of each source, started together ------
     t0 = time.perf_counter()
-    sources = build.SOURCES
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(build.load_library, sources))
-    print(f"build: {', '.join(f'{s}.cu' for s in sources)} -> {build.build_dir()} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
-          + ", ".join(f"{s} {build.BUILD_SECONDS[s]:.2f} s" for s in sources) + f") {card}",
+    groups = [(s_, g) for s_ in build.SOURCES for g in build.GROUPS[s_]]
+    build.load_groups(groups)
+    print(f"build: {len(groups)} groups of {', '.join(f'{s_}.cu' for s_ in build.SOURCES)} -> {build.build_dir()} "
+          f"in {time.perf_counter() - t0:.2f} s (nvcc "
+          + ", ".join(f"{s_}[{g}] {build.BUILD_SECONDS[(s_, g)]:.2f} s" for s_, g in groups) + f") {card}",
           flush=True)
-    for src in sources:
-        if build.BUILD_LOG[src]:
-            rows = ptxas_rows(build.BUILD_LOG[src])
+    for key in groups:
+        log = build.BUILD_LOG[key]
+        if log:
+            label = f"{key[0]}.cu [{key[1]}]"
+            rows = ptxas_rows(log)
             check(all(r[1] > 0 for r in rows), f"ptxas log without register counts: {rows}")
-            print(f"ptxas {src}.cu: " + "; ".join(
-                f"{label} {regs} registers, spills {st}/{ld} B" for label, regs, st, ld in rows), flush=True)
-            serial = [ln.strip() for ln in build.BUILD_LOG[src].splitlines() if "Performance Loss" in ln]
+            # the group's library holds its instances and no other
+            check(len(rows) == len(build.instances(*key)),
+                  f"{label}: {len(rows)} kernels, the group names {len(build.instances(*key))}: {rows}")
+            print(f"ptxas {label}: " + "; ".join(
+                f"{lab} {regs} registers, spills {st}/{ld} B" for lab, regs, st, ld in rows), flush=True)
+            serial = [ln.strip() for ln in log.splitlines() if "Performance Loss" in ln]
             if serial:
-                print(f"ptxas {src}.cu: {len(serial)} notes of wgmma serialization, e.g. {serial[0][:200]}",
+                print(f"ptxas {label}: {len(serial)} notes of wgmma serialization, e.g. {serial[0][:200]}",
                       flush=True)
-            check(all(st == 0 and ld == 0 for _, _, st, ld in rows), f"{src}.cu: a wgmma kernel spills: {rows}")
+            check(all(st == 0 and ld == 0 for _, _, st, ld in rows), f"{label}: a wgmma kernel spills: {rows}")
     for src in ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "rdb_modes_tf32"):
         ops = sass_counts(src)
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UBLKCP"] > 0,
@@ -1857,6 +2054,27 @@ def main() -> int:
             if mode == "float32":
                 library["K2 float32"] = pms
                 k1_trunk32, k1_trunk32_ms = got, ms
+            else:
+                # the library call for the same work: cuDNN's bf16 convs,
+                # channels-last, one RDB (K1, and K3-K5: the same function)
+                # and the 69-RDB trunk (K2)
+                cl = torch.channels_last
+                ws = [{k: v.to(torch.bfloat16).contiguous(memory_format=cl) if v.dim() == 4 else v.to(torch.bfloat16)
+                       for k, v in rk.unpack_rdb_params(rk._rdb_k(stacked, i), NF).items()}
+                      for i in range(stacked["w"].shape[0])]
+                xc = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=cl)
+                with tf32(True):
+                    lib1 = cuda_ms(lambda: cudnn_rdb(xc, ws[0]), 2, 10)
+                    lib2 = cuda_ms(lambda: cudnn_trunk(xc, ws), 1, 1)
+                    e_lib = rel_err(cudnn_rdb(xc, ws[0]).permute(0, 2, 3, 1), rk.rdb_reference(x, p0, torch.float32, op))
+                check(e_lib[1] <= 0.05, f"the cuDNN bf16 RDB disagrees with the plain RDB: rel {e_lib[1]}")
+                library.update({"K1": lib1, "K2": lib2, "K3": lib1, "K4": lib1, "K5": lib1})
+                k1_ms = results[("rdb", "mixed")][1]
+                print(f"library: cuDNN bf16 convs, channels-last, one RDB {lib1:.3f} ms (K1 {k1_ms:.3f} ms: "
+                      f"{lib1 / k1_ms:.2f}x faster than cuDNN), the 69-RDB trunk {lib2:.3f} ms (K1 trunk "
+                      f"{ms:.3f} ms: {lib2 / ms:.2f}x); rel diff of cuDNN's RDB (bf16 state) vs plain {e_lib[1]:.2e} "
+                      f"{card}", flush=True)
+                del ws, xc
             wkey = "wg" if mode == "mixed" else "wt"
             results[("K2" if mode == "mixed" else "K2 float32", "io")] = nbytes(x, stacked[wkey], stacked["b"], x)
             del stacked, p0, want, bundle
@@ -2576,6 +2794,13 @@ def main() -> int:
         t11 = time.perf_counter()
         slice11(rk, tk, mparam, mbin, card, auto_engine, engine, kern32_auto, auto_tta, modes, k7_engine, big_band)
         print(f"phase 11: {time.perf_counter() - t11:.1f} s {card}", flush=True)
+
+        # -- 12. the cold start: group builds, fast start, the seed --------
+        t12 = time.perf_counter()
+        slice12(mparam, card, auto_engine, {"default": auto_engine, "tile 128": engine, "float32": kern32_auto,
+                                            "TTA": auto_tta, "K7 tail": k7_engine,
+                                            **{f"{k} trunk": e for k, e in modes.items()}})
+        print(f"phase 12: {time.perf_counter() - t12:.1f} s {card}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -23,7 +23,11 @@ or a comma list of device ids) runs one engine that deals each image's tile
 chunks to those devices (``parallel/mesh.py``) in place of one engine per
 ``-g`` id. ``REALSR_TPU_PRECOMPILE=1`` makes every engine's chunk programs
 for the first input's shape (and the ``REALSR_TPU_IMAGE_BATCH`` stack)
-ready before the pipeline starts (``RealSR.precompile``).
+ready before the pipeline starts (``RealSR.precompile``). The engines read
+``REALSR_TPU_FAST_START`` themselves (``EngineConfig.fast_start``): unset,
+one builds only the kernel groups it launches before its first image; ``0``
+builds every group of their sources. A run that builds prints one stderr
+line with the groups and their nvcc seconds.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@
 // A source of its own, so that nvcc builds it beside rdb_modes_wgmma.cu (the
 // first build's long pole) rather than after it.
 
+#include "groups.cuh"
 #include "rdb_modes.cuh"
 
 namespace {
@@ -64,8 +65,12 @@ int rdb_chained_tf32_launch(const void* x, const void* w, const void* bias, cons
   const ChainedParams p{x, u, out, nullptr, static_cast<const int*>(flag), w, static_cast<const float*>(bias),
                         H, W, 0, rows, cols};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef GROUP_NF64
   if (nf == 64 && gc == 32) return chained_tile<64, 32>(map, p, B, tile, s);
+#endif
+#ifdef GROUP_NF32
   if (nf == 32 && gc == 16) return chained_tile<32, 16>(map, p, B, tile, s);
+#endif
   return int(cudaErrorInvalidValue);
 }
 
@@ -82,8 +87,12 @@ int rdb_packed_tf32_launch(const void* x, const void* w, const void* bias, const
   if (err) return err;
   const Params p{x, u, out, nullptr, w, static_cast<const float*>(bias), H, W, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef GROUP_NF64
   if (nf == 64 && gc == 32) return packed_tile<64, 32>(map, p, B, tile, s);
+#endif
+#ifdef GROUP_NF32
   if (nf == 32 && gc == 16) return packed_tile<32, 16>(map, p, B, tile, s);
+#endif
   return int(cudaErrorInvalidValue);
 }
 

@@ -31,6 +31,7 @@
 // Against K1 it reads lo (2 bytes a channel) where K1 reads the f32 state
 // (4) and writes hi' + lo' (4) where K1 writes f32 + its shadow (6).
 
+#include "groups.cuh"
 #include "rdb_modes.cuh"
 
 namespace {
@@ -142,8 +143,12 @@ int chained_tile(const CUtensorMap& map, const ChainedParams& p, int B, int tile
 
 template <typename TS>
 int chained_shape(const CUtensorMap& map, const ChainedParams& p, int B, int nf, int gc, int tile, cudaStream_t s) {
+#ifdef GROUP_NF64
   if (nf == 64 && gc == 32) return chained_tile<TS, 64, 32>(map, p, B, tile, s);
+#endif
+#ifdef GROUP_NF32
   if (nf == 32 && gc == 16) return chained_tile<TS, 32, 16>(map, p, B, tile, s);
+#endif
   return int(cudaErrorInvalidValue);
 }
 
@@ -175,8 +180,12 @@ int packed_tile(const CUtensorMap& map, const Params& p, int B, int tile, cudaSt
 
 template <typename TS>
 int packed_shape(const CUtensorMap& map, const Params& p, int B, int nf, int gc, int tile, cudaStream_t s) {
+#ifdef GROUP_NF64
   if (nf == 64 && gc == 32) return packed_tile<TS, 64, 32>(map, p, B, tile, s);
+#endif
+#ifdef GROUP_NF32
   if (nf == 32 && gc == 16) return packed_tile<TS, 32, 16>(map, p, B, tile, s);
+#endif
   return int(cudaErrorInvalidValue);
 }
 
@@ -204,8 +213,13 @@ int rdb_chained_launch(const void* xs, const void* x, const void* w, const void*
                         w, static_cast<const float*>(bias), H, W, 0, rows,
                         cols};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return state_bf16 ? chained_shape<__nv_bfloat16>(map, p, B, nf, gc, tile, s)
-                    : chained_shape<float>(map, p, B, nf, gc, tile, s);
+#ifdef GROUP_BF16
+  if (state_bf16) return chained_shape<__nv_bfloat16>(map, p, B, nf, gc, tile, s);
+#endif
+#ifdef GROUP_F32
+  if (!state_bf16) return chained_shape<float>(map, p, B, nf, gc, tile, s);
+#endif
+  return int(cudaErrorInvalidValue);
 }
 
 // K4: one RDB on the paired state hi + lo ([B, H, W, nf] bf16 each; the
@@ -226,8 +240,14 @@ int rdb_paired_launch(const void* hi, const void* lo, const void* w, const void*
                        static_cast<bf*>(out_hi), static_cast<bf*>(out_lo), static_cast<const bf*>(w),
                        static_cast<const float*>(bias), H, W, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the paired carry holds a float32 state as two bf16 planes: its
+  // instances are the float32 state's
+#if defined(GROUP_F32) && defined(GROUP_NF64)
   if (nf == 64 && gc == 32) return paired_tile<64, 32>(map, p, B, tile, s);
+#endif
+#if defined(GROUP_F32) && defined(GROUP_NF32)
   if (nf == 32 && gc == 16) return paired_tile<32, 16>(map, p, B, tile, s);
+#endif
   return int(cudaErrorInvalidValue);
 }
 
@@ -243,8 +263,13 @@ int rdb_packed_launch(const void* xs, const void* x, const void* w, const void* 
   const Params p{x, u, out, static_cast<__nv_bfloat16*>(shadow), static_cast<const __nv_bfloat16*>(w),
                  static_cast<const float*>(bias), H, W, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return state_bf16 ? packed_shape<__nv_bfloat16>(map, p, B, nf, gc, tile, s)
-                    : packed_shape<float>(map, p, B, nf, gc, tile, s);
+#ifdef GROUP_BF16
+  if (state_bf16) return packed_shape<__nv_bfloat16>(map, p, B, nf, gc, tile, s);
+#endif
+#ifdef GROUP_F32
+  if (!state_bf16) return packed_shape<float>(map, p, B, nf, gc, tile, s);
+#endif
+  return int(cudaErrorInvalidValue);
 }
 
 const char* rdb_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }

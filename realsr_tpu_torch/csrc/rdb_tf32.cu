@@ -49,6 +49,7 @@
 //   accumulators + A within kAccA (LayoutF32::kc), else ptxas spills and
 //   serializes the wgmmas.
 
+#include "groups.cuh"
 #include "rdb_wgmma.cuh"
 
 namespace {
@@ -104,8 +105,12 @@ int rdb_tf32_launch(const void* x, const void* w, const void* bias, const void* 
   if (err) return err;
   const Params p{x, u, out, nullptr, w, static_cast<const float*>(bias), H, W, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef GROUP_NF64
   if (nf == 64 && gc == 32) return launch_tile<64, 32>(map, p, B, tile, s);
+#endif
+#ifdef GROUP_NF32
   if (nf == 32 && gc == 16) return launch_tile<32, 16>(map, p, B, tile, s);
+#endif
   return int(cudaErrorInvalidValue);
 }
 

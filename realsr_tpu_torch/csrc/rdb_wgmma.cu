@@ -60,6 +60,7 @@
 // trunk modes' K3, K4 and K5 (rdb_modes_wgmma.cu; K3's and K5's float32
 // instances in rdb_modes_tf32.cu) share.
 
+#include "groups.cuh"
 #include "rdb_wgmma.cuh"
 
 namespace {
@@ -100,8 +101,12 @@ int launch_tile(const CUtensorMap& map, const Params& p, int B, int tile, cudaSt
 
 template <typename TS>
 int launch_shape(const CUtensorMap& map, const Params& p, int B, int nf, int gc, int tile, cudaStream_t s) {
+#ifdef GROUP_NF64
   if (nf == 64 && gc == 32) return launch_tile<TS, 64, 32>(map, p, B, tile, s);
+#endif
+#ifdef GROUP_NF32
   if (nf == 32 && gc == 16) return launch_tile<TS, 32, 16>(map, p, B, tile, s);
+#endif
   return int(cudaErrorInvalidValue);
 }
 
@@ -125,8 +130,13 @@ int rdb_wgmma_launch(const void* xs, const void* x, const void* w, const void* b
   const Params p{x, u, out, static_cast<__nv_bfloat16*>(shadow), static_cast<const __nv_bfloat16*>(w),
                  static_cast<const float*>(bias), H, W, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return state_bf16 ? launch_shape<__nv_bfloat16>(map, p, B, nf, gc, tile, s)
-                    : launch_shape<float>(map, p, B, nf, gc, tile, s);
+#ifdef GROUP_BF16
+  if (state_bf16) return launch_shape<__nv_bfloat16>(map, p, B, nf, gc, tile, s);
+#endif
+#ifdef GROUP_F32
+  if (!state_bf16) return launch_shape<float>(map, p, B, nf, gc, tile, s);
+#endif
+  return int(cudaErrorInvalidValue);
 }
 
 const char* rdb_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }

@@ -60,6 +60,7 @@
 // The code, shared with the float32 instances (tail_tf32.cu), is in
 // tail_wgmma.cuh; this source holds the bf16 instances.
 
+#include "groups.cuh"
 #include "tail_wgmma.cuh"
 
 namespace {
@@ -86,7 +87,13 @@ int tail_launch(const void* x, const void* w2, const void* b2, const void* w1, c
   if (sms < 1) return int(cudaErrorInvalidValue);
   return tail_launch_with(x, w2, b2, w1, b1, w9, b3, out, B, H, W, with_up2, th, tw, [&](const Params& p) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return with_up2 ? launch_tile<true>(p, th, tw, sms, s) : launch_tile<false>(p, th, tw, sms, s);
+#ifdef GROUP_K6
+    if (with_up2) return launch_tile<true>(p, th, tw, sms, s);
+#endif
+#ifdef GROUP_K7
+    if (!with_up2) return launch_tile<false>(p, th, tw, sms, s);
+#endif
+    return int(cudaErrorInvalidValue);
   });
 }
 

@@ -44,6 +44,7 @@
 //   chunk, HRconv 8, conv_last 8).
 // A source of its own, so that nvcc builds it beside the others.
 
+#include "groups.cuh"
 #include "tail_wgmma.cuh"
 
 namespace {
@@ -71,7 +72,13 @@ int tail_tf32_launch(const void* x, const void* w2, const void* b2, const void* 
   if (sms < 1) return int(cudaErrorInvalidValue);
   return tail_launch_with(x, w2, b2, w1, b1, w9, b3, out, B, H, W, with_up2, th, tw, [&](const Params& p) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return with_up2 ? launch_tile<true>(p, th, tw, sms, s) : launch_tile<false>(p, th, tw, sms, s);
+#ifdef GROUP_K6
+    if (with_up2) return launch_tile<true>(p, th, tw, sms, s);
+#endif
+#ifdef GROUP_K7
+    if (!with_up2) return launch_tile<false>(p, th, tw, sms, s);
+#endif
+    return int(cudaErrorInvalidValue);
   });
 }
 

@@ -36,6 +36,12 @@ static tile and u8 buffers; the dispatch loop copies each chunk's tiles in,
 replays, and scatters out. An image's download runs on a copy stream that
 waits only for that image's last scatter, so it overlaps the next image's
 compute; the progress fence waits on events of its own chunks.
+
+On a card the first chunk, or :meth:`RealSR.precompile`, waits for the
+kernel libraries the forward launches: the build groups of those instances
+alone (fast start; ``ops/build.py``), built at once where the host's build
+cache, scoped by its fingerprint, lacks them (the JAX engine's fast start
+and compilation cache, in nvcc's terms).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import dataclasses
 import os
 import sys
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -56,8 +63,11 @@ from realsr_tpu_torch.utils.trace import tracer
 from realsr_tpu_torch.loader import ModelBundle, load_model
 from realsr_tpu_torch.models import rrdbnet as R
 from realsr_tpu_torch.models.rrdbnet import SCHEDS, TAIL_MODES, tf32
+from realsr_tpu_torch.ops import build
 from realsr_tpu_torch.ops.pad import reflect101_indices, reflect101_pad2d, reflect101_pad_w
+from realsr_tpu_torch.ops.rdb_kernel import rdb_group
 from realsr_tpu_torch.ops.resize import resize_bicubic
+from realsr_tpu_torch.ops.tail_kernel import tail_group
 from realsr_tpu_torch.ops.tta import NUM_TRANSFORMS, d4_inverse, d4_transform
 
 # one-shot operator notices (the planner anchors' provenance): printed at
@@ -107,6 +117,18 @@ class EngineConfig:
     # executor's layers upload constants on each call, which a capture
     # cannot hold.
     cuda_graphs: bool = True
+    # Fast start (the JAX engine's name; on a card): before its first launch
+    # the engine builds, all at once, only the kernel groups
+    # (ops/build.py::GROUPS) its resolved forms launch, a few instances of a
+    # source each (RealSR.kernel_groups); off, every group of those
+    # sources. Both launch the same instances, so the output is bit-equal
+    # either way (JAX's fast tile moves pixels; nothing here does).
+    # REALSR_TPU_FAST_START=0 turns it off, as in the JAX engine.
+    fast_start: bool = True
+    # keep built kernels in the build cache (ops/build.py: <root>/<host
+    # fingerprint>/) for later processes; False builds into a directory of
+    # this process, removed at exit
+    compilation_cache: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,21 +238,73 @@ def _to_device(tree, device: torch.device):
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
 
 
-def kernel_sources(variant, trunk, sched, tail, op_dtype) -> tuple:
-    """The nvcc sources (``ops/build.py::SOURCES``) whose kernels a forward
-    of this resolved form launches: the trunk's (K1/K2, or the mode
-    kernels K3-K5) and the kernel tail's (K6/K7), in the operand type's
-    instance (3xTF32 for float32)."""
+def kernel_groups(variant, trunk, sched, tail, op_dtype, storage_dtype, nf: int = 64) -> tuple:
+    """The (source, group) libraries (``ops/build.py::GROUPS``) whose
+    kernels a forward of this resolved form launches: the trunk's (K1/K2,
+    or the mode kernels K3-K5) at the state type and width, and the kernel
+    tail's form (K6 or K7), in the operand type's instance (3xTF32 for
+    float32)."""
     f32 = op_dtype == torch.float32
     out = []
     if variant == "cuda":
+        group = rdb_group(torch.float32 if f32 else storage_dtype, nf)
         if trunk == "per_rdb" and sched == "scatter":
-            out.append("rdb_tf32" if f32 else "rdb_wgmma")
+            out.append(("rdb_tf32" if f32 else "rdb_wgmma", group))
         else:
-            out.append("rdb_modes_tf32" if f32 else "rdb_modes_wgmma")
+            out.append(("rdb_modes_tf32" if f32 else "rdb_modes_wgmma", group))
     if tail in ("kernel", "kernel_hr"):
-        out.append("tail_tf32" if f32 else "tail_kernel")
+        out.append(("tail_tf32" if f32 else "tail_kernel", tail_group(tail == "kernel")))
     return tuple(out)
+
+
+def _on_card(device: torch.device) -> bool:
+    """Whether the kernel wrappers launch their kernels for tensors on
+    ``device`` (a CUDA device), rather than run their plain versions."""
+    return device.type == "cuda"
+
+
+def fast_start_env() -> bool:
+    """False where ``REALSR_TPU_FAST_START`` is "0", as the JAX engine reads
+    it."""
+    return os.environ.get("REALSR_TPU_FAST_START", "1") != "0"
+
+
+def _resolve_forms(config: EngineConfig, device: Device) -> tuple:
+    """(storage dtype, operand dtype, variant, trunk, sched, the tail to ask
+    the loader for) of an engine of ``config`` on ``device``."""
+    dtype, op_dtype = _resolve_precision(config.storage, device)
+    variant = _resolve_variant(config.variant, device.platform, dtype)
+    if variant == "cuda" and dtype == torch.float16:
+        raise NotImplementedError(
+            "the fused RDB kernel has no float16 instance (the JAX package runs "
+            "float16 on its conv path too); pass variant='dense' to run float16 on plain convs"
+        )
+    trunk, sched = _resolve_trunk(config, variant, dtype, op_dtype)
+    tail = _resolve_tail(config.tail, variant, device.platform)
+    if tail == "kernel" and config.tail == "auto" and packed_tail_env() is None:
+        tail = "auto"  # the loader's auto: K6 where it has an instance for the graph
+    return dtype, op_dtype, variant, trunk, sched, tail
+
+
+def card_kernel_groups(config: EngineConfig, parampath: str, modelpath: str) -> tuple:
+    """What :meth:`RealSR.kernel_groups` of an engine of ``config`` loaded
+    with this model gives on a card, resolved on any host (the seed tool's
+    build host may have no card)."""
+    dtype, op_dtype, variant, trunk, sched, tail = _resolve_forms(config, Device("gpu", torch.device("cuda", 0)))
+    bundle = load_model(parampath, modelpath, storage_dtype=dtype, op_dtype=op_dtype,
+                        variant=variant, tail=tail, trunk=trunk, sched=sched)
+    if bundle.spec is None:
+        return ()
+    return _build_set(kernel_groups(variant, trunk, sched, bundle.tail, op_dtype, dtype, bundle.spec.nf),
+                      config.fast_start and fast_start_env())
+
+
+def _build_set(launched: tuple, fast_start: bool) -> tuple:
+    """The groups to build for the ``launched`` ones: those alone with fast
+    start, else every group of their sources."""
+    if fast_start:
+        return launched
+    return tuple((src, g) for src in dict.fromkeys(src for src, _ in launched) for g in build.GROUPS[src])
 
 
 class _DeviceState:
@@ -461,6 +535,9 @@ class RealSR:
         # the chunk program table: {device: OrderedDict((device, ph, pw,
         # batch, tta, alpha) -> _ChunkProgram)}, least recently used first
         self._programs: dict = {}
+        # the kernel groups are loaded (_ensure_kernels), once per model
+        self._kernels_ready = False
+        self._kernels_lock = threading.Lock()
 
     def load(self, parampath: str, modelpath: str) -> int:
         """Parse and load the model files onto the device. Returns 0 like
@@ -469,17 +546,7 @@ class RealSR:
         trunk form the variant or precision cannot run (``ValueError``). A
         graph the RRDBNet matcher rejects runs on the generic executor;
         ``variant``, ``tail``, ``trunk`` and ``sched`` are None then."""
-        dtype, op_dtype = _resolve_precision(self.config.storage, self.device)
-        variant = _resolve_variant(self.config.variant, self.device.platform, dtype)
-        if variant == "cuda" and dtype == torch.float16:
-            raise NotImplementedError(
-                "the fused RDB kernel has no float16 instance (the JAX package runs "
-                "float16 on its conv path too); pass variant='dense' to run float16 on plain convs"
-            )
-        trunk, sched = _resolve_trunk(self.config, variant, dtype, op_dtype)
-        tail = _resolve_tail(self.config.tail, variant, self.device.platform)
-        if tail == "kernel" and self.config.tail == "auto" and packed_tail_env() is None:
-            tail = "auto"  # the loader's auto: K6 where it has an instance for the graph
+        dtype, op_dtype, variant, trunk, sched, tail = _resolve_forms(self.config, self.device)
         self.storage_dtype, self.op_dtype = dtype, op_dtype
         self.bundle = load_model(
             parampath, modelpath, storage_dtype=dtype, op_dtype=op_dtype,
@@ -490,6 +557,7 @@ class RealSR:
             variant = trunk = sched = None
         self.variant, self.tail, self.trunk, self.sched = variant, self.bundle.tail, trunk, sched
         self.scale = self.bundle.scale
+        self._kernels_ready = False  # this model's groups build before its first launch
         self._programs = {}  # graphs of the previous model read its parameters
         # the planner's rate table, read once here, not once per image
         self._rate_anchors = _anchors()
@@ -661,6 +729,7 @@ class RealSR:
         (:meth:`_shards`) takes the chunks in turn, whole: chunk j runs on
         shard ``j % len(shards)``, reads its input and writes its output.
         Returns the tiles done."""
+        self._ensure_kernels()
         chunks = self._chunk_list(buckets, tilesize, batches)
         for j, (ph, pw, chunk, real) in enumerate(chunks):
             padded, alpha, out = shards[j % len(shards)]
@@ -998,13 +1067,51 @@ class RealSR:
 
     # -- the chunk program table ahead of a request ------------------------
 
-    def kernel_sources(self) -> tuple:
-        """The nvcc sources whose kernels this engine's forward launches
-        (:func:`kernel_sources` of its resolved variant, trunk, sched, tail
-        and operand type)."""
+    @property
+    def fast_start(self) -> bool:
+        """``config.fast_start``, unless ``REALSR_TPU_FAST_START`` is "0"."""
+        return self.config.fast_start and fast_start_env()
+
+    def kernel_groups(self) -> tuple:
+        """The (source, group) libraries this engine builds before its
+        first launch on a card: with :attr:`fast_start` the groups its
+        forward launches (:func:`kernel_groups` of its resolved variant,
+        trunk, sched, tail and precision), else every group of those
+        groups' sources."""
         if self.bundle is None:
             raise RuntimeError("call load() first")
-        return kernel_sources(self.variant, self.trunk, self.sched, self.tail, self.op_dtype)
+        nf = self.bundle.spec.nf if self.bundle.spec is not None else 0
+        launched = kernel_groups(self.variant, self.trunk, self.sched, self.tail, self.op_dtype,
+                                 self.storage_dtype, nf)
+        return _build_set(launched, self.fast_start)
+
+    def _ensure_kernels(self) -> None:
+        """On a CUDA device, load :meth:`kernel_groups` once per model, building
+        the missing ones at once (one nvcc each; a failed build raises, with
+        nothing in its place), into the build cache or, with
+        ``config.compilation_cache`` off, this process's own directory. A
+        build prints one line on stderr: the groups and their nvcc
+        seconds."""
+        if self._kernels_ready:
+            return
+        with self._kernels_lock:
+            if self._kernels_ready:
+                return
+            groups = self.kernel_groups() if _on_card(self.device.torch_device) else ()
+            if groups:
+                t0 = time.perf_counter()
+                with tracer.span("kernel build"):
+                    seconds = build.load_groups(groups, cache=self.config.compilation_cache)
+                built = {k: v for k, v in seconds.items() if v > 0}
+                if built:
+                    print(
+                        f"realsr_tpu_torch: built {len(built)} kernel groups with nvcc in "
+                        f"{time.perf_counter() - t0:.2f} s ("
+                        + ", ".join(f"{src}[{g}] {v:.2f} s" for (src, g), v in built.items())
+                        + f") into {build.build_dir(self.config.compilation_cache)}",
+                        file=sys.stderr, flush=True,
+                    )
+            self._kernels_ready = True
 
     def program_keys(self, w: int, h: int, channels: int = 3, n_img: int = 1) -> set:
         """The chunk program keys ``(device, ph, pw, batch, tta, alpha)``
@@ -1037,10 +1144,10 @@ class RealSR:
         """Make ready every chunk program a ``w`` x ``h`` x ``channels``
         image (a stack of ``n_img``) will run, so that the first request
         pays no build and no capture (the JAX engine's ``precompile``; the
-        port has no fast start, so it has no ``fast_start_ramp``). On a card
-        it loads, building them at once if needed (one nvcc each), the
-        kernel sources this engine's forward launches
-        (:meth:`kernel_sources`), then captures the graph of each key of
+        port's fast start serves on the same tile, so there is no
+        ``fast_start_ramp``). On a card it loads, building them at once if
+        needed (one nvcc each), the kernel groups of
+        :meth:`kernel_groups`, then captures the graph of each key of
         :meth:`program_keys` that the table lacks, banded where
         :meth:`needs_banding` says so. Returns the number of chunk programs
         such an image runs; on the CPU, where nothing is captured, that
@@ -1050,14 +1157,7 @@ class RealSR:
         if channels not in (3, 4):
             raise ValueError("channels must be 3 or 4")
         keys = self.program_keys(w, h, channels, n_img)
-        if self.device.platform == "gpu" and self.kernel_sources():
-            import concurrent.futures
-
-            from realsr_tpu_torch.ops import build
-
-            srcs = self.kernel_sources()
-            with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
-                list(pool.map(build.load_library, srcs))
+        self._ensure_kernels()
         if self.graphs:
             with torch.no_grad():
                 for key in sorted(keys, key=str):

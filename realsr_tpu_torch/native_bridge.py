@@ -21,6 +21,10 @@ reference's pipeline exists for (src/main.cpp:305-416). torch launches are
 asynchronous, so process_async returns once the image's chunks are enqueued;
 fetch() performs the single download.
 
+The engines read ``REALSR_TPU_FAST_START`` (and the other engine
+variables) from the environment the binary was started with, as the
+Python CLI's do.
+
 Device ids are CUDA device indices; ``gpuid`` all -1 builds CPU engines,
 and an id >= 0 needs CUDA and raises without it (no path carries on on the
 CPU). Buffers cross the boundary as raw bytes (C contiguous HWC uint8).

@@ -628,33 +628,40 @@ def _bind(lib, fns):
     return lib
 
 
-def _wgmma_library():
-    """rdb_wgmma.cu: K1/K2 for bfloat16 operands."""
+def rdb_group(state_dtype, nf: int) -> str:
+    """The build group (``ops/build.py::GROUPS``) of the RDB instances for a
+    state type and width: ``f32_nf64``, ``bf16_nf32``, ... (the paired
+    carry's bf16 planes hold a float32 state: ``f32``)."""
+    return f"{'bf16' if state_dtype == torch.bfloat16 else 'f32'}_nf{nf}"
+
+
+def _wgmma_library(group: str):
+    """rdb_wgmma.cu's ``group``: K1/K2 for bfloat16 operands."""
     from realsr_tpu_torch.ops.build import load_library
 
-    return _bind(load_library("rdb_wgmma"), {"rdb_wgmma_launch": (7, 7)})
+    return _bind(load_library("rdb_wgmma", group), {"rdb_wgmma_launch": (7, 7)})
 
 
-def _tf32_library():
-    """rdb_tf32.cu: K1/K2 for float32 operands."""
+def _tf32_library(group: str):
+    """rdb_tf32.cu's ``group``: K1/K2 for float32 operands."""
     from realsr_tpu_torch.ops.build import load_library
 
-    return _bind(load_library("rdb_tf32"), {"rdb_tf32_launch": (5, 6)})
+    return _bind(load_library("rdb_tf32", group), {"rdb_tf32_launch": (5, 6)})
 
 
-def _modes_library():
-    """rdb_modes_wgmma.cu: K3, K4 and K5 for bfloat16 operands."""
+def _modes_library(group: str):
+    """rdb_modes_wgmma.cu's ``group``: K3, K4 and K5 for bfloat16 operands."""
     from realsr_tpu_torch.ops.build import load_library
 
-    return _bind(load_library("rdb_modes_wgmma"), {
+    return _bind(load_library("rdb_modes_wgmma", group), {
         "rdb_chained_launch": (8, 9), "rdb_paired_launch": (8, 6), "rdb_packed_launch": (7, 7)})
 
 
-def _modes_tf32_library():
-    """rdb_modes_tf32.cu: K3 and K5 for float32 operands."""
+def _modes_tf32_library(group: str):
+    """rdb_modes_tf32.cu's ``group``: K3 and K5 for float32 operands."""
     from realsr_tpu_torch.ops.build import load_library
 
-    return _bind(load_library("rdb_modes_tf32"), {
+    return _bind(load_library("rdb_modes_tf32", group), {
         "rdb_chained_tf32_launch": (6, 8), "rdb_packed_tf32_launch": (5, 6)})
 
 
@@ -738,11 +745,11 @@ def _rdb_tf32(x, p, u, tile: Optional[int] = None, packed: bool = False):
     B, H, W, _ = x.shape
     if packed:
         tile = _patch_side(fn, tile, PACKED_TF32_TILES, packed_tf32_geometry, x, B, H, W, nf, gc)
-        lib = _modes_tf32_library()
+        lib = _modes_tf32_library(rdb_group(x.dtype, nf))
         launch = lib.rdb_packed_tf32_launch
     else:
         tile = _patch_side(fn, tile, TF32_TILES, tf32_geometry, x, B, H, W, nf, gc)
-        lib = _tf32_library()
+        lib = _tf32_library(rdb_group(x.dtype, nf))
         launch = lib.rdb_tf32_launch
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -807,11 +814,11 @@ def _rdb_wgmma(x, xs, p, u, shadow: bool, tile: Optional[int] = None, packed: bo
     B, H, W, _ = x.shape
     if packed:
         tile = _patch_side(fn, tile, PACKED_TILES, packed_geometry, x, B, H, W, nf, gc)
-        lib = _modes_library()
+        lib = _modes_library(rdb_group(x.dtype, nf))
         launch = lib.rdb_packed_launch
     else:
         tile = _patch_side(fn, tile, WGMMA_TILES, rdb_geometry, x, B, H, W, nf, gc)
-        lib = _wgmma_library()
+        lib = _wgmma_library(rdb_group(x.dtype, nf))
         launch = lib.rdb_wgmma_launch
     out = torch.empty_like(x)
     sh = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) if shadow else None
@@ -876,7 +883,7 @@ def rdb_apply_chained(
     if out.data_ptr() in (x.data_ptr(), xs.data_ptr()) or (shadow is not None and shadow.data_ptr() == xs.data_ptr()):
         raise ValueError(f"{fn}: out and shadow must not be x or xs (other blocks read its halo)")
     tile = _patch_side(fn, tile, WGMMA_TILES, rdb_geometry, x, B, H, W, nf, gc)
-    lib = _modes_library()
+    lib = _modes_library(rdb_group(x.dtype, nf))
     with torch.cuda.device(x.device):
         err = lib.rdb_chained_launch(
             xs.data_ptr(), x.data_ptr(), wg.data_ptr(), b.data_ptr(), u.data_ptr(), flag.data_ptr(),
@@ -901,7 +908,7 @@ def _chained_tf32(x, p, u, flag, H, W, out, xs, shadow, tile, nf, gc):
         raise ValueError(f"{fn}: out must not be x (other blocks read its halo)")
     B, rows, cols, _ = x.shape
     tile = _patch_side(fn, tile, TF32_TILES, tf32_geometry, x, B, H, W, nf, gc)
-    lib = _modes_tf32_library()
+    lib = _modes_tf32_library(rdb_group(x.dtype, nf))
     with torch.cuda.device(x.device):
         err = lib.rdb_chained_tf32_launch(
             x.data_ptr(), wt.data_ptr(), p["b"].data_ptr(), u.data_ptr(), flag.data_ptr(), out.data_ptr(),
@@ -932,7 +939,7 @@ def rdb_apply_paired(
     B, H, W, _ = hi.shape
     tile = _patch_side("rdb_apply_paired", tile, WGMMA_TILES, rdb_geometry, hi, B, H, W, nf, gc)
     hi2, lo2 = torch.empty_like(hi), torch.empty_like(lo)
-    lib = _modes_library()
+    lib = _modes_library(rdb_group(torch.float32, nf))
     with torch.cuda.device(hi.device):
         err = lib.rdb_paired_launch(
             hi.data_ptr(), lo.data_ptr(), wg.data_ptr(), b.data_ptr(),

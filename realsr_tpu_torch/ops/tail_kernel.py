@@ -298,10 +298,10 @@ def hr_last_reference(p2: torch.Tensor, tp) -> torch.Tensor:
     return _hr_last_phases(P2, tp, w1, w9)
 
 
-def _bind(name: str, fn: str):
+def _bind(name: str, group: str, fn: str):
     from realsr_tpu_torch.ops.build import load_library
 
-    lib = load_library(name)
+    lib = load_library(name, group)
     if not getattr(lib, "_realsr_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         getattr(lib, fn).argtypes = [vp] * 8 + [ci] * 7 + [vp]
@@ -312,14 +312,20 @@ def _bind(name: str, fn: str):
     return lib
 
 
-def _library():
-    """tail_kernel.cu: K6/K7 for bfloat16 operands."""
-    return _bind("tail_kernel", "tail_launch")
+def tail_group(with_up2: bool) -> str:
+    """The build group (``ops/build.py::GROUPS``) of a tail form: ``k6``
+    with up2, ``k7`` without."""
+    return "k6" if with_up2 else "k7"
 
 
-def _tf32_library():
-    """tail_tf32.cu: K6/K7 for float32 operands (3xTF32)."""
-    return _bind("tail_tf32", "tail_tf32_launch")
+def _library(group: str):
+    """tail_kernel.cu's ``group``: K6 or K7 for bfloat16 operands."""
+    return _bind("tail_kernel", group, "tail_launch")
+
+
+def _tf32_library(group: str):
+    """tail_tf32.cu's ``group``: K6 or K7 for float32 operands (3xTF32)."""
+    return _bind("tail_tf32", group, "tail_tf32_launch")
 
 
 def _check(fn, name, t, device, dtype, numel):
@@ -367,7 +373,7 @@ def _launch(fn, x, tp, with_up2, tile=None):
     elif tile not in tiles:
         raise ValueError(f"{fn}: no {x.dtype} kernel for patch shape {tile}; built for {tiles}")
     out = torch.empty((B, 4 * H, 4 * W, OUTC), dtype=torch.float32, device=x.device)
-    lib = library()
+    lib = library(tail_group(with_up2))
     launch = lib.tail_launch if x.dtype == torch.bfloat16 else lib.tail_tf32_launch
     ptr = lambda k: tp[keys[k]].data_ptr() if k in sizes else None  # noqa: E731
     with torch.cuda.device(x.device):

@@ -354,11 +354,13 @@ def test_graph_slice_matches_jax(tiny_model_dir, jax_engine, shape, stand_in):
     ],
 )
 def test_kernel_sources(storage, trunk, sched, tail, want):
-    """precompile builds the sources the resolved forward launches, not all
-    six: the default mixed engine needs rdb_wgmma and tail_kernel."""
-    op = engine_mod._PRECISION[storage][1]
-    assert engine_mod.kernel_sources("cuda", trunk, sched, tail, op) == want
-    assert engine_mod.kernel_sources("dense", "per_rdb", "scatter", "interleaved", op) == ()
+    """precompile builds groups of the sources the resolved forward
+    launches, not of all six: the default mixed engine needs rdb_wgmma and
+    tail_kernel (``kernel_groups``, one group of each)."""
+    dtype, op = engine_mod._PRECISION[storage]
+    groups = engine_mod.kernel_groups("cuda", trunk, sched, tail, op, dtype)
+    assert tuple(src for src, _ in groups) == want
+    assert engine_mod.kernel_groups("dense", "per_rdb", "scatter", "interleaved", op, dtype) == ()
 
 
 @pytest.fixture(scope="module")

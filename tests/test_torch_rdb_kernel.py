@@ -574,4 +574,4 @@ def test_library_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("REALSR_TPU_TORCH_BUILD", str(tmp_path / "build"))
     monkeypatch.setattr(build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        TK._tf32_library()
+        TK._tf32_library("f32_nf64")
