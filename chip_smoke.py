@@ -133,7 +133,24 @@ Phases (each prints its lines; any failure exits non-zero):
    root, the CLI there with no nvcc, bit-equal with nothing built, and a
    seed of an altered fingerprint installed inert, the same run failing
    with a message that names the seed tool; (c) the build fingerprint and
-   the groups each of the smoke's engines built.
+   the groups each of the smoke's engines built;
+13. the upload that does not wait for the card (``engine._upload``), one
+   JSON line a step, each against the old pageable route swapped into the
+   module (``by_route``): (a) ``process_device`` back to back from two
+   threads, 8 x 1024 x 768 and 64 x 256 x 192, one fetch each at the end,
+   in turns, median of 5: images/s, and from one profiled run of each the
+   blocking CUDA runtime calls between the first and the last enqueue
+   (none on the new route) and the idle share; outputs bit-equal; the
+   caching host allocator holding a pinned block until its copy has run;
+   a fresh engine capturing while another thread uploads; (b) image 2's
+   ``process_device`` returning while image 1 computes; (c) the 6200 x
+   6000 image banded (old, new) and whole, warm, with the pinned blocks
+   each run made, beside 7b's first runs; (d) the default CLI file to file
+   on 11g's photos and on 32 copies of the 1024 x 768 PNG, bit-equal, with
+   the peak memory reserved; (e) ``REALSR_TPU_PROFILE`` on the CLI in a
+   subprocess: one Chrome trace naming K1's and K6's kernels; (f) on a
+   host with two cards, a mesh of both (``mesh_cards_main`` runs it
+   alone), else a line saying it is left out.
 
 Every card engine runs a key's first chunk eagerly, its second through the
 capture of the key's graph (the warm-up computes the chunk; the kernel
@@ -166,6 +183,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -772,7 +790,9 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     """Phase 7: band streaming, process_cpu, the generic executor and the
     dense tail's resolution on the card; one JSON line per step. 7b's
     banded run leaves (peak reserved bytes, output digest, s) in
-    ``big_band["graphs"]`` for phase 11e."""
+    ``big_band["graphs"]`` for phase 11e, and the whole image's s and the
+    pinned blocks each run made (``big_band["whole_s"]``,
+    ``["host_allocs"]``) for phase 13c."""
     from PIL import Image
 
     from realsr_tpu_torch.engine import EngineConfig, RealSR
@@ -814,8 +834,10 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     check(with_env(no_budget, lambda: engine.needs_banding(big.shape)), f"7b: {big.shape} does not need banding")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    h0 = host_allocs()
     (banded, per), s_band = timed(lambda: with_env(no_budget, lambda: band_runs(
         engine, rk, tk, lambda: engine.process(big))))
+    h1 = host_allocs()
     big_band["graphs"] = (torch.cuda.max_memory_reserved(), hashlib.sha256(banded.tobytes()).hexdigest(), s_band)
     want = band_chunks(engine, big.shape, with_env(no_budget, lambda: engine._auto_band_tile_rows(
         big.shape[1], 3, engine.tilesize)))
@@ -823,6 +845,8 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     whole_env = {"REALSR_TPU_BAND_BUDGET_MB": "8192"}
     check(not with_env(whole_env, lambda: engine.needs_banding(big.shape)), "7b: 8192 MB budget still bands")
     whole, s_whole = timed(lambda: with_env(whole_env, lambda: engine.process(big)))
+    big_band["whole_s"] = s_whole  # phase 13c, with each run's new pinned blocks
+    big_band["host_allocs"] = {"banded": host_alloc_delta(h0, h1), "whole": host_alloc_delta(h1, host_allocs())}
     check(banded.shape == (4 * BIG_HW[0], 4 * BIG_HW[1], 3) and np.array_equal(banded, whole),
           f"7b: banded {banded.shape} not bit-equal to the whole-image run")
     del whole
@@ -1772,6 +1796,463 @@ def slice12(mparam, card, auto_engine, engines: dict) -> None:
                           "card": card}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# phase 13, back to back (13a): the default 1024 x 768 image, and small
+# images, where the host's share of an image is largest; the CUDA runtime
+# calls that block the host, counted between the first and the last enqueue
+B2B = ((8, STEADY_HW), (64, (192, 256)))
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def pageable_upload(array, device, rows=None):
+    """The upload before ``engine._upload`` (phase 13's old route): a
+    pageable copy on the current stream, which synchronizes that stream."""
+    return torch.tensor(array if rows is None else array[rows], device=device)
+
+
+def host_allocs():
+    """(pinned blocks the caching host allocator has made with CUDA, seconds
+    in those calls) so far, or None where this torch keeps no such
+    counters."""
+    try:
+        st = torch.cuda.host_memory_stats()
+        return st["num_host_alloc"], st["host_alloc_time.total"] / 1e6
+    except (AttributeError, KeyError, RuntimeError):
+        return None
+
+
+def host_alloc_delta(a, b):
+    """{"blocks", "s"} made between two :func:`host_allocs` readings."""
+    return None if a is None or b is None else {"blocks": b[0] - a[0], "s": b[1] - a[1]}
+
+
+def by_route(route: str, fn):
+    """``fn()`` with the engine's upload ``route``: "new"
+    (``engine._upload``) or "old" (:func:`pageable_upload`, swapped into
+    the engine module), the module's own after."""
+    from realsr_tpu_torch import engine as engine_mod
+
+    new = engine_mod._upload
+    if route == "old":
+        engine_mod._upload = pageable_upload
+    try:
+        return fn()
+    finally:
+        engine_mod._upload = new
+
+
+def back_to_back(eng, imgs: list, threads: int = 2, mark=None) -> tuple:
+    """``process_device`` on every image of ``imgs`` with no synchronize
+    between them, ``threads`` threads taking them in turn as the pipeline's
+    proc threads do, then one ``fetch`` each: (outputs in order, wall s).
+    ``mark(name)`` (torch.profiler's record_function when profiled) spans
+    the main thread's wait from the start to the last enqueue ("13
+    enqueue") and to the last download ("13 run")."""
+    mark = mark or (lambda name: contextlib.nullcontext())
+    outs = [None] * len(imgs)
+    enqueued, fetch = threading.Barrier(threads + 1), threading.Event()
+    errors = []
+
+    def proc(k: int) -> None:
+        bufs = []
+        try:
+            bufs = [(i, eng.process_device(imgs[i])) for i in range(k, len(imgs), threads)]
+        except BaseException as ex:
+            errors.append(ex)
+        finally:
+            enqueued.wait()
+        fetch.wait()  # after the enqueue mark closes
+        for i, b in bufs:
+            outs[i] = eng.fetch(b)
+
+    torch.cuda.synchronize()
+    workers = [threading.Thread(target=proc, args=(k,)) for k in range(threads)]
+    t0 = time.perf_counter()
+    with mark("13 run"):
+        with mark("13 enqueue"):
+            for w in workers:
+                w.start()
+            enqueued.wait()
+        fetch.set()
+        for w in workers:
+            w.join()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not errors and all(o is not None for o in outs), f"13: back to back failed: {errors!r}")
+    return outs, wall
+
+
+def covered(spans) -> float:
+    """The length of the union of ``spans`` [(start, end)]."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > max(a, end):
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def traced_back_to_back(eng, imgs: list, route: str, threads: int = 2) -> dict:
+    """One :func:`back_to_back` run under torch.profiler: the blocking CUDA
+    runtime calls (:data:`SYNC_CALLS`, any thread) between the first and
+    the last enqueue, and the device's idle share of the run (the union of
+    its kernel rows over the run's wall time; copies run beside kernels on
+    their own streams and are not counted as busy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        by_route(route, lambda: back_to_back(eng, imgs, threads, mark=record_function))
+        time.sleep(0.05)
+    events = prof.events()
+    spans = {e.name: e.time_range for e in events if e.name in ("13 run", "13 enqueue")}
+    check(len(spans) == 2, f"13: the profile lost its marks: {sorted(spans)}")
+    enq, run = spans["13 enqueue"], spans["13 run"]
+    calls: dict = {}  # every CUDA runtime call in the enqueue window
+    kernels = []
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels.append((max(e.time_range.start, run.start), min(e.time_range.end, run.end)))
+        elif e.name.startswith("cuda") and enq.start <= e.time_range.start <= enq.end:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    run_us = run.end - run.start
+    return {"syncs_in_enqueue": {k: calls.get(k, 0) for k in SYNC_CALLS}, "runtime_calls_in_enqueue": calls,
+            "kernel_rows": len(kernels), "enqueue_ms": (enq.end - enq.start) / 1e3,
+            "run_ms": run_us / 1e3, "idle_share": (1 - covered(kernels) / run_us) if kernels else None}
+
+
+def pinned_block_held(dev) -> dict:
+    """The caching host allocator's event for a ``non_blocking`` copy from
+    pinned memory, on the upload stream as ``engine._upload`` makes it: a
+    block freed while its copy waits behind ~0.5 s of spinning is not handed
+    out again, and once the copy has run it is. 100 MB: a size class (128
+    MB) no earlier phase pins, so no other free block answers."""
+    from realsr_tpu_torch import engine as engine_mod
+
+    n = 100 << 20
+    stream = engine_mod._device_state(dev).upload_stream
+    torch.cuda.synchronize()
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    ptr = host.data_ptr()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(1_000_000_000)  # ~0.5 s
+        buf = torch.empty(n, dtype=torch.uint8, device=dev)
+        buf.copy_(host, non_blocking=True)
+    del host
+    during = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    held = during.data_ptr() != ptr
+    torch.cuda.synchronize()
+    after = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    reused = after.data_ptr() == ptr
+    check(held and reused, f"13a: the pinned block handed out during its copy: {not held}, after it: {reused}")
+    del buf, during, after
+    return {"held_while_copying": held, "reused_after": reused, "bytes": n}
+
+
+def uploads_during_captures(rk, tk, mparam, mbin, imgs: list) -> dict:
+    """A fresh default engine captures its programs (graphs in
+    ``thread_local`` mode) on one thread while another thread uploads
+    through ``engine._upload`` without pause: the captures hold and the
+    outputs are the ones the smoke's default engine gives."""
+    from realsr_tpu_torch import engine as engine_mod
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+
+    dev = torch.device("cuda", 0)
+    fresh = RealSR(gpuid=0, config=EngineConfig())
+    fresh.load(mparam, mbin)
+    cls = engine_mod._CudaGraph
+    windows, stamps, stop = [], [], threading.Event()
+    capture = cls.capture
+
+    def timed_capture(self, fn):
+        t0 = time.perf_counter()
+        try:
+            capture(self, fn)
+        finally:
+            windows.append((t0, time.perf_counter()))
+
+    def uploader():
+        a = np.random.default_rng(41).integers(0, 256, (*STEADY_HW, 3), np.uint8)
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            engine_mod._upload(a, dev)
+            stamps.append((t0, time.perf_counter()))
+
+    cls.capture = timed_capture
+    side = threading.Thread(target=uploader)
+    try:
+        zero_counts(rk, tk)
+        side.start()
+        outs = [fresh.fetch(fresh.process_device(im)) for im in imgs]
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        side.join()
+        cls.capture = capture
+    inside = sum(1 for a, b in stamps if any(a < w1 and b > w0 for w0, w1 in windows))
+    check(GRAPH_COUNTS["captures"] > 0 and inside > 0,
+          f"13a: {GRAPH_COUNTS['captures']} captures, {inside} uploads of {len(stamps)} during them")
+    return {"captures": GRAPH_COUNTS["captures"], "uploads": len(stamps), "uploads_during_captures": inside,
+            "outputs": outs}
+
+
+def slice13(rk, tk, mparam, mbin, card, auto_engine, engine, big_band) -> None:
+    """Phase 13, the upload that does not wait for the card: (a) back-to-back
+    ``process_device`` from two threads, new upload against the old
+    pageable route in turns, images/s, the blocking runtime calls in the
+    enqueue window and the idle share, bit-equal; the caching host
+    allocator's hold on a pinned block; uploads from another thread during
+    captures; (b) ``process_device`` of image 2 returning while image 1
+    computes; (c) the 6200 x 6000 image banded, old and new, then whole,
+    with the pinned blocks each run made, beside 7b's first runs; (d) the default CLI file to file on 11g's photos and
+    on 32 copies of the 1024 x 768 image, new against old, with the peak
+    memory reserved; (e) ``REALSR_TPU_PROFILE`` in a CLI subprocess: one
+    trace naming K1's and K6's kernels."""
+    from PIL import Image
+
+    from realsr_tpu_torch import cli
+    from realsr_tpu_torch import engine as engine_mod
+
+    dev = auto_engine.device.torch_device
+    mdir = os.path.dirname(mparam)
+
+    # 13a: back to back, new against old in turns, median of 5
+    rows, big_imgs = {}, None
+    for n, (h, w) in B2B:
+        imgs = [natural_image(np.random.default_rng(40 + k), h, w) for k in range(n)]
+        if (h, w) == STEADY_HW:
+            big_imgs = imgs
+        label = f"{n} x {w}x{h}, 2 threads"
+        want = {r: by_route(r, lambda: back_to_back(auto_engine, imgs))[0] for r in ("new", "old")}  # warm
+        check(all(np.array_equal(a, b) for a, b in zip(want["new"], want["old"])),
+              f"13a {label}: the new upload's outputs differ from the old route's")
+        secs: dict = {"new": [], "old": []}
+        for order in (("new", "old"), ("old", "new")) * 2 + (("new", "old"),):
+            for r in order:
+                outs, s_ = by_route(r, lambda: back_to_back(auto_engine, imgs))
+                check(all(np.array_equal(a, b) for a, b in zip(outs, want["new"])), f"13a {label} {r}: outputs moved")
+                secs[r].append(s_)
+        traced = {r: traced_back_to_back(auto_engine, imgs, r) for r in ("new", "old")}
+        check(not any(traced["new"]["syncs_in_enqueue"].values()),
+              f"13a {label}: blocking calls in the new route's enqueue window {traced['new']['syncs_in_enqueue']}")
+        check(traced["old"]["syncs_in_enqueue"]["cudaStreamSynchronize"] > 0,
+              f"13a {label}: the old route showed no cudaStreamSynchronize (the count sees nothing): "
+              f"{traced['old']['runtime_calls_in_enqueue']}")
+        med = {r: float(np.median(v)) for r, v in secs.items()}
+        rows[label] = {"tile": auto_engine.last_tilesize, "images": n, "new_s": med["new"], "old_s": med["old"],
+                       "new_images_s": n / med["new"], "old_images_s": n / med["old"],
+                       "new_out_mp_s": 16 * h * w * n / 1e6 / med["new"],
+                       "old_out_mp_s": 16 * h * w * n / 1e6 / med["old"], "runs_s": secs,
+                       "new_traced": traced["new"], "old_traced": traced["old"], "bit_equal": True}
+    pinned = pinned_block_held(dev)
+    cap = uploads_during_captures(rk, tk, mparam, mbin, big_imgs[:3])
+    check(all(np.array_equal(a, auto_engine.process(im)) for a, im in zip(cap.pop("outputs"), big_imgs)),
+          "13a: outputs of the engine that captured beside the uploads differ")
+    print(json.dumps({"phase": "13a", "what": "process_device back to back from two threads, one fetch each at the "
+                      "end; new upload vs the old pageable route in turns, median of 5; blocking runtime calls "
+                      "between the first and the last enqueue and the idle share from one profiled run each",
+                      "runs": rows, "pinned_block": pinned, "captures_beside_uploads": {**cap, "bit_equal": True},
+                      "card": card}), flush=True)
+
+    # 13b: image 2's process_device returns while image 1 computes
+    def run_ahead() -> tuple:
+        torch.cuda.synchronize()
+        b1 = auto_engine.process_device(big_imgs[0])
+        t0 = time.perf_counter()
+        auto_engine.process_device(big_imgs[1])
+        ret_s = time.perf_counter() - t0
+        running = not engine_mod.done_event(b1).query()
+        torch.cuda.synchronize()
+        return running, ret_s
+
+    ahead = {r: by_route(r, run_ahead) for r in ("new", "old")}
+    check(ahead["new"][0] and not ahead["old"][0],
+          f"13b: image 1 still computing when image 2's process_device returned: new {ahead['new'][0]}, "
+          f"old {ahead['old'][0]}")
+    print(json.dumps({"phase": "13b", "what": "process_device(image 2) right after process_device(image 1), "
+                      f"{STEADY_HW[1]}x{STEADY_HW[0]}: image 1 still computing at its return",
+                      **{f"{r}_image1_running": v[0] for r, v in ahead.items()},
+                      **{f"{r}_return_s": v[1] for r, v in ahead.items()}, "card": card}), flush=True)
+
+    # 13c: the 6200 x 6000 image banded, new against old, beside 7b's whole
+    big = np.random.default_rng(9).integers(0, 256, (*BIG_HW, 3), np.uint8)
+    out_mp = 16 * big.shape[0] * big.shape[1] / 1e6
+    no_budget = {"REALSR_TPU_BAND_BUDGET_MB": None}
+    secs, allocs = {}, {}
+    for r, env in (("old", no_budget), ("new", no_budget), ("whole", {"REALSR_TPU_BAND_BUDGET_MB": "8192"})):
+        h0 = host_allocs()
+        out, s_ = timed(lambda: by_route("new" if r == "whole" else r, lambda: with_env(env, lambda: engine.process(
+            big))))
+        allocs[r] = host_alloc_delta(h0, host_allocs())
+        check(hashlib.sha256(out.tobytes()).hexdigest() == big_band["graphs"][1],
+              f"13c: the {r} output differs from 7b's")
+        secs[r] = s_
+        del out
+    del big
+    s7b = {"banded": big_band["graphs"][2], "whole": big_band["whole_s"]}
+    print(json.dumps({"phase": "13c", "what": f"{BIG_HW[1]}x{BIG_HW[0]} RGB banded, old route, new route, then whole, "
+                      "each after 7b's first runs; gap = 1 - banded MP/s / whole MP/s; pinned blocks each run "
+                      "made (the caching host allocator's counters)", "bit_equal": True, "s": secs,
+                      "out_mp_s": {r: out_mp / s_ for r, s_ in secs.items()},
+                      "gap": {r: 1 - secs["whole"] / secs[r] for r in ("old", "new")}, "host_allocs": allocs,
+                      "7b_s": s7b, "7b_gap": 1 - s7b["whole"] / s7b["banded"],
+                      "7b_host_allocs": big_band["host_allocs"], "card": card}), flush=True)
+
+    # 13d: the default CLI file to file, new against old
+    work = tempfile.mkdtemp(prefix="realsr_upload_")
+    try:
+        mixed_dir, copies_dir = os.path.join(work, "mixed"), os.path.join(work, "copies")
+        os.makedirs(mixed_dir)
+        os.makedirs(copies_dir)
+        rng = np.random.default_rng(19)  # 11g's photos
+        for k, (h, w) in enumerate(MIXED_HW):
+            Image.fromarray(natural_image(rng, h, w)).save(os.path.join(mixed_dir, f"{k}.png"))
+        Image.fromarray(big_imgs[0]).save(os.path.join(copies_dir, "0.png"))
+        for k in range(1, 32):
+            shutil.copyfile(os.path.join(copies_dir, "0.png"), os.path.join(copies_dir, f"{k}.png"))
+
+        def dir_run(src: str, route: str, n: int) -> dict:
+            out = os.path.join(work, f"{os.path.basename(src)}_{route}{n}")
+            os.makedirs(out)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            rc = by_route(route, lambda: cli.main(["-i", src, "-o", out, "-m", mdir, "-g", "0"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"13d: cli.main on {src} ({route}) returned {rc}")
+            digests = {f: hashlib.sha256(open(os.path.join(out, f), "rb").read()).hexdigest()
+                       for f in sorted(os.listdir(out))}
+            return {"s": wall, "digests": digests, "reserved_before": before,
+                    "peak_reserved": torch.cuda.max_memory_reserved()}
+
+        rows = {}
+        dir_run(mixed_dir, "new", -1)  # warm-up: the photos' first pinned blocks and cuDNN plans
+        for src, mp, turns in ((mixed_dir, sum(16 * h * w for h, w in MIXED_HW) / 1e6, ("new", "old", "old", "new")),
+                               (copies_dir, 32 * 16 * STEADY_HW[0] * STEADY_HW[1] / 1e6, ("new", "old"))):
+            runs: dict = {"new": [], "old": []}
+            for r in turns:
+                runs[r].append(dir_run(src, r, len(runs[r])))
+            every = runs["new"] + runs["old"]
+            check(all(x["digests"] == every[0]["digests"] for x in every) and len(every[0]["digests"]) == len(
+                os.listdir(src)), f"13d {src}: PNG outputs differ between routes or runs")
+            med = {r: float(np.median([x["s"] for x in v])) for r, v in runs.items()}
+            rows[os.path.basename(src)] = {
+                "files": len(os.listdir(src)), "output_mp": mp, "new_s": med["new"], "old_s": med["old"],
+                "new_out_mp_s": mp / med["new"], "old_out_mp_s": mp / med["old"],
+                "runs_s": {r: [x["s"] for x in v] for r, v in runs.items()},
+                "peak_reserved": {r: max(x["peak_reserved"] for x in v) for r, v in runs.items()},
+                "reserved_before": {r: min(x["reserved_before"] for x in v) for r, v in runs.items()},
+                "bit_equal": True}
+        print(json.dumps({"phase": "13d", "what": "python -m realsr_tpu_torch's main (two proc threads, graphs on) "
+                          f"on 11g's {len(MIXED_HW)} photos (a warm-up, then new, old, old, new) and on 32 copies "
+                          "of the "
+                          f"{STEADY_HW[1]}x{STEADY_HW[0]} PNG (new, old); PNG bytes equal; peak reserved in the run",
+                          "runs": rows, "card": card}), flush=True)
+
+        # 13e: REALSR_TPU_PROFILE in a CLI subprocess
+        prof_dir = os.path.join(work, "prof")
+        out = os.path.join(work, "profiled.png")
+        e = {**os.environ, "REALSR_TPU_PROFILE": prof_dir}
+        e["PYTHONPATH"] = ROOT + os.pathsep + e.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "realsr_tpu_torch", "-i", os.path.join(copies_dir, "0.png"),
+                            "-o", out, "-m", mdir], capture_output=True, text=True, env=e, cwd=ROOT, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0 and os.path.isfile(out), f"13e: the profiled CLI: exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        check(np.array_equal(np.asarray(Image.open(out)), auto_engine.process(big_imgs[0])),
+              "13e: the profiled CLI's output differs from the default engine's")
+        files = os.listdir(prof_dir)
+        check(len(files) == 1 and files[0].endswith(".pt.trace.json"), f"13e: the profile dir holds {files}")
+        path = os.path.join(prof_dir, files[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels: dict = {}
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                k = kernel_of(str(ev.get("name")))
+                kernels[k or "other"] = kernels.get(k or "other", 0) + 1
+        check(kernels.get("K1", 0) > 0 and kernels.get("K6", 0) > 0, f"13e: kernel rows of the trace {kernels}")
+        print(json.dumps({"phase": "13e", "what": "REALSR_TPU_PROFILE=<dir> python -m realsr_tpu_torch on the "
+                          f"{STEADY_HW[1]}x{STEADY_HW[0]} PNG in a subprocess: one Chrome trace",
+                          "file": files[0], "bytes": os.path.getsize(path), "events": len(events),
+                          "kernel_rows": kernels, "python_rows": sum(1 for ev in events
+                                                                     if ev.get("cat") == "python_function"),
+                          "wall_s": wall, "bit_equal": True, "card": card}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mesh_cards(mparam, mbin, card)
+
+
+def mesh_cards(mparam, mbin, card, variant: str = "auto", devs=None) -> None:
+    """Phase 13f, on a host with two cards or more (else it prints that it
+    is left out): a mesh of cuda:0 and cuda:1 against the engine on cuda:0,
+    bit-equal; image 2's ``process_device`` returning while image 1
+    computes, and no blocking runtime call while the mesh enqueues, so the
+    copies of ``_shards`` (the input to each card) and ``_merge`` (each
+    card's output to the first) wait for no card."""
+    from realsr_tpu_torch import engine as engine_mod
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.parallel.mesh import make_mesh
+
+    if devs is None and torch.cuda.device_count() < 2:
+        print(json.dumps({"phase": "13f", "what": "a mesh of two cards: left out, one card here", "card": card}),
+              flush=True)
+        return
+    devs = devs or [torch.device("cuda", 0), torch.device("cuda", 1)]
+    one = RealSR(config=EngineConfig(variant=variant), mesh=make_mesh(devs[:1]))
+    one.load(mparam, mbin)
+    m = RealSR(config=EngineConfig(variant=variant), mesh=make_mesh(devs))
+    m.load(mparam, mbin)
+    imgs = [natural_image(np.random.default_rng(50 + k), *STEADY_HW) for k in range(4)]
+    for im in imgs[:2]:
+        check(np.array_equal(m.process(im), one.process(im)), "13f: the two-card mesh differs from one card")
+    for d in devs:
+        torch.cuda.synchronize(d)
+    b1 = m.process_device(imgs[2])
+    t0 = time.perf_counter()
+    m.process_device(imgs[3])
+    ret_s = time.perf_counter() - t0
+    running = not engine_mod.done_event(b1).query()
+    for d in devs:
+        torch.cuda.synchronize(d)
+    check(np.array_equal(m.fetch(b1), one.process(imgs[2])), "13f: the run-ahead image differs")
+    traced = traced_back_to_back(m, imgs, "new")
+    print(json.dumps({"phase": "13f", "what": f"make_mesh([{', '.join(map(str, devs))}]) ({m.variant}) vs one card: "
+                      "bit-equal; image 2 enqueued while image 1 computes; 4 images back to back from two threads",
+                      "image1_running": running, "return_s": ret_s, "traced": traced, "card": card}), flush=True)
+    check(running and not any(traced["syncs_in_enqueue"].values()),
+          f"13f: image 1 running at image 2's return {running}; blocking calls {traced['syncs_in_enqueue']}")
+
+
+def mesh_cards_main() -> int:
+    """Phase 13f alone: ``python3 -c 'import chip_smoke;
+    chip_smoke.mesh_cards_main()'`` on a host with two cards or more (the
+    default engine's kernel groups build first)."""
+    from realsr_tpu_torch.ncnn.bin import write_weights
+    from realsr_tpu_torch.ncnn.param import parse_param_file
+    from realsr_tpu_torch.ncnn.synth import synth_weights
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    work = tempfile.mkdtemp(prefix="realsr_mesh_")
+    try:
+        mdir = os.path.join(work, "models-DF2K")
+        os.makedirs(mdir)
+        param = os.path.join(ROOT, "models", "models-DF2K", "x4.param")
+        shutil.copyfile(param, os.path.join(mdir, "x4.param"))
+        graph = parse_param_file(param)
+        write_weights(graph, synth_weights(graph, seed=0, stats="trained"), os.path.join(mdir, "x4.bin"))
+        mesh_cards(os.path.join(mdir, "x4.param"), os.path.join(mdir, "x4.bin"), f"[{smi[0]}] x {len(smi)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
 
 
 def _missing_native_deps() -> list:
@@ -2801,6 +3282,11 @@ def main() -> int:
                                             "TTA": auto_tta, "K7 tail": k7_engine,
                                             **{f"{k} trunk": e for k, e in modes.items()}})
         print(f"phase 12: {time.perf_counter() - t12:.1f} s {card}", flush=True)
+
+        # -- 13. slice 13: the upload that does not wait, the profile --------
+        t13 = time.perf_counter()
+        slice13(rk, tk, mparam, mbin, card, auto_engine, engine, big_band)
+        print(f"phase 13: {time.perf_counter() - t13:.1f} s {card}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

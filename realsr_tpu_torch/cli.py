@@ -17,7 +17,10 @@ form (``REALSR_TPU_PACKED_TAIL``: 0 interleaved, 1 packed, 2 the K7 tail
 kernel, 3 the K6 tail kernel; unset, the engine's own choice).
 ``REALSR_TPU_SHARD`` / ``REALSR_TPU_NUM_SHARDS`` give this process the
 ``[shard::num_shards]`` slice of the file list, as the JAX CLI's env vars
-do (there is no distributed runtime to ask). On ``-g -1``, ``-j``'s proc
+do; with ``REALSR_TPU_NUM_SHARDS`` unset, an initialized
+``torch.distributed`` process group gives them (rank, world size), as an
+initialized ``jax.distributed`` runtime does for the JAX CLI. No launcher
+variable (``RANK``, ``WORLD_SIZE``) is read. On ``-g -1``, ``-j``'s proc
 count sets torch's CPU thread count (default 2). ``REALSR_TPU_MESH`` (``all``
 or a comma list of device ids) runs one engine that deals each image's tile
 chunks to those devices (``parallel/mesh.py``) in place of one engine per
@@ -43,6 +46,18 @@ from realsr_tpu_torch.utils.fsutils import (
     list_directory,
     path_is_directory,
 )
+
+
+def _distributed_shard(shard: int, num_shards: int) -> Tuple[int, int]:
+    """(rank, world size) of an initialized ``torch.distributed`` process
+    group, else ``(shard, num_shards)`` as given. Reading the group does not
+    initialize CUDA, so ``-g -1`` is still free to keep the run on the
+    CPU."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return shard, num_shards
 
 
 def print_usage(file=None) -> None:
@@ -211,9 +226,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         return -1
 
-    # file sharding across processes: each takes every num_shards-th file
+    # file sharding across processes: each takes every num_shards-th file;
+    # the identity from the env vars, else from an initialized process group
     shard = _atoi(os.environ.get("REALSR_TPU_SHARD", "-1"))
     num_shards = _atoi(os.environ.get("REALSR_TPU_NUM_SHARDS", "0"))
+    if not num_shards:
+        shard, num_shards = _distributed_shard(shard, num_shards)
     if num_shards > 1:
         if not 0 <= shard < num_shards:
             print("invalid REALSR_TPU_SHARD / REALSR_TPU_NUM_SHARDS", file=sys.stderr)

@@ -26,6 +26,11 @@ measured on the H100); the CPU keeps the reference's fixed 200. With a
 round-robin to the mesh's devices: each writes its own tiles into a private
 u8 output, and the outputs merge once per image.
 
+On a card the upload does not wait for the card (the JAX engine's
+``jax.device_put``): :func:`_upload` stages the image in pinned memory and
+copies it on the device's upload stream, which the compute stream waits for
+by an event, so a proc thread enqueues image k+1 while image k computes.
+
 On a card the chunks of a program key ``(ph, pw, batch, tta, alpha)`` on a
 device run through a CUDA graph of that key (the JAX engine's AOT table of
 compiled chunk programs): the key's first chunk eagerly, so a size met once
@@ -59,7 +64,7 @@ import numpy as np
 import torch
 
 from realsr_tpu_torch.tiling.planner import CPU_TILESIZE, _anchors, anchor_provenance_notice, pick_tilesize, plan_tiles
-from realsr_tpu_torch.utils.trace import tracer
+from realsr_tpu_torch.utils.trace import maybe_start_profiler, tracer
 from realsr_tpu_torch.loader import ModelBundle, load_model
 from realsr_tpu_torch.models import rrdbnet as R
 from realsr_tpu_torch.models.rrdbnet import SCHEDS, TAIL_MODES, tf32
@@ -319,17 +324,20 @@ class _DeviceState:
     freed blocks) and downloads on ``copy_stream``. The pool lives as long
     as the process: the allocator refuses a capture into a pool whose
     graphs have all been freed, as an engine's graphs are when it is, so a
-    graph that is never replayed (``_keeper``) holds it. On the CPU, where
-    only the tests' stand-in graphs run, only ``lock`` is used."""
+    graph that is never replayed (``_keeper``) holds it. Uploads run on
+    ``upload_stream`` (:func:`_upload`), not on ``copy_stream``, whose
+    downloads wait for their images. On the CPU, where only the tests'
+    stand-in graphs run, only ``lock`` is used."""
 
     def __init__(self, device: torch.device):
         self.lock = threading.Lock()
-        self.pool = self.capture_stream = self.copy_stream = self.last = None
+        self.pool = self.capture_stream = self.copy_stream = self.upload_stream = self.last = None
         if device.type != "cuda":
             return
         self.pool = torch.cuda.graph_pool_handle()
         self.capture_stream = torch.cuda.Stream(device)
         self.copy_stream = torch.cuda.Stream(device)
+        self.upload_stream = torch.cuda.Stream(device)
         self.last = torch.cuda.Event()
         self._keeper = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self.capture_stream):
@@ -418,6 +426,39 @@ def done_event(buf: torch.Tensor):
     if ev is None and buf._base is not None:
         ev = getattr(buf._base, "_realsr_done", None)
     return ev
+
+
+def _upload(array: np.ndarray, device: torch.device, rows: Optional[np.ndarray] = None) -> torch.Tensor:
+    """``array``, or its ``rows`` along the first axis, as a tensor on
+    ``device``: the counterpart of the JAX engine's ``jax.device_put``. On a
+    card it waits for nothing already queued: the bytes go into pinned
+    memory from the caching host allocator (the rows gathered straight into
+    it), are copied ``non_blocking`` on the device's upload stream into a
+    tensor allocated on that stream, and the current (compute) stream waits
+    for the copy by an event. ``record_stream`` keeps the allocator from
+    handing the tensor's block out again before the compute stream's work
+    on it is done; a block of the compute stream could still be read by its
+    queued kernels. The host allocator records an event for the copy, so
+    the pinned block is not reused before the copy has read it. A failed pin
+    or copy raises. Elsewhere it is ``torch.tensor(array[rows], device=...)``."""
+    if device.type != "cuda":
+        return torch.tensor(array if rows is None else array[rows], device=device)
+    shape = array.shape if rows is None else (len(rows), *array.shape[1:])
+    host = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, array.dtype)).dtype, pin_memory=True)
+    if rows is None:
+        np.copyto(host.numpy(), array)
+    else:
+        np.take(array, rows, axis=0, out=host.numpy())
+    stream = _device_state(device).upload_stream
+    with torch.cuda.stream(stream):
+        buf = torch.empty(shape, dtype=host.dtype, device=device)
+        buf.copy_(host, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(stream)
+    cur = torch.cuda.current_stream(device)
+    cur.wait_event(copied)
+    buf.record_stream(cur)
+    return buf
 
 
 def _download(buf: torch.Tensor, done, host: Optional[torch.Tensor] = None) -> tuple:
@@ -866,8 +907,9 @@ class RealSR:
         tilesize = self._pick_tilesize(w, h, n_img)
         self.last_tilesize = tilesize
         plan = plan_tiles(w, h, tilesize, pad)
+        maybe_start_profiler(self.device.torch_device)
         with tracer.span("h2d+prep"):
-            img = torch.tensor(images, device=self.device.torch_device)
+            img = _upload(images, self.device.torch_device)
             padded, alpha = self._prep(img)
         shards = self._shards(padded, alpha, (n_img, h * s, w * s, c))
         buckets = {
@@ -955,7 +997,9 @@ class RealSR:
         bucket, so every chunk has a shape the whole-image run launches too.
         The tile size is the one picked for the whole image. Under a mesh
         each band's chunks are dealt to the devices and the band's outputs
-        merge. On a card the host output is pinned, and each band's u8 output
+        merge. On a card each band's rows go up through :func:`_upload`, so
+        the host gathers and enqueues band k + 1 while band k computes. The
+        host output is pinned, and each band's u8 output
         comes down into its rows on the copy stream (:func:`_download`) while
         the next band computes; once band k is enqueued the host waits for
         band k - 1's copy, so at most two band outputs are on the device."""
@@ -971,6 +1015,7 @@ class RealSR:
         btr = self._equalized_band_rows(plan.ytiles, band_tile_rows or self._auto_band_tile_rows(w, c, ts))
         batches = {shape: self._chunking(ts, len(idxs))[0] for shape, idxs in plan.buckets.items()}
         rows_idx = reflect101_indices(h, pad, pad)
+        maybe_start_profiler(dev)
         out = torch.empty((h * s, w * s, c), dtype=torch.uint8, pin_memory=dev.type == "cuda")
         done = 0
         pending = None  # the previous band's download: the event after its copy
@@ -981,7 +1026,7 @@ class RealSR:
 
         for y0, y1, buckets in self._band_buckets(plan, ts, btr, h):
             with tracer.span("h2d+prep(band)"):
-                band = torch.tensor(image[rows_idx[y0 : y1 + 2 * pad]][None], device=dev)
+                band = _upload(image, dev, rows_idx[y0 : y1 + 2 * pad])[None]
                 padded, alpha = self._prep_band(band)
             shards = self._shards(padded, alpha, (1, (y1 - y0) * s, w * s, c))
             done = self._dispatch_buckets(

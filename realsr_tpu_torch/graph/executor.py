@@ -16,6 +16,7 @@ in float32, and elementwise math runs in float32 before rounding back.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -159,11 +160,20 @@ _BINARY_OPS: Dict[int, Callable] = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _scalar_on(bits: bytes, device: torch.device) -> torch.Tensor:
+    """The float32 scalar of these 4 bytes as a 0-d tensor on ``device``,
+    made once per value and device: a layer's scalar is uploaded once, not
+    by a blocking copy on every call. Keyed by the bytes, so -0.0 and 0.0
+    stay apart; float32, so ``pow`` gets the same operand as before."""
+    return torch.from_numpy(np.frombuffer(bits, np.float32).copy()).reshape(()).to(device)
+
+
 def _binary_op(inputs: List[torch.Tensor], layer: Layer, storage_dtype) -> torch.Tensor:
     op = layer.pi(0)
     a = inputs[0].float()
     if layer.pi(1):  # with_scalar
-        b = torch.tensor(layer.pf(2), dtype=torch.float32, device=a.device)
+        b = _scalar_on(np.float32(layer.pf(2)).tobytes(), a.device)
     else:
         b = inputs[1].float()
     if op not in _BINARY_OPS:

@@ -22,19 +22,29 @@ def reflect101_indices(n: int, pad_lo: int, pad_hi: int) -> np.ndarray:
     return np.where(idx > n - 1, period - idx, idx)
 
 
+def _index_tensor(n: int, pad: int, device: torch.device) -> torch.Tensor:
+    """:func:`reflect101_indices` ``(n, pad, pad)`` as an int64 tensor
+    computed on ``device``: the same integers, with no upload, so on a card
+    the host does not wait for the kernels already queued (a pageable copy
+    synchronizes its stream)."""
+    idx = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = idx.abs() % period
+    return torch.where(idx > n - 1, period - idx, idx)
+
+
 def reflect101_pad_w(img: torch.Tensor, pad: int) -> torch.Tensor:
     """Pad only W of ``[..., H, W, C]`` by ``pad`` with reflect-101: a band
     of the image arrives with its vertical context rows already attached
     (real neighbour rows, or the whole image's reflection at its edges), so
     only the horizontal halo is padded here."""
-    w = img.shape[-2]
-    xi = torch.from_numpy(reflect101_indices(w, pad, pad)).to(img.device)
-    return img.index_select(img.dim() - 2, xi)
+    return img.index_select(img.dim() - 2, _index_tensor(img.shape[-2], pad, img.device))
 
 
 def reflect101_pad2d(img: torch.Tensor, pad: int) -> torch.Tensor:
     """Pad H and W of ``[..., H, W, C]`` by ``pad`` with reflect-101."""
-    h, w = img.shape[-3], img.shape[-2]
-    yi = torch.from_numpy(reflect101_indices(h, pad, pad)).to(img.device)
-    xi = torch.from_numpy(reflect101_indices(w, pad, pad)).to(img.device)
+    yi = _index_tensor(img.shape[-3], pad, img.device)
+    xi = _index_tensor(img.shape[-2], pad, img.device)
     return img.index_select(img.dim() - 3, yi).index_select(img.dim() - 2, xi)

@@ -132,3 +132,56 @@ def test_cli_runs_a_matcher_rejected_graph(tmp_path):
     Image.fromarray(np.random.default_rng(3).integers(0, 256, (13, 17, 4), np.uint8)).save(src)
     assert cli.main(["-i", str(src), "-o", str(out), "-m", str(mdir), "-g", "-1"]) == 0
     assert np.asarray(Image.open(out)).shape == (52, 68, 4)
+
+
+@pytest.fixture
+def group(monkeypatch):
+    """Stand in for an initialized torch.distributed process group: sets
+    (rank, world size), or None for no group."""
+    import torch.distributed as dist
+
+    state = {"group": None}
+    monkeypatch.setattr(dist, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_initialized", lambda: state["group"] is not None)
+    monkeypatch.setattr(dist, "get_rank", lambda: state["group"][0])
+    monkeypatch.setattr(dist, "get_world_size", lambda: state["group"][1])
+    monkeypatch.delenv("REALSR_TPU_SHARD", raising=False)
+    monkeypatch.delenv("REALSR_TPU_NUM_SHARDS", raising=False)
+    return lambda g: state.update(group=g)
+
+
+@pytest.mark.parametrize(
+    "rank_world,env,want",
+    [
+        ((1, 2), {}, ["1.png", "3.png"]),  # process 1 of 2 writes the odd files
+        ((1, 2), {"REALSR_TPU_NUM_SHARDS": "2", "REALSR_TPU_SHARD": "0"}, ["0.png", "2.png"]),  # env wins
+        (None, {}, ["0.png", "1.png", "2.png", "3.png"]),  # no group: every file
+    ],
+)
+def test_cli_shard_identity_from_torch_distributed(model_dir, tmp_path, monkeypatch, group, rank_world, env, want):
+    """The counterpart of the JAX CLI's shard identity from an initialized
+    jax.distributed runtime (tests/test_cli.py)."""
+    src = _images(tmp_path / "in", 4)
+    group(rank_world)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    out = _images(tmp_path / "out", 0)
+    assert cli.main(["-i", src, "-o", out, "-m", model_dir, "-g", "-1", "-t", "32"]) == 0
+    assert sorted(os.listdir(out)) == want
+
+
+def test_cli_shard_identity_from_a_real_group(model_dir, tmp_path, monkeypatch):
+    """A gloo group of one process: rank 0 of 1 writes every file, and the
+    CUDA runtime is not initialized by reading it."""
+    import torch.distributed as dist
+
+    monkeypatch.delenv("REALSR_TPU_NUM_SHARDS", raising=False)
+    src = _images(tmp_path / "in", 3)
+    out = _images(tmp_path / "out", 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        assert cli.main(["-i", src, "-o", out, "-m", model_dir, "-g", "-1", "-t", "32"]) == 0
+    finally:
+        dist.destroy_process_group()
+    assert sorted(os.listdir(out)) == ["0.png", "1.png", "2.png"]
+    assert not torch.cuda.is_initialized()

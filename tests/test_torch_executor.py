@@ -280,3 +280,28 @@ def test_non_uniform_scale_rejected_like_jax(tmp_path):
     for load in (jax_load_model, load_model):
         with pytest.raises(ValueError, match="non-uniform"):
             load(str(pp), str(bp))
+
+
+def test_scalar_binary_op_uploads_once_and_is_bit_equal(tmp_path, monkeypatch):
+    """A BinaryOp's scalar is made once per value and device (no upload per
+    call), and the executor's output is bit-equal to the route that made a
+    fresh float32 tensor on every call: pow, subtractions and divisions by
+    scalars, -0.0 kept apart from 0.0."""
+    lines = ["Input in 0 1 data", "BinaryOp p 1 1 data a 0=6 1=1 2=0.7", "BinaryOp s 1 1 a b 0=1 1=1 2=-0.0",
+             "BinaryOp r 1 1 b c 0=7 1=1 2=2.5", "BinaryOp d 1 1 c e 0=8 1=1 2=0.3",
+             "BinaryOp z 1 1 e out 0=1 1=1 2=0.0"]
+    text = _param(lines)
+    graph = parse_param(text)
+    fwd = TE.build_forward(graph)
+    params = TE.convert_weights_oihw(load_weights(graph, _random_bin(text, str(tmp_path / "m.bin"))))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0.1, 1.1, (1, 4, 5, 3)).astype(np.float32))
+    x[0, 0, 0, 0] = -0.0
+    TE._scalar_on.cache_clear()
+    got = [fwd(params, x), fwd(params, x)]
+    info = TE._scalar_on.cache_info()
+    assert (info.misses, info.hits) == (5, 5)  # each of the five values made once; -0.0 apart from 0.0
+    monkeypatch.setattr(TE, "_scalar_on", lambda bits, device: torch.tensor(
+        float(np.frombuffer(bits, np.float32)[0]), dtype=torch.float32, device=device))
+    want = fwd(params, x)
+    for g in got:
+        assert g.dtype == want.dtype and torch.equal(g.view(torch.int32), want.view(torch.int32))
