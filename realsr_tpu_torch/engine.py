@@ -397,6 +397,9 @@ class _CudaGraph:
         self.graph.replay()
 
 
+# the counter of each way _run_chunk runs a chunk (tracing on)
+CHUNK_COUNTERS = {"eager": "chunks.eager", "capture": "chunks.captured", "replay": "chunks.replayed"}
+
 # keys an engine keeps per device (captured programs, and keys met once),
 # least recently used evicted first: four image shapes' four buckets
 # (interior, right, bottom, corner). A mixed 6 x 276^2 key's static buffers
@@ -417,15 +420,21 @@ class _ChunkProgram:
     graph: object = None
 
 
+def _riding(buf: torch.Tensor, name: str):
+    """The attribute ``name`` of the output tensor ``buf`` or, for a view of
+    one image of a stack, of its ``_base``; None where neither has it."""
+    v = getattr(buf, name, None)
+    if v is None and buf._base is not None:
+        v = getattr(buf._base, name, None)
+    return v
+
+
 def done_event(buf: torch.Tensor):
     """The CUDA event recorded after the last scatter (and the merge) of the
     image ``buf`` belongs to, or None (a CPU buffer, or one this engine did
     not make). It rides on the output tensor, which a view of one image of
     a stack reaches as its ``_base``."""
-    ev = getattr(buf, "_realsr_done", None)
-    if ev is None and buf._base is not None:
-        ev = getattr(buf._base, "_realsr_done", None)
-    return ev
+    return _riding(buf, "_realsr_done")
 
 
 def _upload(array: np.ndarray, device: torch.device, rows: Optional[np.ndarray] = None) -> torch.Tensor:
@@ -745,6 +754,16 @@ class RealSR:
             out = torch.maximum(out, part.to(out.device))
         return out
 
+    def _merged(self, shards: list) -> torch.Tensor:
+        """:meth:`_merge`; with tracing on and more than one shard, in a
+        ``mesh.merge`` span with its device time (``merge.device``) on the
+        first shard's card, which waits there for the others' copies."""
+        if not tracer.enabled or len(shards) == 1:
+            return self._merge(shards)
+        dev = shards[0][2].device
+        with tracer.span("mesh.merge", card=str(dev)), tracer.device_timed("merge.device", dev):
+            return self._merge(shards)
+
     def _chunk_list(self, buckets: dict, tilesize: int, batches: Optional[dict] = None) -> list:
         """The chunks of ``buckets`` ({(ph, pw): [(image, x0, y0)]}) in
         dispatch order: [(ph, pw, the chunk's triples, its tiles that are
@@ -774,7 +793,9 @@ class RealSR:
         chunks = self._chunk_list(buckets, tilesize, batches)
         for j, (ph, pw, chunk, real) in enumerate(chunks):
             padded, alpha, out = shards[j % len(shards)]
-            with tracer.span("dispatch"):
+            if tracer.enabled:
+                self._traced_chunk(padded, alpha, out, ph, pw, chunk, real, c)
+            else:
                 self._run_chunk(padded, alpha, out, ph, pw, chunk, c)
             done += real
             if progress_cb is not None and ((j + 1) % len(shards) == 0 or j + 1 == len(chunks)):
@@ -784,6 +805,21 @@ class RealSR:
                 _fence({sh[2].device for sh in shards[: j % len(shards) + 1]})
                 progress_cb(done / total)
         return done
+
+    def _traced_chunk(self, padded, alpha, out, ph: int, pw: int, chunk: list, real: int, c: int) -> None:
+        """:meth:`_run_chunk` with tracing on: in a ``dispatch`` span (its
+        card, key, real tiles and mode), its tiles counted (``tiles.real``,
+        ``tiles.run``) and its mode (``chunks.<mode>``), and its device time
+        (``chunk.device``) taken on its card's stream from before the gather
+        to after the scatter."""
+        dev = padded.device
+        tracer.count("tiles.real", real)
+        tracer.count("tiles.run", len(chunk))
+        with tracer.span("dispatch", card=str(dev), key=f"{ph}x{pw}x{len(chunk)}", real=real) as sp:
+            with tracer.device_timed("chunk.device", dev):
+                mode = self._run_chunk(padded, alpha, out, ph, pw, chunk, c)
+            sp.attrs["mode"] = mode
+        tracer.count(CHUNK_COUNTERS[mode])
 
     def _gather(self, padded, alpha, chunk, ph: int, pw: int, c: int, into: Optional[_ChunkProgram] = None):
         """The chunk's padded tiles [B, ph, pw, 3] and, for RGBA, its alpha
@@ -804,27 +840,31 @@ class RealSR:
         for (i, x, y), t in zip(chunk, tiles_u8):
             out[i, y * s : (y + hn) * s, x * s : (x + wn) * s] = t
 
-    def _run_chunk(self, padded, alpha, out, ph: int, pw: int, chunk: list, c: int) -> None:
+    def _run_chunk(self, padded, alpha, out, ph: int, pw: int, chunk: list, c: int) -> str:
         """One chunk: gather its tiles from ``padded`` / ``alpha``, run them,
-        scatter the u8 tiles into ``out``. With ``graphs`` the first chunk of
-        its key runs eagerly (a size met once pays no capture), the second
-        by the capture of the key's program, whose warm-up computes it, and
-        every later one as a replay of that program. Captures and replays
-        run under the device's lock, so no two threads share a program's
-        static buffers and no two replays on a device overlap; eager chunks
-        run beside them, as with graphs off."""
+        scatter the u8 tiles into ``out``; returns how it ran ("eager",
+        "capture" or "replay"). With ``graphs`` the first chunk of its key
+        runs eagerly (a size met once pays no capture), the second by the
+        capture of the key's program, whose warm-up computes it, and every
+        later one as a replay of that program. Captures and replays run
+        under the device's lock, so no two threads share a program's static
+        buffers and no two replays on a device overlap; eager chunks run
+        beside them, as with graphs off."""
         pad = self.prepadding
         hn, wn = ph - 2 * pad, pw - 2 * pad
-        if self.graphs and self._run_program(padded, alpha, out, ph, pw, chunk, c):
-            return
+        if self.graphs:
+            mode = self._run_program(padded, alpha, out, ph, pw, chunk, c)
+            if mode is not None:
+                return mode
         tiles, atiles = self._gather(padded, alpha, chunk, ph, pw, c)
         self._scatter(out, chunk, self._compute_chunk(tiles, atiles, hn, wn), hn, wn)
+        return "eager"
 
-    def _run_program(self, padded, alpha, out, ph: int, pw: int, chunk: list, c: int) -> bool:
+    def _run_program(self, padded, alpha, out, ph: int, pw: int, chunk: list, c: int) -> Optional[str]:
         """Run the chunk through the table's program of its key: a replay,
-        or the capture on the key's second chunk. Returns False, having
-        remembered the key, for its first chunk, which the caller runs
-        eagerly."""
+        or the capture on the key's second chunk ("replay", "capture").
+        Returns None, having remembered the key, for its first chunk, which
+        the caller runs eagerly."""
         pad = self.prepadding
         hn, wn = ph - 2 * pad, pw - 2 * pad
         dev = padded.device
@@ -834,21 +874,23 @@ class RealSR:
             table = self._programs.setdefault(dev, collections.OrderedDict())
             if key not in table:
                 self._remember(table, key, None, state)
-                return False
+                return None
             cur = torch.cuda.current_stream(dev) if state.last is not None else None
             if cur is not None:
                 cur.wait_event(state.last)
             prog = table[key]
             if prog is None:
+                mode = "capture"
                 prog = self._program(key, state, lambda into: self._gather(padded, alpha, chunk, ph, pw, c, into))
             else:
+                mode = "replay"
                 table.move_to_end(key)
                 self._gather(padded, alpha, chunk, ph, pw, c, into=prog)
                 prog.graph.replay()
             self._scatter(out, chunk, prog.out, hn, wn)
             if cur is not None:
                 state.last.record(cur)
-        return True
+        return mode
 
     def _program(self, key: tuple, state: _DeviceState, fill=None) -> _ChunkProgram:
         """Capture the program of ``key`` into the table (call with
@@ -867,7 +909,8 @@ class RealSR:
         if fill is not None:
             fill(prog)
         prog.graph = _CudaGraph(state)
-        prog.graph.capture(lambda: prog.out.copy_(self._compute_chunk(prog.tiles, prog.alpha, hn, wn)))
+        with tracer.span("chunk.capture", card=str(dev), key=f"{ph}x{pw}x{bsz}"):
+            prog.graph.capture(lambda: prog.out.copy_(self._compute_chunk(prog.tiles, prog.alpha, hn, wn)))
         self._remember(self._programs.setdefault(dev, collections.OrderedDict()), key, prog, state)
         return prog
 
@@ -908,21 +951,26 @@ class RealSR:
         self.last_tilesize = tilesize
         plan = plan_tiles(w, h, tilesize, pad)
         maybe_start_profiler(self.device.torch_device)
-        with tracer.span("h2d+prep"):
-            img = _upload(images, self.device.torch_device)
-            padded, alpha = self._prep(img)
-        shards = self._shards(padded, alpha, (n_img, h * s, w * s, c))
-        buckets = {
-            shape: [(i, plan.tiles[t].x0, plan.tiles[t].y0) for i in range(n_img) for t in idxs]
-            for shape, idxs in plan.buckets.items()
-        }
-        self._dispatch_buckets(shards, buckets, tilesize, c, progress_cb, 0, len(plan.tiles) * n_img)
-        out = self._merge(shards)
-        if out.device.type == "cuda":
-            # "done": the image's last scatter and merge are enqueued; its
-            # download waits for this and nothing else (fetch)
-            out._realsr_done = torch.cuda.Event()
-            out._realsr_done.record(torch.cuda.current_stream(out.device))
+        with tracer.request() as req:
+            with tracer.span("h2d+prep"):
+                img = _upload(images, self.device.torch_device)
+                padded, alpha = self._prep(img)
+            shards = self._shards(padded, alpha, (n_img, h * s, w * s, c))
+            buckets = {
+                shape: [(i, plan.tiles[t].x0, plan.tiles[t].y0) for i in range(n_img) for t in idxs]
+                for shape, idxs in plan.buckets.items()
+            }
+            self._dispatch_buckets(shards, buckets, tilesize, c, progress_cb, 0, len(plan.tiles) * n_img)
+            out = self._merged(shards)
+            if out.device.type == "cuda":
+                # "done": the image's last scatter and merge are enqueued; its
+                # download waits for this and nothing else (fetch)
+                out._realsr_done = torch.cuda.Event()
+                out._realsr_done.record(torch.cuda.current_stream(out.device))
+        if req is not None:
+            # the request and its device timings ride on the output as its
+            # "done" event does, so a fetch on another thread records under it
+            out._realsr_request = req
         return out
 
     def process_device(
@@ -944,12 +992,15 @@ class RealSR:
         tensor without the event comes down on the current stream."""
         if isinstance(out_buf, np.ndarray):
             return out_buf
-        with tracer.span("fetch(D2H)"):
+        req = _riding(out_buf, "_realsr_request") if tracer.enabled else None
+        with tracer.span("fetch(D2H)", request=req):
             done = done_event(out_buf) if out_buf.device.type == "cuda" else None
             if done is None:
                 return out_buf.cpu().numpy()
             host, copied = _download(out_buf, done)
             copied.synchronize()
+            if req is not None:
+                tracer.resolve(req.take())
             return host.numpy()
 
     def process(
@@ -1018,32 +1069,37 @@ class RealSR:
         maybe_start_profiler(dev)
         out = torch.empty((h * s, w * s, c), dtype=torch.uint8, pin_memory=dev.type == "cuda")
         done = 0
-        pending = None  # the previous band's download: the event after its copy
+        # the previous band's download: the event after its copy, and its
+        # device timings (None with tracing off)
+        pending = None
 
-        def land(copied) -> None:
+        def land(copied, timings) -> None:
             with tracer.span("fetch(D2H)"):
                 copied.synchronize()
+                if timings:
+                    tracer.resolve(timings)
 
-        for y0, y1, buckets in self._band_buckets(plan, ts, btr, h):
-            with tracer.span("h2d+prep(band)"):
-                band = _upload(image, dev, rows_idx[y0 : y1 + 2 * pad])[None]
-                padded, alpha = self._prep_band(band)
-            shards = self._shards(padded, alpha, (1, (y1 - y0) * s, w * s, c))
-            done = self._dispatch_buckets(
-                shards, buckets, ts, c, progress_cb, done, len(plan.tiles), batches,
-            )
-            merged = self._merge(shards)[0]
-            if merged.device.type != "cuda":
-                out[y0 * s : y1 * s].copy_(merged)
-                continue
-            band_done = torch.cuda.Event()
-            band_done.record(torch.cuda.current_stream(merged.device))
-            copied = _download(merged, band_done, out[y0 * s : y1 * s])[1]
+        with tracer.request() as req:
+            for y0, y1, buckets in self._band_buckets(plan, ts, btr, h):
+                with tracer.span("h2d+prep(band)"):
+                    band = _upload(image, dev, rows_idx[y0 : y1 + 2 * pad])[None]
+                    padded, alpha = self._prep_band(band)
+                shards = self._shards(padded, alpha, (1, (y1 - y0) * s, w * s, c))
+                done = self._dispatch_buckets(
+                    shards, buckets, ts, c, progress_cb, done, len(plan.tiles), batches,
+                )
+                merged = self._merged(shards)[0]
+                if merged.device.type != "cuda":
+                    out[y0 * s : y1 * s].copy_(merged)
+                    continue
+                band_done = torch.cuda.Event()
+                band_done.record(torch.cuda.current_stream(merged.device))
+                copied = _download(merged, band_done, out[y0 * s : y1 * s])[1]
+                if pending is not None:
+                    land(*pending)
+                pending = copied, req.take() if req is not None else None
             if pending is not None:
-                land(pending)
-            pending = copied
-        if pending is not None:
-            land(pending)
+                land(*pending)
         return out.numpy()
 
     @staticmethod
@@ -1144,14 +1200,14 @@ class RealSR:
                 return
             groups = self.kernel_groups() if _on_card(self.device.torch_device) else ()
             if groups:
-                t0 = time.perf_counter()
-                with tracer.span("kernel build"):
-                    seconds = build.load_groups(groups, cache=self.config.compilation_cache)
+                t0 = time.time_ns()
+                seconds = build.load_groups(groups, cache=self.config.compilation_cache)
+                wall = tracer.ended("kernel build", t0)
                 built = {k: v for k, v in seconds.items() if v > 0}
                 if built:
                     print(
                         f"realsr_tpu_torch: built {len(built)} kernel groups with nvcc in "
-                        f"{time.perf_counter() - t0:.2f} s ("
+                        f"{wall:.2f} s ("
                         + ", ".join(f"{src}[{g}] {v:.2f} s" for (src, g), v in built.items())
                         + f") into {build.build_dir(self.config.compilation_cache)}",
                         file=sys.stderr, flush=True,

@@ -721,3 +721,67 @@ def test_graphs_on_card(cuda, tmp_path, storage):
     again.load(*files)
     assert again.precompile(64, 64) == len(again.programs()) == 1
     np.testing.assert_array_equal(again.process(img), want)
+
+
+@pytest.fixture
+def traced(monkeypatch):
+    """A fresh tracer, on, in place of the process's in the engine."""
+    from realsr_tpu_torch import engine as engine_mod
+    from realsr_tpu_torch.utils import trace
+
+    t = trace.StageTimer(enabled=True)
+    monkeypatch.setattr(trace, "tracer", t)
+    monkeypatch.setattr(engine_mod, "tracer", t)
+    return t
+
+
+def _traced_engine(tmp_path, mesh=None):
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=32, gc=16))
+    e = RealSR(gpuid=0, config=EngineConfig(tilesize=32, variant="dense", max_batch=4), mesh=mesh)
+    e.load(*files)
+    return e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_traced_chunk_device_times_on_card(cuda, tmp_path, traced, shards):
+    """With tracing on, each chunk of an image gives one ``chunk.device``
+    entry on its card once the image has come down (none before), a child
+    of its dispatch span, of positive length; a mesh of two shards of the
+    card adds one ``merge.device`` a request; the timing events return to
+    the pool."""
+    from realsr_tpu_torch.parallel.mesh import make_mesh
+
+    e = _traced_engine(tmp_path, make_mesh([cuda, cuda]) if shards > 1 else None)
+    img = np.random.default_rng(11).integers(0, 256, (70, 90, 3), np.uint8)
+    buf = e.process_device(img)
+    assert "chunk.device" not in traced._count
+    got = e.fetch(buf)
+    recs = traced.records()
+    dispatch = {r.id: r for r in recs if r.name == "dispatch"}
+    timed = [r for r in recs if r.name == "chunk.device"]
+    assert dispatch and len(timed) == len(dispatch) == traced._count["chunk.device"]
+    for r in timed:
+        assert r.card == "cuda:0" and r.parent in dispatch and r.attrs["device_s"] > 0
+        assert r.request == dispatch[r.parent].request
+    assert traced._count.get("merge.device", 0) == (shards > 1) == traced._count.get("mesh.merge", 0)
+    assert traced._pool["cuda:0"]
+    np.testing.assert_array_equal(got, buf.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_traced_chunks_replay_after_warmup(cuda, tmp_path, traced):
+    """An image met thrice: its keys' first chunks ran eagerly, the second
+    were captured, and the third image's chunks are all replays."""
+    e = _traced_engine(tmp_path)
+    img = np.random.default_rng(12).integers(0, 256, (70, 90, 3), np.uint8)
+    e.process(img)
+    e.process(img)
+    before = dict(traced._count)
+    e.process(img)
+    delta = {k: traced._count[k] - before.get(k, 0) for k in ("chunks.replayed", "chunks.captured", "chunks.eager")}
+    n = traced._count["dispatch"] - before["dispatch"]
+    assert n > 0 and delta == {"chunks.replayed": n, "chunks.captured": 0, "chunks.eager": 0}
