@@ -95,8 +95,9 @@ Phases (each prints its lines; any failure exits non-zero):
    parity gate; (e) banded against whole under the pick, bit-equal; (f)
    device-resident output MP/s with the pick and at 128;
 9. mesh mode: ``make_mesh([cuda:0, cuda:0])`` (two shards on the one card)
-   against the single engine, bit-equal, mixed, float32 and TTA on a
-   ragged RGBA image, and banded; K1/K6 launches on each shard, each
+   against the single engine planning as the mesh plans (``planned_as``:
+   the same pick and per-bucket batches), bit-equal, mixed, float32 and
+   TTA on a ragged RGBA image, and banded; K1/K6 launches on each shard, each
    chunk's charged to the shard whose private output it changed; the CLI
    with ``REALSR_TPU_MESH=all``;
 10. the native bridge in process (``init`` on gpu 0, ``process_async`` /
@@ -759,6 +760,27 @@ def band_chunks(eng, shape, btr: int) -> list:
     return chunks
 
 
+def planned_as(one, m, fn):
+    """``fn()`` with the single engine ``one`` planning as the mesh engine
+    ``m`` plans (its tile pick and per-bucket chunk batches, which come
+    from the mesh's card count), restored after: the plan at which the
+    mesh's output is bit-equal to the single engine's."""
+    one._chunking, one._pick_tilesize = m._chunking, m._pick_tilesize
+    try:
+        return fn()
+    finally:
+        del one._chunking, one._pick_tilesize
+
+
+def plan_chunking(engine, hw: tuple, tile: int) -> dict:
+    """{bucket shape: (chunk batch, chunk count)} of an ``hw`` image's tile
+    plan at ``tile``."""
+    from realsr_tpu_torch.tiling.planner import plan_tiles
+
+    plan = plan_tiles(hw[1], hw[0], tile, engine.prepadding)
+    return {sh: engine._chunking(tile, len(ix)) for sh, ix in plan.buckets.items()}
+
+
 def with_env(env: dict, fn):
     """``fn()`` with ``env`` set (a value None unsets), restored after."""
     old = {k: os.environ.get(k) for k in env}
@@ -803,7 +825,7 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     from realsr_tpu_torch.ncnn.synth import synth_weights
 
     no_budget = {"REALSR_TPU_BAND_BUDGET_MB": None}
-    no_budget_batch = with_env(no_budget, lambda: engine._chunking(TILE128, 64))
+    no_budget_batch = with_env(no_budget, lambda: plan_chunking(engine, CLI_BAND_HW, TILE128))
     dev = engine.device.torch_device
     gpu = dev.index if dev.type == "cuda" else -1
 
@@ -860,14 +882,16 @@ def slice9(cli, rk, tk, mparam, mbin, work, card, engine, kern32, plain32, tta_e
     # 7c: the CLI with the band budget just below the image's footprint. The
     # budget also caps the chunk batch (_auto_batch), and chunks of another
     # batch may round differently (cuDNN picks its algorithm by batch), so
-    # the image is large enough that both budgets keep the batch at 8
+    # the image is large enough that both budgets keep its plan (768 tiles
+    # of 128, 96 chunks of 8)
     src = os.path.join(work, "band.png")
     Image.fromarray(np.random.default_rng(10).integers(0, 256, (*CLI_BAND_HW, 3), np.uint8)).save(src)
     Image.MAX_IMAGE_PIXELS = None  # its 4x PNGs (201 MP) are above PIL's decompression-bomb guard
     outs = {}
     for label, budget in (("whole", "2048"), ("banded", CLI_BAND_BUDGET)):
         env = {"REALSR_TPU_BAND_BUDGET_MB": budget}
-        check(with_env(env, lambda: (engine.needs_banding((*CLI_BAND_HW, 3)), engine._chunking(TILE128, 64)))
+        check(with_env(env, lambda: (engine.needs_banding((*CLI_BAND_HW, 3)),
+                                     plan_chunking(engine, CLI_BAND_HW, TILE128)))
               == (label == "banded", no_budget_batch),
               f"7c: at {budget} MB the {CLI_BAND_HW} image is not {label}, or its chunk batch moved")
         dst = os.path.join(work, f"band_{label}.png")
@@ -1196,9 +1220,9 @@ def shard_launches(m, x: np.ndarray, rk, tk) -> tuple:
 
 def slice10_mesh(cli, rk, tk, mparam, mbin, work, card, auto_engine, auto_tta, single32, one_in, one_out) -> None:
     """Phase 9, mesh mode on one card: a mesh of two shards of cuda:0
-    against the single engine (mixed, float32, TTA on a ragged RGBA image,
-    banded), the CLI with REALSR_TPU_MESH=all, and K1/K6 launches per
-    shard."""
+    against the single engine at the mesh's plan (mixed, float32, TTA on a
+    ragged RGBA image, banded), the CLI with REALSR_TPU_MESH=all, and K1/K6
+    launches per shard."""
     from PIL import Image
 
     from realsr_tpu_torch.engine import EngineConfig, RealSR
@@ -1218,13 +1242,13 @@ def slice10_mesh(cli, rk, tk, mparam, mbin, work, card, auto_engine, auto_tta, s
         x = ragged if tta else img
         zero_counts(rk, tk)
         got, per = shard_launches(m, x, rk, tk)
-        want = single.process(x)
+        want = planned_as(single, m, lambda: single.process(x))
         check(np.array_equal(got, want), f"9 {label}: the 2-shard mesh is not bit-equal to the single engine")
         check(all(k6 > 0 and k1 == 69 * k6 for k1, k6 in per), f"9 {label}: K1 / K6 launches per shard {per}")
         row = {"bit_equal": True, "tile": m.last_tilesize, "k1_k6_launches_per_shard": per}
         if label == "mixed":
             banded = m.process_banded(rgba, band_tile_rows=1)
-            check(np.array_equal(banded, auto_engine.process(rgba)),
+            check(np.array_equal(banded, planned_as(auto_engine, m, lambda: auto_engine.process(rgba))),
                   "9: banded under the mesh not bit-equal to the single engine's whole image")
             row["banded_1000x700_rgba_bit_equal"] = True
         rows[label] = row
@@ -2192,11 +2216,11 @@ def slice13(rk, tk, mparam, mbin, card, auto_engine, engine, big_band) -> None:
 
 def mesh_cards(mparam, mbin, card, variant: str = "auto", devs=None) -> None:
     """Phase 13f, on a host with two cards or more (else it prints that it
-    is left out): a mesh of cuda:0 and cuda:1 against the engine on cuda:0,
-    bit-equal; image 2's ``process_device`` returning while image 1
-    computes, and no blocking runtime call while the mesh enqueues, so the
-    copies of ``_shards`` (the input to each card) and ``_merge`` (each
-    card's output to the first) wait for no card."""
+    is left out): a mesh of cuda:0 and cuda:1 against the engine on cuda:0
+    at the mesh's plan, bit-equal; image 2's ``process_device`` returning
+    while image 1 computes, and no blocking runtime call while the mesh
+    enqueues, so the copies of ``_shards`` (the input to each card) and
+    ``_merge`` (each card's output to the first) wait for no card."""
     from realsr_tpu_torch import engine as engine_mod
     from realsr_tpu_torch.engine import EngineConfig, RealSR
     from realsr_tpu_torch.parallel.mesh import make_mesh
@@ -2212,7 +2236,8 @@ def mesh_cards(mparam, mbin, card, variant: str = "auto", devs=None) -> None:
     m.load(mparam, mbin)
     imgs = [natural_image(np.random.default_rng(50 + k), *STEADY_HW) for k in range(4)]
     for im in imgs[:2]:
-        check(np.array_equal(m.process(im), one.process(im)), "13f: the two-card mesh differs from one card")
+        check(np.array_equal(m.process(im), planned_as(one, m, lambda: one.process(im))),
+              "13f: the two-card mesh differs from one card")
     for d in devs:
         torch.cuda.synchronize(d)
     b1 = m.process_device(imgs[2])
@@ -2222,7 +2247,8 @@ def mesh_cards(mparam, mbin, card, variant: str = "auto", devs=None) -> None:
     running = not engine_mod.done_event(b1).query()
     for d in devs:
         torch.cuda.synchronize(d)
-    check(np.array_equal(m.fetch(b1), one.process(imgs[2])), "13f: the run-ahead image differs")
+    check(np.array_equal(m.fetch(b1), planned_as(one, m, lambda: one.process(imgs[2]))),
+          "13f: the run-ahead image differs")
     traced = traced_back_to_back(m, imgs, "new")
     print(json.dumps({"phase": "13f", "what": f"make_mesh([{', '.join(map(str, devs))}]) ({m.variant}) vs one card: "
                       "bit-equal; image 2 enqueued while image 1 computes; 4 images back to back from two threads",

@@ -63,7 +63,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from realsr_tpu_torch.tiling.planner import CPU_TILESIZE, _anchors, anchor_provenance_notice, pick_tilesize, plan_tiles
+from realsr_tpu_torch.tiling.planner import CPU_TILESIZE, _anchors, anchor_provenance_notice, chunk_plan, pick_tilesize, plan_tiles
 from realsr_tpu_torch.utils.trace import maybe_start_profiler, tracer
 from realsr_tpu_torch.loader import ModelBundle, load_model
 from realsr_tpu_torch.models import rrdbnet as R
@@ -90,8 +90,8 @@ class EngineConfig:
     # "bfloat16" | "float16"
     storage: str = "auto"
     # tiles per chunk at most: 0 = auto (_auto_batch: 8, fewer where the
-    # band budget or TTA asks); chunks are min(max_batch, the bucket's tile
-    # count rounded up to a power of two), as in the JAX engine
+    # band budget or TTA asks); a bucket runs as the fewest equal chunks
+    # under it, in whole rounds of the mesh (planner.chunk_plan)
     max_batch: int = 0
     # RDB conv formulation: "auto" | "dense" | "scatter" | "cuda". "auto"
     # (_resolve_variant) is the fused CUDA kernel on a GPU and plain convs
@@ -513,9 +513,10 @@ class RealSR:
     ``mesh`` (``parallel.mesh.make_mesh``) replaces ``gpuid``: the engine
     then lives on the mesh's first device, holds the parameters on each of
     its devices, and deals every image's whole chunks round-robin to them.
-    Every chunk keeps the shape the single engine gives it, so the output
-    is bit-equal to the single engine's (a chunk split over devices would
-    run the convs at another batch, where cuDNN may pick another algorithm).
+    Each bucket's chunk batch comes from the mesh's card count
+    (:meth:`_chunking`), and the output is bit-equal to a single engine's
+    run at the same per-bucket batches (a batch the single engine does not
+    run may make cuDNN pick another algorithm).
 
     Each chunk's forward runs under :func:`~realsr_tpu_torch.models.rrdbnet.
     tf32`: TF32 off for float32 operands (the JAX package's
@@ -657,24 +658,22 @@ class RealSR:
         return _auto_batch(tilesize, self.tta_mode, self._band_budget_bytes(), nf, self.storage_dtype.itemsize)
 
     def _chunking(self, tilesize: int, n: int) -> tuple:
-        """(chunk batch, chunk count) for ``n`` tiles at ``tilesize``: the
-        tile count rounded up to a power of two, capped at
-        ``config.max_batch`` or, at 0, at the auto granule; the tile list is
-        padded to whole chunks. A mesh deals whole chunks to its devices, so
-        the batch is the single engine's (no rounding to a device
-        multiple)."""
+        """(chunk batch, chunk count) for ``n`` tiles at ``tilesize``:
+        ``planner.chunk_plan`` at a cap of ``config.max_batch`` or, at 0,
+        the auto granule, over the devices chunks are dealt to. The chunks
+        are equal, in whole rounds of the devices, and the tile list is
+        padded to whole chunks by under one tile a chunk."""
         max_batch = self.config.max_batch or self._auto_batch(tilesize)
-        bsz = min(max_batch, 1 << (n - 1).bit_length())
-        return bsz, -(-n // bsz)
+        return chunk_plan(n, max_batch, len(self._devices()))
 
     def _pick_tilesize(self, w: int, h: int, n_img: int = 1) -> int:
         """The tile size for a ``w`` x ``h`` image (a stack of ``n_img``):
         the configured one, the CPU's 200, or on a card the candidate of
         least modelled work (planner.pick_tilesize) at each candidate's own
-        chunk granule. The kernel variant takes 128 / 192 / 256, plain convs
-        128 / 192, as the JAX engine's Pallas and conv paths. ``ndev`` is 1
-        even under a mesh: whole chunks are dealt to its devices, so no
-        chunk batch is rounded to a device multiple."""
+        chunk granule, with the chunks planned as :meth:`_chunking` plans
+        them over the devices chunks are dealt to. The kernel variant takes
+        128 / 192 / 256, plain convs 128 / 192, as the JAX engine's Pallas
+        and conv paths."""
         if self.tilesize:
             return self.tilesize
 
@@ -683,7 +682,7 @@ class RealSR:
 
         cands = (128, 192, 256) if self.variant == "cuda" else (128, 192)
         return pick_tilesize(
-            w, h, self.prepadding, granule=granule, candidates=cands, n_img=n_img, ndev=1,
+            w, h, self.prepadding, granule=granule, candidates=cands, n_img=n_img, ndev=len(self._devices()),
             anchors=self._rate_anchors,
         )
 

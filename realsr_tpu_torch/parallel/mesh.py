@@ -6,7 +6,10 @@ from a shared queue (src/main.cpp:778-791); the pipeline keeps that mode
 (one ``RealSR`` per id in ``-g``). A mesh is the other mode: ONE engine
 whose image's tile chunks are dealt round-robin to the mesh's devices, with
 no traffic between them until the per-device outputs merge once per image
-(``engine.RealSR(mesh=...)``).
+(``engine.RealSR(mesh=...)``). The engine plans each bucket as equal chunks
+in whole rounds of the devices (``tiling.planner.chunk_plan``), so each
+device runs the same work; the output is bit-equal to a single engine's run
+at the same per-bucket chunk batches.
 
 A :class:`Mesh` here is only its devices: torch needs no sharding
 annotations, since the engine places each chunk itself. ``make_mesh``

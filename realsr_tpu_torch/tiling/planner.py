@@ -217,6 +217,18 @@ def _px_rate(ph: int, pw: int, anchors=None) -> float:
     return r0
 
 
+def chunk_plan(n: int, cap: int, ndev: int = 1) -> Tuple[int, int]:
+    """(chunk batch, chunk count) for a bucket of ``n`` same-shape tiles,
+    at most ``cap`` tiles a chunk, dealt in turn to ``ndev`` cards: the
+    fewest chunks the cap allows, raised to whole rounds of the cards
+    (while a chunk keeps a tile), then chunks of equal size. The last chunk
+    is padded to the batch with duplicate tiles: fewer than one a chunk."""
+    count = -(-n // cap)
+    count = min(n, -(-count // ndev) * ndev)
+    batch = -(-n // count)
+    return batch, -(-n // batch)
+
+
 def pick_tilesize(
     w: int,
     h: int,
@@ -230,18 +242,18 @@ def pick_tilesize(
     """Per-image auto tile size: minimize total padded-tile work.
 
     The forward cost of a stack of ``n_img`` same-sized images is the sum
-    over buckets of ``ceil(n_img*n_bucket/g) * g * padded_h * padded_w`` —
-    tiles are chunk-padded to the batching granule (engine) and halo-padded
-    by ``prepadding`` (planner), so both pad-waste sources depend on how
-    the tile grid lands on the image — weighted by the bucket's measured
-    per-pixel cost (_px_rate). ``granule`` may be a callable
-    ``tilesize -> g`` so the model uses each candidate's real dispatch
-    granule (the engine's batch depends on the tile size). ``ndev``: the
-    count a chunk batch is rounded up to a multiple of (1 for the port's
-    engine, which deals whole chunks to the mesh's devices). ``anchors``:
-    the rate table (default: :func:`_anchors`, read once per call; the
-    engine resolves it once at load). Ties break toward larger tiles
-    (fewer dispatches).
+    over buckets of the tiles run (:func:`chunk_plan`'s batch x count for
+    the bucket's ``n_img*n_bucket`` tiles) x ``padded_h * padded_w`` —
+    tiles are chunk-padded by the engine's plan and halo-padded by
+    ``prepadding`` (planner), so both pad-waste sources depend on how the
+    tile grid lands on the image — weighted by the bucket's measured
+    per-pixel cost (_px_rate). ``granule`` is the chunk batch cap, and may
+    be a callable ``tilesize -> cap`` so the model uses each candidate's
+    real cap (the engine's depends on the tile size). ``ndev``: the cards
+    the engine deals chunks to (its mesh's size), whose whole rounds the
+    plan fills. ``anchors``: the rate table (default: :func:`_anchors`,
+    read once per call; the engine resolves it once at load). Ties break
+    toward larger tiles (fewer dispatches).
     """
     gfn = granule if callable(granule) else (lambda _t: granule)
     anchors = anchors or _anchors()
@@ -252,9 +264,8 @@ def pick_tilesize(
         cost = 0.0
         for (ph, pw), idxs in plan.buckets.items():
             n = len(idxs) * n_img
-            nb = min(g, 1 << (n - 1).bit_length())
-            nb = -(-nb // ndev) * ndev
-            cost += -(-n // nb) * nb * ph * pw * _px_rate(ph, pw, anchors)
+            batch, count = chunk_plan(n, g, ndev)
+            cost += batch * count * ph * pw * _px_rate(ph, pw, anchors)
         if best is None or cost < best[0] or (cost == best[0] and t > best[1]):
             best = (cost, t)
     return best[1]

@@ -13,6 +13,7 @@ from realsr_tpu.engine import RealSR as JaxRealSR
 from realsr_tpu.ops.pad import reflect101_pad_w as jax_pad_w
 from realsr_tpu_torch.engine import Device, EngineConfig, RealSR, _resolve_tail
 from realsr_tpu_torch.ops.pad import reflect101_pad_w
+from realsr_tpu_torch.tiling.planner import chunk_plan
 
 torch.set_num_threads(2)
 
@@ -170,14 +171,23 @@ def test_fetch_passes_host_arrays(engines):
 @pytest.mark.parametrize("tta", [False, True])
 @pytest.mark.parametrize("max_batch", [0, 1, 2, 3, 4, 8, 16])
 def test_chunking_matches_jax(tiny_model_dir, max_batch, tta, monkeypatch):
+    """The port's plan is ``chunk_plan`` at JAX's engine's cap (max_batch,
+    else its auto batch at the budget and TTA); it runs no larger a batch
+    and no more tiles than JAX's power-of-two plan, and is JAX's plan
+    wherever that one runs no pad tile."""
     jax_e = JaxRealSR(gpuid=-1, tta_mode=tta, config=JaxConfig(
         tilesize=16, storage="float32", max_batch=max_batch, compilation_cache=False))
     jax_e.load(*_files(tiny_model_dir))
     port = _port_engine(tiny_model_dir, tta=tta, max_batch=max_batch)
     for budget_mb in ("1", "2048"):
         monkeypatch.setenv("REALSR_TPU_BAND_BUDGET_MB", budget_mb)
+        cap = max_batch or jax_e._auto_batch(16)
         for n in range(1, 41):
-            assert port._chunking(16, n) == jax_e._chunking(16, n)
+            (b, c), (jb, jc) = port._chunking(16, n), jax_e._chunking(16, n)
+            assert (b, c) == chunk_plan(n, cap), (budget_mb, n)
+            assert b <= jb and b * c <= jb * jc, (budget_mb, n)
+            if jb * jc == n:
+                assert (b, c) == (jb, jc), (budget_mb, n)
 
 
 def test_max_batch_caps_chunks(tiny_model_dir):

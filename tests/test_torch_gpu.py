@@ -646,9 +646,10 @@ def test_process_cpu_on_card_engine(cuda, tmp_path):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("storage", ["mixed", "float32"])
-def test_mesh_of_two_shards_on_card(cuda, tmp_path, storage):
+def test_mesh_of_two_shards_on_card(cuda, tmp_path, storage, monkeypatch):
     """A mesh of two shards of the one card deals whole chunks to them and
-    is bit-equal to the single engine, whole and banded, with the pick."""
+    is bit-equal to the single engine planning as the mesh plans (its pick
+    and per-bucket batches over two shards), whole and banded."""
     from realsr_tpu_torch.engine import EngineConfig, RealSR
     from realsr_tpu_torch.ncnn.synth import make_model_dir
     from realsr_tpu_torch.parallel.mesh import make_mesh
@@ -658,6 +659,8 @@ def test_mesh_of_two_shards_on_card(cuda, tmp_path, storage):
     single.load(*files)
     mesh = RealSR(config=EngineConfig(storage=storage, max_batch=2), mesh=make_mesh([cuda, cuda]))
     mesh.load(*files)
+    monkeypatch.setattr(single, "_chunking", mesh._chunking)
+    monkeypatch.setattr(single, "_pick_tilesize", mesh._pick_tilesize)
     img = np.random.default_rng(9).integers(0, 256, (300, 420, 4), np.uint8)
     want = single.process(img)
     assert mesh.tilesize == 0 and mesh.last_tilesize == 0
@@ -669,7 +672,9 @@ def test_mesh_of_two_shards_on_card(cuda, tmp_path, storage):
 @pytest.mark.gpu
 def test_pick_on_card(cuda, tmp_path):
     """The card engine picks per image among 128 / 192 / 256 (kernel
-    variant) and 128 / 192 (plain convs); banded output equals whole."""
+    variant) and 128 / 192 (plain convs; on 1024 x 768 192's 20 + 4 tiles
+    run as 3 chunks of 7 and one of 4, fewer padded pixels than 128's 48);
+    banded output equals whole."""
     from realsr_tpu_torch.engine import EngineConfig, RealSR
     from realsr_tpu_torch.ncnn.synth import make_model_dir
 
@@ -678,7 +683,7 @@ def test_pick_on_card(cuda, tmp_path):
     e.load(*files)
     dense = RealSR(gpuid=0, config=EngineConfig(variant="dense"))
     dense.load(*files)
-    assert e.tilesize == 0 and e._pick_tilesize(1024, 768) == 256 and dense._pick_tilesize(1024, 768) == 128
+    assert e.tilesize == 0 and e._pick_tilesize(1024, 768) == 256 and dense._pick_tilesize(1024, 768) == 192
     img = np.random.default_rng(10).integers(0, 256, (290, 300, 3), np.uint8)
     whole = e.process(img)
     assert e.last_tilesize == e._pick_tilesize(300, 290)

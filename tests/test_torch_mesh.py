@@ -1,7 +1,8 @@
 """The port's mesh mode (``parallel/mesh.py``, ``RealSR(mesh=...)``) on the
 CPU: meshes of 2 and 3 shards of the CPU device against the port's single
-engine (bit-equal) and against the JAX package's mesh engine on its virtual
-8-CPU mesh, and ``REALSR_TPU_MESH`` through the port's CLI."""
+engine run at the mesh's per-bucket chunk batches (bit-equal) and against
+the JAX package's mesh engine on its virtual 8-CPU mesh, and
+``REALSR_TPU_MESH`` through the port's CLI."""
 
 import os
 
@@ -18,7 +19,7 @@ from realsr_tpu_torch import cli
 from realsr_tpu_torch.engine import EngineConfig, RealSR
 from realsr_tpu_torch.parallel import mesh as port_mesh
 from realsr_tpu_torch.parallel.mesh import make_mesh, mesh_from_env
-from realsr_tpu_torch.tiling.planner import plan_tiles
+from realsr_tpu_torch.tiling.planner import chunk_plan, plan_tiles
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -53,31 +54,43 @@ def _close(got, want):
     assert np.mean(d == 0) >= 0.999 and d.max() <= 1, (np.mean(d == 0), d.max())
 
 
+def _at_batches_of(one, m, monkeypatch):
+    """The single engine ``one`` planning its chunks as the mesh engine
+    ``m`` plans them (the same per-bucket batches, from the mesh's card
+    count), so the mesh's output is bit-equal to its."""
+    monkeypatch.setattr(one, "_chunking", m._chunking)
+    return one
+
+
 @pytest.mark.parametrize("k", [2, 3])
-def test_mesh_matches_single_device(single, meshes, k):
+def test_mesh_matches_single_device(single, meshes, k, monkeypatch):
     img = np.random.default_rng(k).integers(0, 256, (40, 48, 3), np.uint8)  # 15 tiles at T=16
     assert meshes[k].mesh.size == k
-    np.testing.assert_array_equal(meshes[k].process(img), single.process(img))
+    one = _at_batches_of(single, meshes[k], monkeypatch)
+    np.testing.assert_array_equal(meshes[k].process(img), one.process(img))
 
 
 @pytest.mark.parametrize("k", [2, 3])
-def test_mesh_ragged_and_alpha(single, meshes, k):
+def test_mesh_ragged_and_alpha(single, meshes, k, monkeypatch):
     img = np.random.default_rng(10 + k).integers(0, 256, (33, 21, 4), np.uint8)
-    np.testing.assert_array_equal(meshes[k].process(img), single.process(img))
+    one = _at_batches_of(single, meshes[k], monkeypatch)
+    np.testing.assert_array_equal(meshes[k].process(img), one.process(img))
 
 
 @pytest.mark.parametrize("k", [2, 3])
-def test_mesh_process_batch(single, meshes, k):
+def test_mesh_process_batch(single, meshes, k, monkeypatch):
     imgs = [np.random.default_rng(20 + i).integers(0, 256, (20, 18, 3), np.uint8) for i in range(3)]
-    for a, b in zip(meshes[k].process_batch(imgs), single.process_batch(imgs)):
+    one = _at_batches_of(single, meshes[k], monkeypatch)
+    for a, b in zip(meshes[k].process_batch(imgs), one.process_batch(imgs)):
         np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("k", [2, 3])
-def test_mesh_float16_parity_mode(tiny_model_dir, k):
+def test_mesh_float16_parity_mode(tiny_model_dir, k, monkeypatch):
     one = _engine(tiny_model_dir, storage="float16")
     m = _engine(tiny_model_dir, k, storage="float16")
     assert m.storage_dtype == torch.float16 and m.variant == "dense"
+    one = _at_batches_of(one, m, monkeypatch)
     img = np.random.default_rng(30 + k).integers(0, 256, (40, 24, 3), np.uint8)
     np.testing.assert_array_equal(m.process(img), one.process(img))
 
@@ -102,7 +115,7 @@ def test_mesh_oversized_image_bands_per_device(single, meshes, k, monkeypatch):
     """The band budget caps each device's memory: an over-budget image bands
     under a mesh too, bit-equal to the single engine's whole image."""
     img = np.random.default_rng(60 + k).integers(0, 256, (64, 40, 3), np.uint8)
-    want = single.process(img)
+    want = _at_batches_of(single, meshes[k], monkeypatch).process(img)
     monkeypatch.setenv("REALSR_TPU_BAND_BUDGET_MB", "0")
     assert meshes[k].needs_banding(img.shape)
     calls = []
@@ -116,13 +129,17 @@ def test_mesh_oversized_image_bands_per_device(single, meshes, k, monkeypatch):
 def test_chunks_dealt_round_robin(tiny_model_dir, k, monkeypatch):
     """Whole chunks go to the shards in turn: each shard's private output
     holds only its own tiles (no pixel written by two shards), every shard
-    gets chunks (5 chunks of at most 2 tiles here), the merge is their max,
-    and progress is fenced once a round."""
+    gets chunks (5 chunks of at most 2 tiles on 2 shards, 6 on 3), chunk j
+    runs on shard j % k, so each shard runs as many chunks when their count
+    is a multiple of k, the merge is their max, and progress is fenced once
+    a round."""
     m = _engine(tiny_model_dir, k, max_batch=2)
-    seen = {}
-    merge = m._merge
-    monkeypatch.setattr(m, "_merge", lambda shards: seen.setdefault("parts", [s[2].clone() for s in shards])
-                        and merge(shards))
+    seen, ran = {}, []
+    merge, run_chunk = m._merge, m._run_chunk
+    monkeypatch.setattr(m, "_merge", lambda shards: seen.setdefault("outs", [s[2] for s in shards])
+                        and seen.setdefault("parts", [s[2].clone() for s in shards]) and merge(shards))
+    monkeypatch.setattr(m, "_run_chunk", lambda padded, alpha, out, *a: ran.append(out) or run_chunk(
+        padded, alpha, out, *a))
     fracs = []
     img = np.random.default_rng(70 + k).integers(1, 256, (40, 48, 3), np.uint8)
     out = m.process(img, progress_cb=fracs.append)
@@ -133,14 +150,24 @@ def test_chunks_dealt_round_robin(tiny_model_dir, k, monkeypatch):
     np.testing.assert_array_equal(parts.amax(0)[0].numpy(), out)
     chunks = sum(m._chunking(16, len(ix))[1] for ix in plan_tiles(48, 40, 16, 10).buckets.values())
     assert len(fracs) == -(-chunks // k) and fracs[-1] == pytest.approx(1.0)
+    assert chunks == {2: 5, 3: 6}[k] and len(ran) == chunks
+    per_shard = [sum(o is p for o in ran) for p in seen["outs"]]
+    assert per_shard == [len(range(s, chunks, k)) for s in range(k)]
+    if chunks % k == 0:
+        assert per_shard == [chunks // k] * k
 
 
 @pytest.mark.parametrize("k", [2, 3])
 def test_mesh_chunk_batch_is_the_single_engines(single, meshes, k):
-    """No rounding of the batch to a device multiple: every chunk has a
-    shape the single engine launches (JAX rounds; the port deals)."""
+    """The mesh's batch comes from the single engine's rule at the mesh's
+    card count: ``chunk_plan`` at the single engine's cap over k cards, a
+    batch no larger than the single engine's, and no card runs more tiles
+    than under the single engine's plan dealt in turn."""
+    cap = single._auto_batch(16)
     for n in range(1, 30):
-        assert meshes[k]._chunking(16, n) == single._chunking(16, n)
+        (b, c), (sb, sc) = meshes[k]._chunking(16, n), single._chunking(16, n)
+        assert (b, c) == chunk_plan(n, cap, k) and (sb, sc) == chunk_plan(n, cap), n
+        assert b <= sb and b * -(-c // k) <= sb * -(-sc // k), n
 
 
 def test_mesh_params_on_each_device(meshes):

@@ -252,10 +252,10 @@ def test_engine_counts_tiles_and_chunks(tiny_model_dir, traced, shards):
     e = RealSR(gpuid=-1, config=EngineConfig(tilesize=16, storage="float32", max_batch=4),
                mesh=make_mesh(["cpu"] * shards) if shards > 1 else None)
     e.load(os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
-    w, h = 56, 36  # 4 x 3 tiles of 16: buckets of 6, 2, 3 and 1 tiles, at batches 4, 2, 4 and 1
+    w, h = 88, 20  # 6 x 2 tiles of 16: buckets of 5, 1, 5 and 1 tiles, a 5 as 2 chunks of 3 (one pad tile)
     chunks = _expected_chunks(e, w, h)
     real, run = sum(c[3] for c in chunks), sum(len(c[2]) for c in chunks)
-    assert (real, run) == (12, 15)
+    assert (real, run) == (12, 14)
     buf = e.process_device(np.random.default_rng(5).integers(0, 256, (h, w, 3), np.uint8))
     th = threading.Thread(target=e.fetch, args=(buf,))
     th.start()
