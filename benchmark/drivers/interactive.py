@@ -47,7 +47,7 @@ def window(ctx, state) -> dict:
             print(f"benchmark: request {k} failed: {ex!r}", file=sys.stderr, flush=True)
         else:
             h, w = img.shape[:2]
-            out_px += h * w * 4 ** ctx.cfg["num_upsample"]
+            out_px += h * w * ctx.cfg["scale"] ** 2
             done.append((w, h))
         if i in last:
             last[i] = out

@@ -9,24 +9,13 @@ LeakyReLU; HRconv with LeakyReLU; conv_last. Each conv zero-pads by 1.
 The convs come in the .param's order, which is this order.
 
 ``quant`` rounds every conv's input and weights before the float32 product:
-the lower precision that the control runs (``fp8``).
+the lower precision that the control runs (``reference.precision.fp8``).
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
-
-FP8_MAX = 448.0  # largest finite float8 e4m3
-
-
-def fp8(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 with one scale per tensor (its absolute
-    maximum to the format's largest), back in float32."""
-    scale = t.abs().amax().clamp(min=1e-30) / FP8_MAX
-    return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
 
 
 def forward(x: torch.Tensor, layers: list, num_rrdb: int, num_upsample: int, quant=None) -> torch.Tensor:
@@ -58,15 +47,3 @@ def forward(x: torch.Tensor, layers: list, num_rrdb: int, num_upsample: int, qua
     for _ in range(num_upsample):
         cur = conv(F.interpolate(cur, scale_factor=2, mode="nearest"), True)
     return conv(conv(cur, True), False)
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """Plain float32 on the card inside the block: cuDNN and matmuls without
-    TF32; the settings before it come back after it."""
-    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before

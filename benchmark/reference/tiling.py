@@ -12,8 +12,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.reference.rrdbnet import forward
-
 
 def reflect101(n: int, lo: int, hi: int) -> np.ndarray:
     """Source index of each position of an axis of ``n`` padded by lo / hi."""
@@ -53,11 +51,11 @@ def cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-def upscale(img: np.ndarray, layers: list, num_rrdb: int, num_upsample: int, tilesize: int, pad: int,
-            device, quant=None, block: int = 8) -> np.ndarray:
-    """u8 [h, w, 3 | 4] -> u8 [h * s, w * s, same], tiles run ``block`` at a
-    time."""
-    s = 2**num_upsample
+def upscale(img: np.ndarray, net, scale: int, tilesize: int, pad: int, device, block: int = 8) -> np.ndarray:
+    """u8 [h, w, 3 | 4] -> u8 [h * scale, w * scale, same], tiles run
+    ``block`` at a time through ``net`` (an architecture's forward: float32
+    [B, 3, th, tw] in 0..1 -> [B, 3, th * scale, tw * scale])."""
+    s = scale
     h, w, c = img.shape
     color = torch.from_numpy(np.array(img[..., :3])).to(device).float() * (1.0 / 255.0)
     yi = torch.from_numpy(reflect101(h, pad, pad)).to(device)
@@ -72,7 +70,7 @@ def upscale(img: np.ndarray, layers: list, num_rrdb: int, num_upsample: int, til
             for k in range(0, len(ts), block):
                 blk = ts[k : k + block]
                 x = torch.stack([padded[y0 : y0 + th + 2 * pad, x0 : x0 + tw + 2 * pad] for x0, y0, _, _ in blk])
-                y = forward(x.permute(0, 3, 1, 2).contiguous(), layers, num_rrdb, num_upsample, quant)
+                y = net(x.permute(0, 3, 1, 2).contiguous())
                 y = y[:, :, pad * s : (pad + th) * s, pad * s : (pad + tw) * s]
                 u8 = torch.floor(y * 255.0 + 0.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
                 for (x0, y0, _, _), t in zip(blk, u8):

@@ -3,12 +3,14 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the repository's root. A cell (``BENCHMARK.json`` ``workloads``) is a
-configuration (``configs/<config>.json`` and its ``.param``) under a traffic
+configuration (``configs/<config>.json``, of the architecture it names,
+``arch/<architecture>.py``; ``rrdbnet`` where it names none) under a traffic
 mix (``traffic/<mix>.json``, run by ``drivers/<driver>.py``). A run makes
-its weights and images from the seed, loads the model through the
-program's ``RealSR.load``, warms the cell's own shapes, measures for
-``--seconds``, checks the outputs against the plain reference
-(``reference/``; limits in ``limits/<workload>.json``) and prints, as the
+its weights and images from the seed, writes the architecture's model
+files, loads them through the program's ``RealSR.load``, warms the cell's
+own shapes, measures for ``--seconds``, checks the outputs against the
+plain reference (the architecture's ``net`` tiled by ``reference/``;
+limits in ``limits/<workload>.json``) and prints, as the
 last line of standard output, one JSON object: the end-to-end metrics, or
 with ``--trace 1`` the per-layer ones (``metrics/<metric>.py``) read from a
 ``torch.profiler`` profile over the window and the program's spans.
@@ -54,6 +56,7 @@ import statistics  # noqa: E402
 import tempfile  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "realsr_tpu")
+DEFAULT_ARCH = "rrdbnet"  # of a configuration that names no architecture
 
 
 class NoCard(RuntimeError):
@@ -81,19 +84,19 @@ def cell_of(spec: dict, workload: str) -> tuple:
 
 
 def load_config(root: str, entry: dict) -> dict:
-    """The configuration file, with its .param's text and conv list."""
-    from benchmark.ncnn import macs_per_input_px, parse_convs
-
+    """The configuration file, with what its architecture's ``describe``
+    adds (``scale``, ``macs_per_input_px`` and the architecture's own
+    keys)."""
     path = os.path.join(os.path.dirname(root), entry["file"])
     with open(path) as f:
         cfg = json.load(f)
-    param = os.path.join(os.path.dirname(path), cfg["param"])
-    with open(param) as f:
-        text = f.read()
-    cfg["param_path"] = param
-    cfg["convs"] = parse_convs(text)
-    cfg["macs_per_input_px"] = macs_per_input_px(cfg["convs"])
+    cfg.update(arch_of(root, cfg).describe(cfg, os.path.dirname(path)))
     return cfg
+
+
+def arch_of(root: str, cfg: dict):
+    """``arch/<architecture>.py`` of a configuration, as a module."""
+    return _module(root, "arch", cfg.get("architecture", DEFAULT_ARCH))
 
 
 def reported(spec: dict, workload: str) -> tuple:
@@ -110,7 +113,10 @@ def reported(spec: dict, workload: str) -> tuple:
 
 def _module(root: str, folder: str, name: str):
     """``<root>/<folder>/<name>.py`` as a module (names may hold dots)."""
-    spec = importlib.util.spec_from_file_location(f"benchmark_{folder}_{name}", os.path.join(root, folder, f"{name}.py"))
+    path = os.path.join(root, folder, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {path} for {folder} {name!r}")
+    spec = importlib.util.spec_from_file_location(f"benchmark_{folder}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -123,13 +129,14 @@ def read_metric(root: str, name: str, records: dict):
 
 
 class Context:
-    """What a driver gets: the cell's configuration and mix, the run's
-    window and cards, a work directory, the model files, the images, the
-    seed's generator for drawing the check's samples, and where to note its
-    set-up phases."""
+    """What a driver gets: the cell's configuration, its architecture's
+    module and mix, the run's window and cards, a work directory, the model
+    files, the images, the seed's generator for drawing the check's samples,
+    and where to note its set-up phases."""
 
-    def __init__(self, cfg, mix, seconds, devices, workdir, phases, sample_rng):
-        self.cfg, self.mix, self.seconds, self.devices, self.workdir = cfg, mix, seconds, devices, workdir
+    def __init__(self, cfg, arch, mix, seconds, devices, workdir, phases, sample_rng):
+        self.cfg, self.arch, self.mix, self.seconds, self.devices = cfg, arch, mix, seconds, devices
+        self.workdir = workdir
         self.phases, self.sample_rng = phases, sample_rng
         self.param_path = self.bin_path = None
         self.images = []
@@ -172,20 +179,6 @@ def _span_totals() -> dict:
     return {k: (tracer._total[k], tracer._count[k]) for k in list(tracer._total)}
 
 
-def _check_rows(records: dict, cfg: dict) -> None:
-    """Say on stderr where the trace lacks rows: every chunk runs one tail
-    kernel (K6) and one trunk kernel (K1) a dense block. torch.profiler has
-    been seen to drop rows of a graph replay late in a process."""
-    names = [n for _, n, _ in records["device"]["kernels"]]
-    k1 = sum("rdb_kernel" in n for n in names)
-    k6 = sum("tail_kernel" in n for n in names)
-    blocks = 3 * cfg["num_rrdb"]
-    if k1 != blocks * k6 or k6 < len(records["done"]):
-        print(f"benchmark: the trace holds {k1} trunk and {k6} tail kernel rows for {len(records['done'])} "
-              f"images: {blocks} trunk rows a tail row and a tail row an image at least were expected",
-              file=sys.stderr)
-
-
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = BENCH, devices=None,
              control: bool = False) -> dict:
     """One run of a cell; returns the result object. ``devices`` None takes
@@ -198,12 +191,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = 
     import torch
 
     from benchmark import compare, devtrace
-    from benchmark.ncnn import write_bin
     from benchmark.roofline import power_limit
-    from benchmark.reference.rrdbnet import no_tf32
+    from benchmark.reference.precision import no_tf32
     from benchmark.reference.tiling import upscale
     from benchmark.traffic import load_mix, make_images
-    from benchmark.weights import numpy_rng, split, trained_weights, STREAM_SAMPLE
+    from benchmark.weights import numpy_rng, STREAM_SAMPLE
 
     spec = load_spec(root)
     cell, centry = cell_of(spec, workload)
@@ -219,15 +211,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = 
     t = time.perf_counter()
     phases["cuda_init"] = t - T_START - phases["import"]
     cfg = load_config(root, centry)
+    arch = arch_of(root, cfg)
     mix = load_mix(root, cell["traffic"])
     limits = compare.load_limits(root, workload)
     workdir = tempfile.mkdtemp(prefix="realsr-bench-", dir=os.environ.get("TMPDIR") or None)
-    ctx = Context(cfg, mix, seconds, devices, workdir, phases, numpy_rng(seed, STREAM_SAMPLE))
+    ctx = Context(cfg, arch, mix, seconds, devices, workdir, phases, numpy_rng(seed, STREAM_SAMPLE))
     try:
-        weights, biases = trained_weights(cfg["convs"], seed, devices[0], cfg["num_rrdb"])
-        ctx.param_path = cfg["param_path"]
-        ctx.bin_path = os.path.join(workdir, "model.bin")
-        write_bin(ctx.bin_path, cfg["convs"], weights.cpu().numpy(), biases.cpu().numpy())
+        weights = arch.weights(cfg, seed, devices[0])
+        ctx.param_path, ctx.bin_path = arch.model_files(cfg, weights, workdir)
         t = ctx.phase("weights", t)
         ctx.images = make_images(mix, seed, devices[0])
         t = ctx.phase("inputs", t)
@@ -254,17 +245,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = 
         if prof is not None:
             from realsr_tpu_torch.utils.trace import tracer
 
-            _check_rows(records, cfg)
+            if hasattr(arch, "check_trace"):
+                arch.check_trace(records, cfg)
             tracer._total.clear()  # its report at exit would come after the check's lines
         t_ref = time.perf_counter()
-        layers = split(cfg["convs"], weights, biases)
+        net = arch.net(cfg, weights)
         with no_tf32():
-            want = [upscale(img, layers, cfg["num_rrdb"], cfg["num_upsample"], cfg["tilesize"], cfg["prepadding"],
-                            devices[0]) for img, _ in pairs]
+            want = [upscale(img, net, cfg["scale"], cfg["tilesize"], cfg["prepadding"], devices[0]) for img, _ in pairs]
         numbers = compare.gaps([(got, w) for (_, got), w in zip(pairs, want)])
         ref_s = time.perf_counter() - t_ref
         if control:
-            control_numbers = {name: compare.gaps(list(zip(fn(ctx, layers, [img for img, _ in pairs]), want)))
+            control_numbers = {name: compare.gaps(list(zip(fn(ctx, weights, [img for img, _ in pairs]), want)))
                                for name, fn in CONTROLS.items()}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -313,7 +304,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = 
     return result
 
 
-def _program_bf16(ctx, layers, images) -> list:
+def _program_bf16(ctx, weights, images) -> list:
     """The program's own path one step below the configuration's float32
     carried state: its ``bfloat16`` storage mode (bf16 state and operands)."""
     import torch
@@ -326,23 +317,24 @@ def _program_bf16(ctx, layers, images) -> list:
     return out
 
 
-def _reference_fp8(ctx, layers, images) -> list:
-    """The reference with every conv's input and weights in float8 e4m3, the
-    step below the configuration's bf16 operands."""
-    from benchmark.reference.rrdbnet import fp8, no_tf32
+def _reference_low(ctx, weights, images) -> list:
+    """The reference with every product's operands rounded by the
+    architecture's ``QUANT``, the step below the configuration's precision
+    (float8 e4m3 below the RRDB configurations' bf16 operands)."""
+    from benchmark.reference.precision import no_tf32
     from benchmark.reference.tiling import upscale
 
     cfg = ctx.cfg
+    net = ctx.arch.net(cfg, weights, quant=ctx.arch.QUANT)
     with no_tf32():
-        return [upscale(img, layers, cfg["num_rrdb"], cfg["num_upsample"], cfg["tilesize"], cfg["prepadding"],
-                        ctx.devices[0], quant=fp8) for img in images]
+        return [upscale(img, net, cfg["scale"], cfg["tilesize"], cfg["prepadding"], ctx.devices[0]) for img in images]
 
 
-CONTROLS = {"program_bf16": _program_bf16, "reference_fp8": _reference_fp8}
+CONTROLS = {"program_bf16": _program_bf16, "reference_low": _reference_low}
 # the control whose readings set the upper ends of the limits; the
 # program's bf16 storage reads like the program itself by every number
 # (PERF.md, the limits' readings)
-CONTROL = "reference_fp8"
+CONTROL = "reference_low"
 
 
 def main(argv=None) -> int:

@@ -31,7 +31,7 @@ def make_root(tmp, mesh: bool = False) -> str:
 
     tmp = str(tmp)
     root = os.path.join(tmp, "benchmark")
-    for d in ("configs", "traffic", "limits", "drivers", "metrics"):
+    for d in ("arch", "configs", "traffic", "limits", "drivers", "metrics"):
         shutil.copytree(os.path.join(BENCH, d), os.path.join(root, d))
     with open(os.path.join(root, "configs", "tiny.param"), "w") as f:
         f.write(make_rrdbnet_param_text(RRDBNetSpec(**TINY)))

@@ -106,7 +106,7 @@ def test_the_controls_run_in_the_programs_place(tmp_path, cpu_run):
 def test_the_reference_leaves_the_tf32_settings_as_it_found_them():
     import torch
 
-    from benchmark.reference.rrdbnet import no_tf32
+    from benchmark.reference.precision import no_tf32
 
     before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True

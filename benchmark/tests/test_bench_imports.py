@@ -39,8 +39,12 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for p in _sources(os.path.join(BENCH, "reference")):
-        assert not _imports(p) & {"realsr_tpu_torch", "realsr_tpu"}, p
+    """Neither the reference nor the architectures' modules, whose ``net``
+    is the reference's forward and whose weights and model files both sides
+    take."""
+    for top in ("reference", "arch"):
+        for p in _sources(os.path.join(BENCH, top)):
+            assert not _imports(p) & {"realsr_tpu_torch", "realsr_tpu"}, p
 
 
 def _loaded_after(code: str) -> set:
@@ -51,7 +55,10 @@ def _loaded_after(code: str) -> set:
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    loaded = _loaded_after("import benchmark.reference.tiling, benchmark.reference.rrdbnet")
+    loaded = _loaded_after("import os, benchmark.reference.tiling, benchmark.reference.rrdbnet\n"
+                           "from benchmark import run\n"
+                           "for f in os.listdir(os.path.join(run.BENCH, 'arch')):\n"
+                           "    run._module(run.BENCH, 'arch', f[:-3]) if f.endswith('.py') else None\n")
     assert "torch" in loaded and not loaded & (FORBIDDEN | {"realsr_tpu_torch"})
 
 

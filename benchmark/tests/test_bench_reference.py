@@ -8,49 +8,54 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.ncnn import parse_convs, write_bin
-from benchmark.reference.rrdbnet import forward, fp8
+from benchmark import run
+from benchmark.reference.precision import fp8
+from benchmark.reference.rrdbnet import forward
 from benchmark.reference.tiling import cubic_matrix, padded_px, reflect101, tiles, upscale
 from benchmark.traffic import photo
-from benchmark.weights import generator, split, trained_weights
-from conftest import TINY
+from benchmark.weights import generator, split
+from conftest import BENCH, TINY
 
 
 @pytest.fixture(scope="module")
 def tiny_model(tmp_path_factory):
+    """(param, bin, the arch's cfg and weights) of a tiny RRDBNet, through
+    ``arch/rrdbnet.py`` as a run makes them."""
     from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
     from realsr_tpu_torch.ncnn.synth import make_rrdbnet_param_text
 
     d = tmp_path_factory.mktemp("model")
-    param = d / "x4.param"
-    param.write_text(make_rrdbnet_param_text(RRDBNetSpec(**TINY)))
-    convs = parse_convs(param.read_text())
-    w, b = trained_weights(convs, 5, torch.device("cpu"), TINY["num_rrdb"])
-    write_bin(str(d / "x4.bin"), convs, w.numpy(), b.numpy())
-    return str(param), str(d / "x4.bin"), split(convs, w, b)
+    (d / "x4.param").write_text(make_rrdbnet_param_text(RRDBNetSpec(**TINY)))
+    cfg = {"param": "x4.param", **TINY, "num_upsample": 2}
+    arch = run.arch_of(BENCH, cfg)
+    cfg.update(arch.describe(cfg, str(d)))
+    weights = arch.weights(cfg, 5, torch.device("cpu"))
+    param, bin_ = arch.model_files(cfg, weights, str(d))
+    return param, bin_, arch, cfg, weights
 
 
 @pytest.mark.parametrize("shape", [(40, 72, 3), (37, 50, 4), (1, 33, 3)])
 def test_reference_matches_the_float32_engine(tiny_model, shape):
     from realsr_tpu_torch.engine import EngineConfig, RealSR
 
-    param, bin_, layers = tiny_model
+    param, bin_, arch, cfg, weights = tiny_model
     h, w, c = shape
     img = photo(generator(11, 2, torch.device("cpu")), h, w, c, torch.device("cpu")).numpy()
     eng = RealSR(gpuid=-1, config=EngineConfig(tilesize=32, prepadding=10, storage="float32"))
     eng.load(param, bin_)
     got = eng.process(img)
-    want = upscale(img, layers, TINY["num_rrdb"], 2, 32, 10, torch.device("cpu"))
+    want = upscale(img, arch.net(cfg, weights), cfg["scale"], 32, 10, torch.device("cpu"))
     assert got.shape == want.shape == (4 * h, 4 * w, c)
     d = np.abs(got.astype(int) - want.astype(int))
     assert d.max() <= 1 and np.mean(d == 0) >= 0.999
 
 
 def test_the_fp8_control_reads_far_worse(tiny_model):
-    _, _, layers = tiny_model
+    _, _, arch, cfg, weights = tiny_model
+    assert arch.QUANT is fp8
     img = photo(generator(12, 2, torch.device("cpu")), 40, 40, 3, torch.device("cpu")).numpy()
-    exact = upscale(img, layers, TINY["num_rrdb"], 2, 32, 10, torch.device("cpu"))
-    low = upscale(img, layers, TINY["num_rrdb"], 2, 32, 10, torch.device("cpu"), quant=fp8)
+    exact = upscale(img, arch.net(cfg, weights), 4, 32, 10, torch.device("cpu"))
+    low = upscale(img, arch.net(cfg, weights, quant=fp8), 4, 32, 10, torch.device("cpu"))
     assert np.abs(low.astype(int) - exact.astype(int)).max() >= 4
 
 
@@ -87,6 +92,7 @@ def test_cubic_matrix_is_ncnns_bicubic():
 
 
 def test_forward_checks_the_layer_count(tiny_model):
-    _, _, layers = tiny_model
+    _, _, _, cfg, weights = tiny_model
+    layers = split(cfg["convs"], *weights)
     with pytest.raises(ValueError):
         forward(torch.zeros(1, 3, 8, 8), layers[:-1], TINY["num_rrdb"], 2)

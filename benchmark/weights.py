@@ -57,7 +57,16 @@ def trained_weights(convs: list, seed: int, device, num_rrdb: int) -> tuple:
     biases = torch.randn(n_f, generator=g, device=device).mul_(0.005)
     couts = torch.tensor([c.cout for c in convs], device=device)
     layer = torch.repeat_interleave(torch.arange(len(convs), device=device), couts)
-    msq = torch.zeros(len(convs), device=device).index_add_(0, layer, fnorm * fnorm) / couts
+    # each conv's sum of squared filter norms, added filter by filter in
+    # order on any device: index_add_ on a card adds with atomics, in an
+    # order (and so to last bits) that changes from run to run
+    position = torch.arange(n_f, device=device) - torch.repeat_interleave(torch.cumsum(couts, 0) - couts, couts)
+    sq = torch.zeros(len(convs), int(couts.max()), device=device)
+    sq[layer, position] = fnorm * fnorm
+    total = torch.zeros(len(convs), device=device)
+    for column in sq.unbind(1):
+        total += column
+    msq = total / couts
     fan_in = torch.tensor([float(c.cin * c.kh * c.kw) for c in convs], device=device)
     gain = torch.ones(len(convs), device=device)
     gain[1 + 15 * num_rrdb] = TRUNK_GROWTH**-num_rrdb
