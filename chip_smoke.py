@@ -151,7 +151,24 @@ Phases (each prints its lines; any failure exits non-zero):
    the peak memory reserved; (e) ``REALSR_TPU_PROFILE`` on the CLI in a
    subprocess: one Chrome trace naming K1's and K6's kernels; (f) on a
    host with two cards, a mesh of both (``mesh_cards_main`` runs it
-   alone), else a line saying it is left out.
+   alone), else a line saying it is left out;
+14. Real-SwinIR-L x4 at its published widths (``slice14``; ``swin_main``
+   runs it alone): (a) K8 at the cell's chunk (4 x 280², width 240, 8
+   heads), unshifted and shifted, against its plain version on K8's bf16
+   bias (``SWIN_ATTN_TOL``), two runs bit-equal, beside the plain version
+   on the float32 bias (K8's departure) and plain versions with the bias,
+   the mask or the shift left out, which must fail the tolerance; (b) K9 in
+   each mode (add + norm, the patch embed's two norms, add, norm) over the
+   chunk's tokens: the residual exact, the output within one bf16 step on
+   at most ``SWIN_NORM_SHARE`` of the values, which a LayerNorm with the
+   unbiased variance or a sum without its branch fails; both timed beside
+   their bounds; (c) the default engine on the cell's 1024 x 768 photo
+   (``init_state`` weights, conv_last x 128): three runs bit-equal, the
+   launches run on the card per chunk (54 K8, 119 K9, one K6, no K1), ms a
+   photo; then the same engine's tiling around the float32 plain forward
+   and the plain mixed forms (float32 bias; bf16 bias), eagerly: u8 rmse
+   and max of each pair, the kernels within ``PSNR_SLACK`` of the plain
+   mixed forms' PSNR against float32 and within the cell's limits.
 
 Every card engine runs a key's first chunk eagerly, its second through the
 capture of the key's graph (the warm-up computes the chunk; the kernel
@@ -177,7 +194,9 @@ instances, tf32 with three products per MAC, and the bytes over its memory
 rate); for the float32 instances ``library_ms`` is the cuDNN route's time
 for the same work (the plain RDB's convs; the interleaved tail's convs),
 for K6 and K7 that of the interleaved tail's convs with bf16 operands, for
-K1, K3-K5 and K2 that of cuDNN's bf16 convs (phase 3).
+K1, K3-K5 and K2 that of cuDNN's bf16 convs (phase 3); K8 and K9 (phase
+14, no TPU kernel) give their launches in 14c's engine runs and their
+times at the cell's chunk.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 or of the JAX package.
 """
@@ -238,6 +257,22 @@ TAILS = ("interleaved", "packed", "kernel_hr", "kernel")  # models.rrdbnet.TAIL_
 TAIL_SHAPES = ((B, SIDE, SIDE), (2, 37, 21), (9, 37, 37))
 # phase 3c, K4 and K5: the main path's chunk and a ragged one
 MODE_SHAPES = ((B, SIDE, SIDE), (2, 37, 21))
+# phase 14, Real-SwinIR-L x4 (models/swinir.py) at its published settings
+SWIN_SPEC: dict = {}
+SWIN_CHUNK = (4, 280, 280)  # the cell's chunk: 4 tiles of 256 + 2 x 10 halo, padded to whole windows
+SWIN_HW = (768, 1024)  # the cell's photo: 12 tiles of 256, 3 chunks of 4
+SWIN_SEED = 21
+SWIN_LAST_GAIN = 128.0  # benchmark/arch/swinir.py's: the output spreads over the u8 range, under 1 % clipped
+# K8 vs its plain version on the same bf16 bias: max|diff| / max(1, max|plain|).
+# The output is rounded to bf16 (2^-8 relative), and exp and the order of the
+# sums differ; a bias, mask or shift left out reads tens of times more
+SWIN_ATTN_TOL = 1e-2
+# K9's bf16 output vs its plain version's: at most one bf16 step apart (the
+# two float32 results round apart where they straddle a boundary), on at most
+# this share of the values; a LayerNorm with the unbiased variance (0.2 %
+# larger at width 240) moves far more of them
+SWIN_NORM_SHARE = 0.01
+SWIN_CELL_LIMITS = os.path.join(ROOT, "benchmark", "limits", "swinir-l-x4.photo-1024x768.json")
 # the trunk's alternative modes: engine config, the rrdbnet module flag or
 # REALSR_TPU_SCHED value that selects it through the CLI, its launch count
 MODES = {
@@ -544,14 +579,15 @@ def counting(base, rk, tk):
     return Counting
 
 
-def executed(rk, tk) -> dict:
-    """{wrapper: launches} run on the card since zero_counts: the wrappers'
-    counts (eager chunks, and each capture's warm-up, which computes a
-    chunk, and its recording) less the recordings' plus what the replays
-    ran. Phase 11b holds one replay's kernel rows to its recording's count
-    with torch.profiler."""
+def executed(*mods) -> dict:
+    """{wrapper: launches} of the kernel modules ``mods`` run on the card
+    since zero_counts: the wrappers' counts (eager chunks, and each
+    capture's warm-up, which computes a chunk, and its recording) less the
+    recordings' plus what the replays ran. Phase 11b holds one replay's
+    kernel rows to its recording's count with torch.profiler."""
     rec, rep = GRAPH_COUNTS["recorded"], GRAPH_COUNTS["replayed"]
-    return {k: n - rec.get(k, 0) + rep.get(k, 0) for k, n in {**rk.LAUNCHES, **tk.LAUNCHES}.items()}
+    counts = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
+    return {k: n - rec.get(k, 0) + rep.get(k, 0) for k, n in counts.items()}
 
 
 def run_cli(cli, rk, tk, args, env=None, flag=None):
@@ -702,10 +738,10 @@ def profile_image(eng, img: np.ndarray) -> tuple:
 
 
 
-def zero_counts(rk, tk) -> None:
-    for counts in (rk.LAUNCHES, tk.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+def zero_counts(*mods) -> None:
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
     GRAPH_COUNTS.update(recorded={}, replayed={}, captures=0, replays=0, capture_s=0.0)
 
 
@@ -2383,6 +2419,235 @@ def slice10_bridge(mparam, mbin, work, card, auto_engine, kern32_auto) -> None:
           flush=True)
 
 
+def bf16_steps(got: torch.Tensor, want: torch.Tensor, floor: float = 2.0 ** -8) -> tuple:
+    """(largest |got - want| in bf16 steps of each value of ``want``, share
+    of the values that differ). Values under ``floor`` in magnitude count
+    in steps of ``floor``: there two float32 results that differ in their
+    last bits, as sums in another order do, lie many of their own bf16
+    steps apart."""
+    g, w = got.float(), want.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(floor))) - 7)
+    return ((g - w).abs() / step).max().item(), (g != w).float().mean().item()
+
+
+def u8_gaps(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(rmse, max |a - b|) of two u8 images, as the benchmark's check reads
+    them."""
+    d = a.astype(np.int64) - b.astype(np.int64)
+    return float(np.sqrt((d * d).mean())), int(np.abs(d).max())
+
+
+def slice14(rk, tk, sk, work: str, card: str, dev=None) -> list:
+    """Phase 14, Real-SwinIR-L x4 at its published widths: K8 and K9 against
+    their plain versions on card tensors at the cell's chunk, with the
+    tolerances shown to fail wrong versions, timed beside their bounds;
+    the default engine on the cell's photo, launches per chunk counted on
+    the card, against the float32 plain forward and the plain mixed forms
+    through the same engine. Returns the kernels line's rows of K8 and K9.
+    ``dev`` (cuda:0) may be the CPU for a rehearsal with stand-ins."""
+    from realsr_tpu_torch.engine import RealSR, _to_device
+    from realsr_tpu_torch.models import swinir as S
+    from realsr_tpu_torch.models.rrdbnet import tf32
+
+    dev = dev or torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SWIN_SEED)
+    b_, h_, w_ = SWIN_CHUNK
+    heads, c = 8, 240
+    tokens = b_ * h_ * w_
+
+    # -- 14a. K8 at the cell's chunk, unshifted and shifted ---------------
+    qkv = (torch.randn(b_, h_, w_, 3 * c, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    bias = sk.attention_bias(torch.randn(225, heads, generator=torch.Generator().manual_seed(SWIN_SEED)), 8).to(dev)
+    packed = sk.pack_bias(bias).to(dev)
+    bias_bf16 = bias.to(torch.bfloat16).float()  # the bias as K8 adds it
+    attn = {}
+    with tf32(False):
+        for shift in (0, 4):
+            got = sk.window_attn(qkv, bias, packed, heads, 8, shift)
+            want = sk.window_attn_plain(qkv, bias_bf16, heads, 8, shift)
+            rel = rel_err(got, want)[1]
+            check(rel <= SWIN_ATTN_TOL, f"K8 shift {shift}: rel {rel:.3e} > {SWIN_ATTN_TOL}")
+            check(torch.equal(got, sk.window_attn(qkv, bias, packed, heads, 8, shift)), f"K8 shift {shift}: two runs differ")
+            # the bias as the model holds it (float32): the departure of K8's bf16 bias
+            rel32 = rel_err(got, sk.window_attn_plain(qkv, bias, heads, 8, shift))[1]
+            wrong = {"no bias": sk.window_attn_plain(qkv, torch.zeros_like(bias), heads, 8, shift)}
+            if shift:
+                rolled = torch.roll(qkv, (-shift, -shift), (1, 2))
+                wrong["no mask"] = torch.roll(sk.window_attn_plain(rolled, bias_bf16, heads, 8, 0), (shift, shift), (1, 2))
+                wrong["no shift"] = sk.window_attn_plain(qkv, bias_bf16, heads, 8, 0)
+            else:
+                wrong["shifted"] = sk.window_attn_plain(qkv, bias_bf16, heads, 8, 4)
+            wrong = {k: rel_err(v, want)[1] for k, v in wrong.items()}
+            check(all(r > SWIN_ATTN_TOL for r in wrong.values()), f"K8 shift {shift}: a wrong plain version passes: {wrong}")
+            share = bf16_steps(got, want)[1]
+            ms = cuda_ms(lambda: sk.window_attn(qkv, bias, packed, heads, 8, shift), 2, 10)
+            pms = cuda_ms(lambda: sk.window_attn_plain(qkv, bias, heads, 8, shift), 1, 3)
+            b_ms, b_by = bound(tokens * 2 * 64 * c, nbytes(qkv, got, packed))
+            attn[shift] = {"err": rel_err(got, want)[0], "rel": rel, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                           "bound_by": b_by}
+            print(f"K8 window_attn {b_}x{h_}x{w_} C={c} shift {shift}: rel {rel:.3e} (<= {SWIN_ATTN_TOL}) vs plain on "
+                  f"K8's bf16 bias ({100 * share:.2f} % of values differ); "
+                  f"rel {rel32:.3e} vs plain on the float32 bias; wrong versions read "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in wrong.items())
+                  + f"; kernel {ms:.3f} ms, plain {pms:.3f} ms (float32 bias), bound {b_ms:.3f} ms ({b_by}, "
+                  f"{100 * b_ms / ms:.1f} %) {card}", flush=True)
+    del qkv, got, want, rolled
+
+    # -- 14b. K9 in each of its modes over the chunk's tokens -------------
+    x = torch.randn(tokens, c, generator=g, device=dev) * 3 + 1
+    branch = torch.randn(tokens, c, generator=g, device=dev).to(torch.bfloat16)
+    lw, lb, pw, pb = (1 + 0.1 * torch.randn(c, generator=g, device=dev) for _ in range(4))
+    norm = {}
+    for mode, args, kw in (("add_norm", (x, branch, lw, lb), {}), ("embed", (x, None, lw, lb), {"pre": (pw, pb)}),
+                           ("add", (x, branch, None, None), {}), ("norm", (x, None, lw, lb), {"write_res": False})):
+        res, out = sk.swin_norm(*args, **kw)
+        want_res, want = sk.swin_norm_plain(*args, **kw)
+        check((res is None) == (want_res is None), f"K9 {mode}: residual written where the plain one is not")
+        if res is not None:
+            d = (res - want_res).abs().max().item()
+            check(d <= (1e-5 if mode == "embed" else 0), f"K9 {mode}: residual off by {d:.3e}")
+        steps, share = bf16_steps(out, want)
+        check(steps <= 1 and share <= SWIN_NORM_SHARE,
+              f"K9 {mode}: {steps:.2f} bf16 steps, {100 * share:.2f} % of values differ")
+        if args[2] is None:  # the sum itself: its branch left out
+            wrong = {"no branch": x}
+        else:  # the LayerNorm with the unbiased variance
+            s32 = x if args[1] is None else x + branch.float()
+            if "pre" in kw:
+                s32 = torch.nn.functional.layer_norm(s32, (c,), pw, pb, sk.LN_EPS)
+            m, v = s32.mean(-1, keepdim=True), s32.var(-1, keepdim=True, unbiased=True)
+            wrong = {"unbiased variance": (s32 - m) / torch.sqrt(v + sk.LN_EPS) * lw + lb}
+        wrong = {k: bf16_steps(v.to(torch.bfloat16), want)[1] for k, v in wrong.items()}
+        check(all(r > SWIN_NORM_SHARE for r in wrong.values()), f"K9 {mode}: a wrong plain version passes: {wrong}")
+        ms = cuda_ms(lambda: sk.swin_norm(*args, **kw), 2, 10)
+        pms = cuda_ms(lambda: sk.swin_norm_plain(*args, **kw), 1, 3)
+        b_ms, b_by = bound(0, nbytes(*(t for t in (x, args[1], res, out) if t is not None)))
+        norm[mode] = {"err": (out.float() - want.float()).abs().max().item(), "ms": ms, "plain_ms": pms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+        print(f"K9 swin_norm {mode} {tokens} x {c}: {steps:.0f} bf16 step at most, {100 * share:.3f} % of values "
+              f"differ (<= {100 * SWIN_NORM_SHARE} %); wrong versions differ on "
+              + ", ".join(f"{k} {100 * v:.1f} %" for k, v in wrong.items())
+              + f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms:.3f} ms ({b_by}, {100 * b_ms / ms:.1f} %) "
+              f"{card}", flush=True)
+    del x, branch, res, out, want_res, want
+
+    # -- 14c. the default engine on the cell's photo ----------------------
+    spec = S.SwinIRSpec(**SWIN_SPEC)
+    sd = S.init_state(spec, SWIN_SEED, last_gain=SWIN_LAST_GAIN)
+    files = S.save_model(os.path.join(work, "swinir"), spec, sd)
+    eng = RealSR(gpuid=0 if dev.type == "cuda" else -1)
+    eng.load(*files)
+    check(eng.graphs and eng.bundle.tail == "kernel" and set(eng.kernel_groups()) == {sk.BUILD, ("tail_kernel", "k6")},
+          f"SwinIR engine: graphs {eng.graphs}, tail {eng.bundle.tail}, groups {eng.kernel_groups()}")
+    img = natural_image(np.random.default_rng(SWIN_SEED), *SWIN_HW)
+    zero_counts(rk, tk, sk)
+    outs = [eng.process(img) for _ in range(3)]
+    wrapped = dict(sk.LAUNCHES, up2_hr_last_packed=tk.LAUNCHES["up2_hr_last_packed"])
+    ran = executed(rk, tk, sk)
+    chunks = 3 * chunk_counts(eng, {"photo": img})[0]
+    layers = sum(spec.depths)
+    per_chunk = {"window_attn": layers, "swin_norm": 2 * layers + len(spec.depths) + 2, "up2_hr_last_packed": 1}
+    got_runs = {k: ran[k] for k in per_chunk}
+    check(got_runs == {k: v * chunks for k, v in per_chunk.items()} and ran["rdb_apply"] == 0,
+          f"SwinIR engine: {got_runs} launches ran for {chunks} chunks, {per_chunk} a chunk expected")
+    check(all(np.array_equal(o, outs[0]) for o in outs), "SwinIR engine: three runs of one photo differ")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.process(img)
+    photo_ms = 1e3 * (time.perf_counter() - t0) / 3
+    print(f"SwinIR engine (default config, tile {eng.last_tilesize}): {chunks} chunks over 3 runs of a "
+          f"{SWIN_HW[1]}x{SWIN_HW[0]} photo ran " + ", ".join(f"{k} {v}" for k, v in got_runs.items())
+          + f" ({per_chunk} a chunk; the wrappers counted {wrapped}); {photo_ms:.1f} ms a photo, "
+          f"{16 * SWIN_HW[0] * SWIN_HW[1] / 1e3 / photo_ms:.2f} output MP/s {card}", flush=True)
+
+    # the same engine's tiling and rounding around other forwards, eagerly
+    p32 = _to_device(S.params_from_state(sd, spec, torch.float32, False), dev)
+    pm = eng._params
+    pm_bf16 = {**pm, "blocks": {**pm["blocks"], "attn_bias": pm["blocks"]["attn_bias"].to(torch.bfloat16).float()}}
+
+    def f32(_, t):
+        with tf32(False):
+            return S.swinir_forward(p32, t, spec, torch.float32, torch.float32, False, "interleaved")
+
+    def through(fwd):
+        kept = eng.bundle.forward
+        eng.bundle.forward = fwd
+        try:
+            return eagerly(eng, lambda: eng.process(img))
+        finally:
+            eng.bundle.forward = kept
+
+    ref = through(f32)
+    forms = (spec, eng.storage_dtype, eng.op_dtype, False, eng.bundle.tail)  # the engine's, kernels off
+    plain = through(lambda _, t: S.swinir_forward(pm, t, *forms))
+    plain_b = through(lambda _, t: S.swinir_forward(pm_bf16, t, *forms))
+    with open(SWIN_CELL_LIMITS) as f:
+        limits = json.load(f)
+    gaps = {"kernels vs float32": u8_gaps(outs[0], ref), "plain mixed vs float32": u8_gaps(plain, ref),
+            "plain mixed, bf16 bias vs float32": u8_gaps(plain_b, ref),
+            "kernels vs plain mixed": u8_gaps(outs[0], plain), "kernels vs plain mixed, bf16 bias": u8_gaps(outs[0], plain_b)}
+    k_db, p_db = psnr(outs[0], ref), psnr(plain, ref)
+    clipped = float(np.mean((ref == 0) | (ref == 255)))
+    check(k_db >= p_db - PSNR_SLACK, f"SwinIR kernels {k_db:.2f} dB vs float32, plain mixed {p_db:.2f} dB")
+    rmse, widest = gaps["kernels vs float32"]
+    check(rmse <= limits["rmse_u8"]["limit"] and widest <= limits["max_abs_u8"]["limit"],
+          f"SwinIR kernels vs float32: rmse {rmse:.3f}, max {widest} above the cell's limits {limits}")
+    print(json.dumps({"phase": "14c", "u8 (rmse, max_abs)": gaps, "psnr_db": {"kernels": k_db, "plain mixed": p_db},
+                      "float32 clipped_pct": 100 * clipped, "cell_limits": {k: v["limit"] for k, v in limits.items()},
+                      "card": card}), flush=True)
+    del eng, p32, pm, pm_bf16
+    torch.cuda.empty_cache()
+
+    rows = []
+    for key, kname, n, rec in (
+        ("K8", "window_attn (window_attn_kernel<8, 30>: mma.sync, a window and 4 heads a block)", "window_attn",
+         attn[0]),
+        ("K9", "swin_norm (swin_norm_kernel<240>: a warp a token, residual add + LayerNorm)", "swin_norm",
+         norm["add_norm"]),
+    ):
+        rows.append({
+            "name": f"{key} {kname}", "route": "cuda", "source": "realsr_tpu_torch/csrc/swin_kernel.cu",
+            "replaces": None, "launches": wrapped[n], "launches_replayed": ran[n], "max_abs_err": rec["err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "checked_against_plain": True,
+            "at": f"{b_} x {h_} x {w_}, width {c}",
+        })
+    rows[0]["shifted"] = attn[4]
+    rows[1]["modes"] = norm
+    return rows
+
+
+def swin_main() -> int:
+    """Phase 14 alone: ``python3 -c 'import chip_smoke, sys;
+    sys.exit(chip_smoke.swin_main())'`` (builds the Swin and K6 groups
+    first)."""
+    from realsr_tpu_torch import engine as engine_mod
+    from realsr_tpu_torch.ops import build
+    from realsr_tpu_torch.ops import rdb_kernel as rk
+    from realsr_tpu_torch.ops import swin_kernel as sk
+    from realsr_tpu_torch.ops import tail_kernel as tk
+
+    thread_counts(rk, tk, sk)
+    engine_mod._CudaGraph = counting(engine_mod._CudaGraph, rk, tk)
+    os.environ.pop("REALSR_TPU_PACKED_TAIL", None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = f"[{smi}]"
+    build.load_groups([sk.BUILD, ("tail_kernel", "k6")])
+    rows = ptxas_rows(build.BUILD_LOG.get(sk.BUILD) or "")
+    check(all(st == 0 and ld == 0 for _, _, st, ld in rows), f"swin_kernel.cu spills: {rows}")
+    print("ptxas swin_kernel.cu [swin]: " + "; ".join(f"{lab} {regs} registers, spills {st}/{ld} B"
+                                                     for lab, regs, st, ld in rows), flush=True)
+    work = tempfile.mkdtemp(prefix="realsr_swin_")
+    try:
+        rows = slice14(rk, tk, sk, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -2395,7 +2660,9 @@ def main() -> int:
     from realsr_tpu_torch.ops import tail_kernel as tk
 
     # every engine's graphs count their launches and replays for the smoke
-    thread_counts(rk, tk)
+    from realsr_tpu_torch.ops import swin_kernel as sk
+
+    thread_counts(rk, tk, sk)
     engine_mod._CudaGraph = counting(engine_mod._CudaGraph, rk, tk)
     # the default run: the engines' own choice of tail
     os.environ.pop("REALSR_TPU_PACKED_TAIL", None)
@@ -3313,6 +3580,11 @@ def main() -> int:
         t13 = time.perf_counter()
         slice13(rk, tk, mparam, mbin, card, auto_engine, engine, big_band)
         print(f"phase 13: {time.perf_counter() - t13:.1f} s {card}", flush=True)
+
+        # -- 14. Real-SwinIR-L x4: K8, K9 and its engine ---------------------
+        t14 = time.perf_counter()
+        swin_rows = slice14(rk, tk, sk, work, card)
+        print(f"phase 14: {time.perf_counter() - t14:.1f} s {card}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3381,6 +3653,9 @@ def main() -> int:
             # phase 8a: the chunk shapes of tiles 192 and 256
             kernels[-1]["at_new_shapes"] = {shape: rows[key] for shape, rows in new_shapes.items()}
         check(n > 0 and wrapped[key] > 0, f"{key}: no launch on the main path")
+    # K8 and K9 (no TPU kernel: the JAX package has no transformer), with
+    # their launches in phase 14c's engine runs
+    kernels += swin_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

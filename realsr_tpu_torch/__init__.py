@@ -6,7 +6,10 @@ halo-padded tiles with reflect-101 borders, uint8 rounding, bicubic alpha)
 with PyTorch, and runs the RRDB trunk and the tail after it on hand-written
 CUDA kernels for ``sm_90a`` (``csrc/rdb_wgmma.cu``, ``csrc/rdb_tf32.cu``,
 ``csrc/rdb_modes_wgmma.cu``, ``csrc/rdb_modes_tf32.cu``,
-``csrc/tail_kernel.cu``, ``csrc/tail_tf32.cu``), built with nvcc at first
+``csrc/tail_kernel.cu``, ``csrc/tail_tf32.cu``). It also runs Real-SwinIR
+(a ``.json`` of its settings and a ``.pth`` state dict), whose window
+attention and residual LayerNorms have kernels of their own
+(``csrc/swin_kernel.cu``) and whose tail is RRDBNet's. The kernels are built with nvcc at first
 use in groups of instances into a cache scoped by the host's fingerprint
 (``ops/build.py``); ``python -m realsr_tpu_torch.seed_cache`` ships them to
 hosts without nvcc. It imports no JAX.

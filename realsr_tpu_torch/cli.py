@@ -239,14 +239,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         input_files = input_files[shard::num_shards]
         output_files = output_files[shard::num_shards]
 
-    # prepadding from model dir name (main.cpp:661-672)
+    from realsr_tpu_torch.modelzoo import resolve_model_files
+
+    # prepadding from model dir name (main.cpp:661-672); a SwinIR model's
+    # dir (x4.json + x4.pth, any name) takes the same halo
     if "models-DF2K" in model:
+        prepadding = 10
+    elif (resolve_model_files(model, scale, auto_synth=False) or ("",))[0].endswith(".json"):
         prepadding = 10
     else:
         print("unknown model dir type", file=sys.stderr)
         return -1
-
-    from realsr_tpu_torch.modelzoo import resolve_model_files
 
     resolved = resolve_model_files(model, scale)
     if resolved is None:

@@ -65,14 +65,13 @@ import torch
 
 from realsr_tpu_torch.tiling.planner import CPU_TILESIZE, _anchors, anchor_provenance_notice, chunk_plan, pick_tilesize, plan_tiles
 from realsr_tpu_torch.utils.trace import maybe_start_profiler, tracer
-from realsr_tpu_torch.loader import ModelBundle, load_model
+from realsr_tpu_torch.loader import ModelBundle, load_model, rrdb_tile_bytes
 from realsr_tpu_torch.models import rrdbnet as R
+from realsr_tpu_torch.models.swinir import SwinIRSpec
 from realsr_tpu_torch.models.rrdbnet import SCHEDS, TAIL_MODES, tf32
 from realsr_tpu_torch.ops import build
 from realsr_tpu_torch.ops.pad import reflect101_indices, reflect101_pad2d, reflect101_pad_w
-from realsr_tpu_torch.ops.rdb_kernel import rdb_group
 from realsr_tpu_torch.ops.resize import resize_bicubic
-from realsr_tpu_torch.ops.tail_kernel import tail_group
 from realsr_tpu_torch.ops.tta import NUM_TRANSFORMS, d4_inverse, d4_transform
 
 # one-shot operator notices (the planner anchors' provenance): printed at
@@ -220,13 +219,19 @@ def _auto_batch(
     budget_bytes: int = 2048 * 1024 * 1024,
     nf: int = 64,
     dsize: int = 2,
+    prepadding: int = 10,
 ) -> int:
-    """Tiles per chunk: at most 8, fewer when the tail's nf-channel
-    activations at 16x the padded tile area would exceed the budget; TTA
-    runs 8 variants of each tile, so it divides the batch by 8."""
-    px = (tilesize + 20) ** 2
-    per_tile = 16 * px * nf * dsize
-    b = max(1, min(8, budget_bytes // per_tile))
+    """Tiles per chunk of an RRDBNet (and the generic executor's graphs):
+    :func:`_batch_for` RRDBNet's tile bytes, the tail's nf-channel
+    activations at 16x the padded tile area."""
+    return _batch_for(rrdb_tile_bytes(nf, tilesize + 2 * prepadding, dsize), tta, budget_bytes)
+
+
+def _batch_for(tile_bytes: int, tta: bool, budget_bytes: int) -> int:
+    """Tiles per chunk: at most 8, fewer when ``tile_bytes`` a tile would
+    exceed the budget; TTA runs 8 variants of each tile, so it divides the
+    batch by 8."""
+    b = max(1, min(8, budget_bytes // tile_bytes))
     return max(1, b // 8) if tta else b
 
 
@@ -241,25 +246,6 @@ def _to_device(tree, device: torch.device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
-
-
-def kernel_groups(variant, trunk, sched, tail, op_dtype, storage_dtype, nf: int = 64) -> tuple:
-    """The (source, group) libraries (``ops/build.py::GROUPS``) whose
-    kernels a forward of this resolved form launches: the trunk's (K1/K2,
-    or the mode kernels K3-K5) at the state type and width, and the kernel
-    tail's form (K6 or K7), in the operand type's instance (3xTF32 for
-    float32)."""
-    f32 = op_dtype == torch.float32
-    out = []
-    if variant == "cuda":
-        group = rdb_group(torch.float32 if f32 else storage_dtype, nf)
-        if trunk == "per_rdb" and sched == "scatter":
-            out.append(("rdb_tf32" if f32 else "rdb_wgmma", group))
-        else:
-            out.append(("rdb_modes_tf32" if f32 else "rdb_modes_wgmma", group))
-    if tail in ("kernel", "kernel_hr"):
-        out.append(("tail_tf32" if f32 else "tail_kernel", tail_group(tail == "kernel")))
-    return tuple(out)
 
 
 def _on_card(device: torch.device) -> bool:
@@ -295,13 +281,24 @@ def card_kernel_groups(config: EngineConfig, parampath: str, modelpath: str) -> 
     """What :meth:`RealSR.kernel_groups` of an engine of ``config`` loaded
     with this model gives on a card, resolved on any host (the seed tool's
     build host may have no card)."""
-    dtype, op_dtype, variant, trunk, sched, tail = _resolve_forms(config, Device("gpu", torch.device("cuda", 0)))
+    bundle = _load_bundle(config, Device("gpu", torch.device("cuda", 0)), parampath, modelpath)[-1]
+    return _build_set(bundle.groups, config.fast_start and fast_start_env())
+
+
+def _load_bundle(config: EngineConfig, device: Device, parampath: str, modelpath: str) -> tuple:
+    """(storage dtype, operand dtype, variant, trunk, sched, bundle): the
+    model loaded in the forms an engine of ``config`` runs on ``device``. A
+    SwinIR model runs on a card on its kernels alone (variant "cuda", which
+    the loader refuses where K8 / K9 have no instance): another variant
+    there (float16's "dense", or one asked for) raises ``ValueError``."""
+    dtype, op_dtype, variant, trunk, sched, tail = _resolve_forms(config, device)
     bundle = load_model(parampath, modelpath, storage_dtype=dtype, op_dtype=op_dtype,
                         variant=variant, tail=tail, trunk=trunk, sched=sched)
-    if bundle.spec is None:
-        return ()
-    return _build_set(kernel_groups(variant, trunk, sched, bundle.tail, op_dtype, dtype, bundle.spec.nf),
-                      config.fast_start and fast_start_env())
+    if device.platform == "gpu" and variant != "cuda" and isinstance(bundle.spec, SwinIRSpec):
+        raise ValueError(f"{parampath}: a SwinIR model runs on a card on its kernels only (variant 'cuda', "
+                         f"mixed precision), not on variant {variant!r} with {dtype} storage; "
+                         "run it on the CPU (gpuid -1) for the plain forms")
+    return dtype, op_dtype, variant, trunk, sched, bundle
 
 
 def _build_set(launched: tuple, fast_start: bool) -> tuple:
@@ -594,18 +591,19 @@ class RealSR:
         """Parse and load the model files onto the device. Returns 0 like
         the reference (src/realsr.cpp:142). An explicit kernel tail that
         the graph or the operand type has no kernel for raises, as does a
-        trunk form the variant or precision cannot run (``ValueError``). A
+        trunk form the variant or precision cannot run, and a SwinIR model
+        on a card at a precision or width its kernels have no instance for
+        (``ValueError``, :func:`_load_bundle`). A
         graph the RRDBNet matcher rejects runs on the generic executor;
         ``variant``, ``tail``, ``trunk`` and ``sched`` are None then."""
-        dtype, op_dtype, variant, trunk, sched, tail = _resolve_forms(self.config, self.device)
+        dtype, op_dtype, variant, trunk, sched, self.bundle = _load_bundle(self.config, self.device, parampath,
+                                                                           modelpath)
         self.storage_dtype, self.op_dtype = dtype, op_dtype
-        self.bundle = load_model(
-            parampath, modelpath, storage_dtype=dtype, op_dtype=op_dtype,
-            variant=variant, tail=tail, trunk=trunk, sched=sched,
-        )
         self._model_paths = (parampath, modelpath)
         if self.bundle.spec is None:
             variant = trunk = sched = None
+        elif not isinstance(self.bundle.spec, R.RRDBNetSpec):
+            trunk = sched = None  # the RRDB trunk's forms
         self.variant, self.tail, self.trunk, self.sched = variant, self.bundle.tail, trunk, sched
         self.scale = self.bundle.scale
         self._kernels_ready = False  # this model's groups build before its first launch
@@ -631,11 +629,12 @@ class RealSR:
     def graphs(self) -> bool:
         """Whether chunks run through the chunk program table: asked for by
         ``config.cuda_graphs``, on a device :class:`_CudaGraph` supports (a
-        card), with the RRDBNet fast path loaded. The CPU and the generic
-        executor always run eagerly: the executor's layers upload constants
-        on each call, which a capture cannot hold."""
+        card), with a fast path loaded (RRDBNet's or SwinIR's:
+        ``bundle.graphs``). The CPU and the generic executor always run
+        eagerly: the executor's layers upload constants on each call, which
+        a capture cannot hold."""
         return bool(
-            self.config.cuda_graphs and self.bundle is not None and self.bundle.spec is not None
+            self.config.cuda_graphs and self.bundle is not None and self.bundle.graphs
             and _CudaGraph.supports(self.device.torch_device)
         )
 
@@ -652,10 +651,11 @@ class RealSR:
 
     def _auto_batch(self, tilesize: int) -> int:
         """The auto chunk granule at ``tilesize`` for this engine's model
-        (nf 64 where the generic executor runs the graph, as in the JAX
-        engine), storage and band budget."""
-        nf = self.bundle.spec.nf if self.bundle.spec is not None else 64
-        return _auto_batch(tilesize, self.tta_mode, self._band_budget_bytes(), nf, self.storage_dtype.itemsize)
+        (its ``bundle.tile_bytes`` at the tile with the engine's halo; an
+        nf 64 RRDBNet's where the generic executor runs the graph, as in the
+        JAX engine), storage and band budget."""
+        per_tile = self.bundle.tile_bytes(tilesize + 2 * self.prepadding, self.storage_dtype.itemsize)
+        return _batch_for(per_tile, self.tta_mode, self._band_budget_bytes())
 
     def _chunking(self, tilesize: int, n: int) -> tuple:
         """(chunk batch, chunk count) for ``n`` tiles at ``tilesize``:
@@ -808,12 +808,15 @@ class RealSR:
     def _traced_chunk(self, padded, alpha, out, ph: int, pw: int, chunk: list, real: int, c: int) -> None:
         """:meth:`_run_chunk` with tracing on: in a ``dispatch`` span (its
         card, key, real tiles and mode), its tiles counted (``tiles.real``,
-        ``tiles.run``) and its mode (``chunks.<mode>``), and its device time
-        (``chunk.device``) taken on its card's stream from before the gather
-        to after the scatter."""
+        ``tiles.run``, and the model's ``bundle.chunk_counts``) and its mode
+        (``chunks.<mode>``), and its device time (``chunk.device``) taken on
+        its card's stream from before the gather to after the scatter."""
         dev = padded.device
         tracer.count("tiles.real", real)
         tracer.count("tiles.run", len(chunk))
+        if self.bundle.chunk_counts is not None:
+            for name, n in self.bundle.chunk_counts(ph, pw, len(chunk), real, self.prepadding).items():
+                tracer.count(name, n)
         with tracer.span("dispatch", card=str(dev), key=f"{ph}x{pw}x{len(chunk)}", real=real) as sp:
             with tracer.device_timed("chunk.device", dev):
                 mode = self._run_chunk(padded, alpha, out, ph, pw, chunk, c)
@@ -1175,15 +1178,12 @@ class RealSR:
     def kernel_groups(self) -> tuple:
         """The (source, group) libraries this engine builds before its
         first launch on a card: with :attr:`fast_start` the groups its
-        forward launches (:func:`kernel_groups` of its resolved variant,
-        trunk, sched, tail and precision), else every group of those
-        groups' sources."""
+        forward launches (``bundle.groups``: for an RRDBNet
+        :func:`loader.kernel_groups` of its resolved variant, trunk, sched, tail
+        and precision), else every group of those groups' sources."""
         if self.bundle is None:
             raise RuntimeError("call load() first")
-        nf = self.bundle.spec.nf if self.bundle.spec is not None else 0
-        launched = kernel_groups(self.variant, self.trunk, self.sched, self.tail, self.op_dtype,
-                                 self.storage_dtype, nf)
-        return _build_set(launched, self.fast_start)
+        return _build_set(self.bundle.groups, self.fast_start)
 
     def _ensure_kernels(self) -> None:
         """On a CUDA device, load :meth:`kernel_groups` once per model, building

@@ -60,7 +60,8 @@ def _emit_param(parampath: str) -> None:
 def resolve_model_files(
     model: str, scale: int = 4, auto_synth: bool = True
 ) -> Optional[Tuple[str, str]]:
-    """Locate (or materialize) ``<model>/x<scale>.{param,bin}``.
+    """Locate (or materialize) ``<model>/x<scale>.{param,bin}``, or a
+    SwinIR model's ``<model>/x<scale>.{json,pth}``.
 
     Returns (parampath, binpath), or None when the model cannot be found
     — and, for the known DF2K dirs with ``auto_synth``, cannot be
@@ -69,13 +70,17 @@ def resolve_model_files(
     """
     base = os.path.basename(os.path.normpath(model))
     pname, bname = f"x{scale}.param", f"x{scale}.bin"
+    jname, tname = f"x{scale}.json", f"x{scale}.pth"
 
     # first param-bearing dir wins, like the reference's CWD-then-exe-dir
     # resolution (filesystem_utils.h:167-173) — a complete pair further
-    # down the chain never shadows an earlier user-provided graph
+    # down the chain never shadows an earlier user-provided graph; a dir
+    # without a .param but with a SwinIR model's .json and .pth gives those
     incomplete = None
     for d in _candidate_dirs(model):
         if not os.path.isfile(os.path.join(d, pname)):
+            if os.path.isfile(os.path.join(d, jname)) and os.path.isfile(os.path.join(d, tname)):
+                return (os.path.join(d, jname), os.path.join(d, tname))
             continue
         if os.path.isfile(os.path.join(d, bname)):
             return (os.path.join(d, pname), os.path.join(d, bname))

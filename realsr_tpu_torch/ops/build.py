@@ -49,15 +49,17 @@ NVCC_FLAGS = (
 )
 
 # every kernel source of csrc/: K1/K2 (bf16 and float32 operands), K3-K5
-# (bf16; K3 and K5 float32), K6/K7 (bf16 and float32)
-SOURCES = ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "rdb_modes_tf32", "tail_kernel", "tail_tf32")
+# (bf16; K3 and K5 float32), K6/K7 (bf16 and float32), K8/K9 (SwinIR's
+# window attention and residual add + LayerNorm, bf16)
+SOURCES = ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "rdb_modes_tf32", "tail_kernel", "tail_tf32", "swin_kernel")
 
 # a group's name is its parts joined by "_"; each part is one macro of
 # csrc/groups.cuh: the state type and nf/gc of the RDB kernels (the float32
-# operand sources have float32 state only), the tail's form
+# operand sources have float32 state only), the tail's form; the Swin
+# kernels are one group (its macro selects nothing)
 GROUP_MACROS = {
     "f32": "GROUP_F32", "bf16": "GROUP_BF16", "nf64": "GROUP_NF64", "nf32": "GROUP_NF32",
-    "k6": "GROUP_K6", "k7": "GROUP_K7",
+    "k6": "GROUP_K6", "k7": "GROUP_K7", "swin": "GROUP_SWIN",
 }
 _RDB_GROUPS = ("f32_nf64", "f32_nf32", "bf16_nf64", "bf16_nf32")
 _F32_GROUPS = ("f32_nf64", "f32_nf32")
@@ -68,12 +70,13 @@ _TAIL_GROUPS = ("k6", "k7")
 GROUPS = {
     "rdb_wgmma": _RDB_GROUPS, "rdb_tf32": _F32_GROUPS,
     "rdb_modes_wgmma": _RDB_GROUPS, "rdb_modes_tf32": _F32_GROUPS,
-    "tail_kernel": _TAIL_GROUPS, "tail_tf32": _TAIL_GROUPS,
+    "tail_kernel": _TAIL_GROUPS, "tail_tf32": _TAIL_GROUPS, "swin_kernel": ("swin",),
 }
 # each source's instances, as its dispatch functions launch them: the call
 # with {T} the patch side ({TH}, {TW} the tail's patch shape) and {TS},
-# {NF}, {GC}, {UP2} what the group names; the patch sides; the states it
-# exists for (the paired carry: a float32 state as two bf16 planes)
+# {NF}, {GC}, {UP2} what the group names; the patch sides (None: the call
+# as it stands); the states it exists for (the paired carry: a float32
+# state as two bf16 planes)
 _CALLS = {
     "rdb_wgmma": (("launch<{T}, {TS}, {NF}, {GC}>", (17, 12, 8), ("f32", "bf16")),),
     "rdb_tf32": (("launch<{T}, {NF}, {GC}>", (10, 9, 8), ("f32",)),),
@@ -88,6 +91,7 @@ _CALLS = {
     ),
     "tail_kernel": (("launch<{TH}, {TW}, {UP2}, __nv_bfloat16>", ((16, 16), (12, 28)), None),),
     "tail_tf32": (("launch<{TH}, {TW}, {UP2}, float>", ((10, 14), (8, 16)), None),),
+    "swin_kernel": (("launch_window_attn<8, 30>", None, None), ("launch_swin_norm<240>", None, None)),
 }
 _WIDTHS = {"nf64": (64, 32), "nf32": (32, 16)}
 _STATE_TYPES = {"f32": "float", "bf16": "__nv_bfloat16"}
@@ -111,7 +115,9 @@ def instances(name: str, group: str) -> tuple:
     parts = group.split("_")
     out = []
     for call, tiles, states in _CALLS[name]:
-        if states is not None:
+        if tiles is None:
+            out.append(call)
+        elif states is not None:
             if parts[0] not in states:
                 continue
             nf, gc = _WIDTHS[parts[1]]

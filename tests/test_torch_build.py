@@ -194,7 +194,7 @@ def test_each_group_builds_with_exactly_its_defines(nvcc, tmp_path):
             names.add(os.path.basename(path))
             digests.add(build.source_digest(src, g))
     n = sum(len(gs) for gs in build.GROUPS.values())
-    assert len(nvcc.builds) == len(names) == len(digests) == n == 16
+    assert len(nvcc.builds) == len(names) == len(digests) == n == 17
 
 
 def _active(text: str, defined: set) -> str:

@@ -22,6 +22,7 @@ from realsr_tpu.engine import EngineConfig as JaxConfig
 from realsr_tpu.engine import RealSR as JaxRealSR
 from realsr_tpu_torch import cli
 from realsr_tpu_torch import engine as engine_mod
+from realsr_tpu_torch import loader
 from realsr_tpu_torch import native_bridge as nb
 from realsr_tpu_torch.engine import EngineConfig, RealSR
 from realsr_tpu_torch.parallel.mesh import make_mesh
@@ -358,9 +359,9 @@ def test_kernel_sources(storage, trunk, sched, tail, want):
     launches, not of all six: the default mixed engine needs rdb_wgmma and
     tail_kernel (``kernel_groups``, one group of each)."""
     dtype, op = engine_mod._PRECISION[storage]
-    groups = engine_mod.kernel_groups("cuda", trunk, sched, tail, op, dtype)
+    groups = loader.kernel_groups("cuda", trunk, sched, tail, op, dtype)
     assert tuple(src for src, _ in groups) == want
-    assert engine_mod.kernel_groups("dense", "per_rdb", "scatter", "interleaved", op, dtype) == ()
+    assert loader.kernel_groups("dense", "per_rdb", "scatter", "interleaved", op, dtype) == ()
 
 
 @pytest.fixture(scope="module")

@@ -790,3 +790,97 @@ def test_traced_chunks_replay_after_warmup(cuda, tmp_path, traced):
     delta = {k: traced._count[k] - before.get(k, 0) for k in ("chunks.replayed", "chunks.captured", "chunks.eager")}
     n = traced._count["dispatch"] - before["dispatch"]
     assert n > 0 and delta == {"chunks.replayed": n, "chunks.captured": 0, "chunks.eager": 0}
+
+
+# -- SwinIR: K8 window attention, K9 residual add + LayerNorm -----------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W", [(2, 40, 40), (1, 24, 56), (4, 280, 280)])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_window_attn_kernel_matches_plain(cuda, B, H, W, shift):
+    """K8 at width 240 in 8 heads (the main path's 4 x 280^2 among the
+    shapes), shifted and not: within one bf16 step of the outputs' scale of
+    the plain version on the same bf16 bias (exp and the order of the sums
+    differ), and of the plain version on the float32 bias (K8 adds the bias
+    in bf16, like its other operands: 3.7e-3 at 4 x 280^2 with N(0, 1)
+    tables), two runs bit-equal, one launch counted per call."""
+    from realsr_tpu_torch.ops import swin_kernel as SK
+
+    g = torch.Generator().manual_seed(B * H + W + shift)
+    qkv = (torch.randn(B, H, W, 720, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    bias = SK.attention_bias(torch.randn(225, 8, generator=g), 8).to(cuda)
+    packed = SK.pack_bias(bias).to(cuda)
+    launches = SK.LAUNCHES["window_attn"]
+    got = SK.window_attn(qkv, bias, packed, 8, 8, shift)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["window_attn"] == launches + 1
+    want = SK.window_attn_plain(qkv, bias.to(torch.bfloat16).float(), 8, 8, shift)
+    assert got.shape == want.shape == (B, H, W, 240) and got.dtype == torch.bfloat16
+    assert _rel(got, want) <= 1e-2
+    assert _rel(got, SK.window_attn_plain(qkv, bias, 8, 8, shift)) <= 1e-2
+    assert torch.equal(got, SK.window_attn(qkv, bias, packed, 8, 8, shift))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["add_norm", "embed", "add", "norm"])
+def test_swin_norm_kernel_matches_plain(cuda, mode):
+    """K9 at width 240 over a token count that leaves a block part empty:
+    the residual as the plain version's (the f32 sum; after the patch
+    embed's norm within f32 rounding), the bf16 output within one step."""
+    from realsr_tpu_torch.ops import swin_kernel as SK
+
+    g = torch.Generator().manual_seed(len(mode))
+    n, c = 1003, 240
+    x = (torch.randn(n, c, generator=g) * 3 + 1).to(cuda)
+    branch = torch.randn(n, c, generator=g).to(cuda, torch.bfloat16)
+    w, b, pw, pb = ((1 + 0.1 * torch.randn(c, generator=g)).to(cuda) for _ in range(4))
+    args = {"add_norm": (x, branch, w, b), "embed": (x, None, w, b), "add": (x, branch, None, None),
+            "norm": (x, None, w, b)}[mode]
+    kw = {"pre": (pw, pb)} if mode == "embed" else {"write_res": mode != "norm"}
+    launches = SK.LAUNCHES["swin_norm"]
+    res, out = SK.swin_norm(*args, **kw)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["swin_norm"] == launches + 1
+    want_res, want_out = SK.swin_norm_plain(*args, **kw)
+    assert (res is None) == (want_res is None) == (mode == "norm")
+    if res is not None:
+        assert (res - want_res).abs().max().item() <= (1e-5 if mode == "embed" else 0)
+    assert out.dtype == torch.bfloat16 and _rel(out, want_out) <= 2 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["mixed", "float32"])
+def test_swinir_graphs_on_card(cuda, tmp_path, storage):
+    """A SwinIR engine at width 240 (one RSTB of two layers): its chunks
+    replay graphs, bit-equal to the same engine run eagerly, RGB and RGBA;
+    an eager chunk launches K8 once a layer and K9 2 x layers + 3 times,
+    and the tail runs on K6. A card runs SwinIR on its kernels alone, which
+    have mixed instances only: a float32 engine's load raises."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.models import swinir as S
+    from realsr_tpu_torch.ops import swin_kernel as SK
+
+    spec = S.SwinIRSpec(depths=(2,), num_heads=(8,))
+    files = S.save_model(str(tmp_path / "m"), spec, S.init_state(spec, 5))
+    e = RealSR(gpuid=0, config=EngineConfig(storage=storage, tilesize=64))
+    if storage != "mixed":
+        with pytest.raises(ValueError, match="mixed precision"):
+            e.load(*files)
+        return
+    e.load(*files)
+    assert e.graphs and e.bundle.tail == "kernel"
+    assert set(e.kernel_groups()) == {("swin_kernel", "swin"), ("tail_kernel", "k6")}
+    for shape in ((70, 150, 4), (64, 64, 3), (64, 64, 3), (64, 64, 3)):
+        img = np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)
+        got = e.process(img)
+        graphs = e.config
+        e.config = dataclasses.replace(e.config, cuda_graphs=False)
+        before = dict(SK.LAUNCHES)
+        want = e.process(img)
+        if shape[0] == 64:  # one tile, one chunk
+            assert SK.LAUNCHES["window_attn"] - before["window_attn"] == 2
+            assert SK.LAUNCHES["swin_norm"] - before["swin_norm"] == 7
+        e.config = graphs
+        np.testing.assert_array_equal(got, want)
+    assert e.programs()
