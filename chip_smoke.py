@@ -24,13 +24,15 @@ Phases (each prints its lines; any failure exits non-zero):
    also at a ragged 2 x 37 x 21); beside the mixed ones, cuDNN's bf16 convs
    (channels-last) for one RDB's work and for the trunk's, the library
    time of K1, K3-K5 and of K2;
-3b. the tail kernels K6 (up2 + HRconv + conv_last) and K7 (HRconv +
-   conv_last) against their plain versions at the same shape, at a ragged
-   2 x 37 x 21 and at 9 x 37 x 37 (4x sides no multiple of the patch
-   shape), with the tail's patch geometry and CUDA-event times, also at
-   each patch shape the kernel is built for; then their float32 instances
-   against the float32 plain versions at the same shapes and patch shapes,
-   timed beside the interleaved tail's cuDNN convs for the same work;
+3b. the tail kernel's forms K6 (up1 + up2 + HRconv + conv_last from the
+   long skip's sum) and K7 (HRconv + conv_last) against their plain
+   versions at the same shape, at a ragged 2 x 37 x 21 and at 9 x 37 x 37
+   (4x sides no multiple of the patch shape), with the tail's patch
+   geometry and CUDA-event times, also at each patch shape the kernel is
+   built for; K6 at the cells' chunks (5, 6 and 4 x 276²) beside its
+   bound; then their float32 instances against the float32 plain versions
+   at the same shapes and patch shapes, timed beside the interleaved
+   tail's cuDNN convs for the same work;
 3c. the trunk's alternative modes' kernels, mixed: K5 (the K-packed
    schedule), K4 (the paired bf16 carry) and K3 (the chained layout, with
    its bf16 operand plane and shadow as its trunk threads them) for one RDB
@@ -208,6 +210,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -255,6 +258,10 @@ TAILS = ("interleaved", "packed", "kernel_hr", "kernel")  # models.rrdbnet.TAIL_
 # phase 3b: the main path's; ragged 16 x 16 patches; more 12 x 28 patches than
 # SMs, none whole at the right and bottom edges
 TAIL_SHAPES = ((B, SIDE, SIDE), (2, 37, 21), (9, 37, 37))
+# the tail kernel's forms (ops/tail_kernel.py::FORMS) by their number
+TAIL_FORM_LABELS = {0: "K7", 1: "K6"}
+# phase 3b: the cells' chunks of 276² tiles, K6 timed beside its bound
+CELL_TAIL_SHAPES = ((5, 276, 276), (6, 276, 276), (4, 276, 276))
 # phase 3c, K4 and K5: the main path's chunk and a ragged one
 MODE_SHAPES = ((B, SIDE, SIDE), (2, 37, 21))
 # phase 14, Real-SwinIR-L x4 (models/swinir.py) at its published settings
@@ -302,17 +309,15 @@ def bound(macs: float, moved: int, tf32: bool = False) -> tuple:
 def ptxas_rows(log: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) per entry
     function of an ``nvcc -Xptxas -v`` log of a kernel source."""
-    import re
-
     rows = []
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'", 1)[0]
         w = re.search(r"(rdb|packed|chained)_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
         k4 = re.search(r"(paired|rdb_tf32)_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
-        t = re.search(r"tail_kernelILi(\d+)ELi(\d+)ELb(\d)E(f|13__nv_bfloat16)", name)
+        t = re.search(r"tail_kernelILi(\d+)ELi(\d+)ELi(\d)E(f|13__nv_bfloat16)", name)
         ops = "float32 3xTF32" if "LayoutF32" in name else "bf16"
         if t:
-            label = (f"{'K6' if t.group(3) == '1' else 'K7'} {t.group(1)}x{t.group(2)} "
+            label = (f"{TAIL_FORM_LABELS[int(t.group(3))]} {t.group(1)}x{t.group(2)} "
                      f"{'float32 3xTF32' if t.group(4) == 'f' else 'bf16'}")
         elif w:
             label = (f"{dict(rdb='K1', packed='K5', chained='K3')[w.group(1)]} wgmma T={w.group(2)} "
@@ -348,14 +353,14 @@ def sass_counts(name: str) -> dict:
     return counts
 
 
-def cudnn_tail(fea, params, up2: bool, dtype=torch.float32):
-    """The interleaved tail's cuDNN convs for the work of K6 (``up2``: from
-    the 2x image, nearest-x2 + up2 conv + LeakyReLU, HRconv + LeakyReLU,
-    conv_last) or K7 (from the 4x image after up2): NCHW ``fea``, ``params``
-    the graph's OIHW groups as tensors on its device. ``dtype`` float32:
-    float32 convs (TF32 as the caller's scope sets it); bfloat16: cuDNN's
-    bf16 convs (bf16 operands and outputs, channels-last), K6's and K7's
-    operand type."""
+def cudnn_tail(fea, params, ups: int, dtype=torch.float32):
+    """The interleaved tail's cuDNN convs for the work of a tail kernel's
+    form (``ups`` upsamplers, each nearest-x2 + conv + LeakyReLU, then
+    HRconv + LeakyReLU and conv_last): K6 2, from the 1x image; K7 0, from
+    the 4x image after up2. NCHW ``fea``, ``params`` the graph's OIHW groups
+    as tensors on its device. ``dtype`` float32: float32 convs (TF32 as the caller's scope sets it); bfloat16:
+    cuDNN's bf16 convs (bf16 operands and outputs, channels-last), the
+    kernel's operand type."""
     from realsr_tpu_torch.models.rrdbnet import LRELU_SLOPE, conv3x3
     from realsr_tpu_torch.ops.resize import nearest_x2
 
@@ -368,13 +373,13 @@ def cudnn_tail(fea, params, up2: bool, dtype=torch.float32):
             return y if slope is None else F.leaky_relu(y, slope)
 
         x = fea.to(dtype).contiguous(memory_format=torch.channels_last)
-        if up2:
-            x = conv(F.interpolate(x, scale_factor=2.0, mode="nearest"), "up", 1, LRELU_SLOPE)
+        for k in range(2 - ups, 2):
+            x = conv(F.interpolate(x, scale_factor=2.0, mode="nearest"), "up", k, LRELU_SLOPE)
         return conv(conv(x, "hr", None, LRELU_SLOPE), "last")
     f32 = torch.float32
-    if up2:
+    for k in range(2 - ups, 2):
         fea = nearest_x2(fea.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        fea = conv3x3(fea, params["up"]["w"][1], params["up"]["b"][1], LRELU_SLOPE, f32)
+        fea = conv3x3(fea, params["up"]["w"][k], params["up"]["b"][k], LRELU_SLOPE, f32)
     fea = conv3x3(fea, params["hr"]["w"], params["hr"]["b"], LRELU_SLOPE, f32)
     return conv3x3(fea, params["last"]["w"], params["last"]["b"], None, f32)
 
@@ -455,8 +460,7 @@ def tail_check(tk, name, x, tp_bf16, tp_f32, timed):
     plain = ref(x, tp_bf16)
     exact = ref(x.float(), tp_f32)
     e_k, e_p = rel_err(got, exact)[0], rel_err(plain, exact)[0]
-    up = int(name.startswith("up2"))  # K6 reads up1's [B, H + 1, W + 1, 256]
-    want_shape = (x.shape[0], 4 * (x.shape[1] - up), 4 * (x.shape[2] - up), 3)
+    want_shape = (x.shape[0], 4 * x.shape[1], 4 * x.shape[2], 3)
     check(tuple(got.shape) == want_shape and bool(torch.isfinite(got).all()),
           f"{name}: output {tuple(got.shape)} not finite or not [B, 4H, 4W, 3]")
     check(e_k <= max(2 * e_p, 1e-3),
@@ -632,7 +636,7 @@ def run_cli(cli, rk, tk, args, env=None, flag=None):
     ran = executed(rk, tk)
     for e in made:
         check(e.graphs == (e.bundle.spec is not None), f"cli.main {args}: an engine with graphs {e.graphs}")
-    return (wall, {k: ran[k] for k in rk.LAUNCHES}, ran["up2_hr_last_packed"], ran["hr_last_packed"], wrappers)
+    return (wall, {k: ran[k] for k in rk.LAUNCHES}, ran["up1_up2_hr_last_packed"], ran["hr_last_packed"], wrappers)
 
 
 def plain_trunk(rk, x, stacked, ref=None):
@@ -748,7 +752,7 @@ def zero_counts(*mods) -> None:
 def k1_k6(rk, tk) -> tuple:
     """(K1, K6) launches run on the card since zero_counts (:func:`executed`)."""
     ran = executed(rk, tk)
-    return ran["rdb_apply"], ran["up2_hr_last_packed"]
+    return ran["rdb_apply"], ran["up1_up2_hr_last_packed"]
 
 
 def band_runs(eng, rk, tk, fn):
@@ -1030,9 +1034,8 @@ def kernel_at(rk, tk, mparam, mbin, dev, b_, side) -> dict:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(side)
     x = torch.from_numpy(rng.normal(0.0, 0.5, (b_, side, side, NF)).astype(np.float32)).to(dev)
-    p1 = np.abs(rng.normal(0.0, 0.5, (b_, side + 1, side + 1, 4 * NF))).astype(np.float32)
     macs = RDB_MACS_PER_PX * b_ * side * side
-    tail_macs = b_ * 16 * side * side * tk.tail_macs_per_pixel(True)
+    tail_macs = b_ * 16 * side * side * tk.tail_macs_per_pixel(tk.K6)
     rows = {}
     for mode, op in (("mixed", torch.bfloat16), ("float32", torch.float32)):
         key = "K1" if mode == "mixed" else "K1 float32"
@@ -1059,34 +1062,34 @@ def kernel_at(rk, tk, mparam, mbin, dev, b_, side) -> dict:
         rows[key] = {"max_abs_err": err, "rel": rel, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                      "bound_by": b_by, "patch_side": geo.tile}
         del p0, got, want, bundle
-        # K6: up1's packed phases in, [B, 4H, 4W, 3] f32 out
+        # K6: fea (x, as the long skip's sum) in, [B, 4H, 4W, 3] f32 out
         key = "K6" if mode == "mixed" else "K6 float32"
         bundle = load_model(mparam, mbin, torch.float32, torch.bfloat16, tail="kernel")
         tp16 = {k: v.to(dev) for k, v in bundle.params["tail"].items()}
         tp32 = {k: v.to(dev) for k, v in tk.pack_tail_params(bundle.params, torch.float32).items()}
         if mode == "mixed":
-            xin = torch.from_numpy(p1).to(dev, torch.bfloat16)
+            xin = x.to(torch.bfloat16)
             with tf32(False):
-                err, e_k, e_p, ms, pms = tail_check(tk, "up2_hr_last_packed", xin, tp16, tp32, True)
+                err, e_k, e_p, ms, pms = tail_check(tk, "up1_up2_hr_last_packed", xin, tp16, tp32, True)
             moved = nbytes(xin, *tp16.values()) + b_ * 16 * side * side * 3 * 4
-            geo = tk.tail_geometry(b_, side, side, True, sms)
+            geo = tk.tail_geometry(b_, side, side, tk.K6, sms)
             extra = {"vs_float32_plain": e_k, "plain_bf16_vs_float32": e_p}
         else:
-            xin = torch.from_numpy(p1).to(dev)
+            xin = x
             with tf32(False):
-                got = tk.up2_hr_last_packed(xin, tp32)
+                got = tk.up1_up2_hr_last_packed(xin, tp32)
                 torch.cuda.synchronize()
-                want = tk.up2_hr_last_reference(xin, tp32)
+                want = tk.up1_up2_hr_last_reference(xin, tp32)
                 err, rel = rel_err(got, want)
                 check(tuple(got.shape) == (b_, 4 * side, 4 * side, 3) and bool(torch.isfinite(got).all())
-                      and rel <= RDB_TOL["float32"] and torch.equal(got, tk.up2_hr_last_packed(xin, tp32)),
+                      and rel <= RDB_TOL["float32"] and torch.equal(got, tk.up1_up2_hr_last_packed(xin, tp32)),
                       f"8a K6 float32 at {b_} x {side}²: rel {rel} > {RDB_TOL['float32']}, bad shape or two runs differ")
-                ms = cuda_ms(lambda: tk.up2_hr_last_packed(xin, tp32), 2, 10)
-                pms = cuda_ms(lambda: tk.up2_hr_last_reference(xin, tp32), 1, 2)
+                ms = cuda_ms(lambda: tk.up1_up2_hr_last_packed(xin, tp32), 2, 10)
+                pms = cuda_ms(lambda: tk.up1_up2_hr_last_reference(xin, tp32), 1, 2)
                 del got, want
-            w_keys = ("w2t", "b2", "w1t", "b1", "w9t", "b3")
+            w_keys = ("w0t", "b0", "w2t", "b2", "w1t", "b1", "w9t", "b3")
             moved = nbytes(xin, *(tp32[k] for k in w_keys)) + b_ * 16 * side * side * 12
-            geo = tk.tail_tf32_geometry(b_, side, side, True, sms)
+            geo = tk.tail_tf32_geometry(b_, side, side, tk.K6, sms)
             extra = {"rel": rel}
         b_ms, b_by = bound(tail_macs, moved, tf32=mode == "float32")
         rows[key] = {"max_abs_err": err, **extra, "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1322,7 +1325,8 @@ def kernel_of(name: str):
         if tag in name:
             return key
     if "tail_kernel" in name:
-        return "K6" if "true" in name or "ELb1E" in name else "K7"
+        form = re.search(r"tail_kernel<\d+, \d+, (\d)|tail_kernelILi\d+ELi\d+ELi(\d)E", name)
+        return TAIL_FORM_LABELS[int(form.group(1) or form.group(2))] if form else None
     return None
 
 
@@ -1377,7 +1381,7 @@ def replay_nodes(eng, img: np.ndarray) -> tuple:
 
 # phase 11b: the kernel each wrapper launches, as kernel_of names it
 WRAPPER_KERNEL = {"rdb_apply": "K1", "rdb_apply_chained": "K3", "rdb_apply_paired": "K4", "rdb_apply_packed": "K5",
-                  "up2_hr_last_packed": "K6", "hr_last_packed": "K7"}
+                  "up1_up2_hr_last_packed": "K6", "hr_last_packed": "K7"}
 
 
 def program_nodes(eng, key) -> tuple:
@@ -2542,11 +2546,11 @@ def slice14(rk, tk, sk, work: str, card: str, dev=None) -> list:
     img = natural_image(np.random.default_rng(SWIN_SEED), *SWIN_HW)
     zero_counts(rk, tk, sk)
     outs = [eng.process(img) for _ in range(3)]
-    wrapped = dict(sk.LAUNCHES, up2_hr_last_packed=tk.LAUNCHES["up2_hr_last_packed"])
+    wrapped = dict(sk.LAUNCHES, up1_up2_hr_last_packed=tk.LAUNCHES["up1_up2_hr_last_packed"])
     ran = executed(rk, tk, sk)
     chunks = 3 * chunk_counts(eng, {"photo": img})[0]
     layers = sum(spec.depths)
-    per_chunk = {"window_attn": layers, "swin_norm": 2 * layers + len(spec.depths) + 2, "up2_hr_last_packed": 1}
+    per_chunk = {"window_attn": layers, "swin_norm": 2 * layers + len(spec.depths) + 2, "up1_up2_hr_last_packed": 1}
     got_runs = {k: ran[k] for k in per_chunk}
     check(got_runs == {k: v * chunks for k, v in per_chunk.items()} and ran["rdb_apply"] == 0,
           f"SwinIR engine: {got_runs} launches ran for {chunks} chunks, {per_chunk} a chunk expected")
@@ -2859,9 +2863,11 @@ def main() -> int:
         tp32 = {k: v.to(dev) for k, v in tk.pack_tail_params(bundle.params, torch.float32).items()}
         graph_p = {g: {k: torch.as_tensor(v, device=dev) for k, v in bundle.params[g].items()}
                    for g in ("up", "hr", "last")}
-        for up, label in ((True, "K6"), (False, "K7")):
+        forms = ((tk.K6, 2), (tk.K7, 0))  # each form and its upsamplers
+        for form, _ in forms:
+            label = TAIL_FORM_LABELS[form]
             for b_, h_, w_ in TAIL_SHAPES:
-                g = tk.tail_geometry(b_, h_, w_, up, sms)
+                g = tk.tail_geometry(b_, h_, w_, form, sms)
                 print(f"tail geometry {label} B={b_} {h_}x{w_} -> {4 * h_}x{4 * w_}: patch {g.tile[0]}x{g.tile[1]}, "
                       f"{g.patches[0]}x{g.patches[1]} patches per tile, {g.blocks} patches on {g.grid} persistent "
                       f"blocks = {g.waves:.3f} waves (fill {100 * g.fill:.1f} %), issued MACs "
@@ -2869,11 +2875,13 @@ def main() -> int:
         for n_shape, (b_, h_, w_) in enumerate(TAIL_SHAPES):
             # post-lrelu activations, as up1 and up2 leave them; shapes past
             # the first two draw from their own generator, so that the images
-            # phases 4 and 5 draw from rng do not depend on the shapes here
+            # phases 4 and 5 draw from rng do not depend on the shapes here;
+            # K6's fea (signed, as the long skip's sum) from its own too
             src = rng if n_shape < 2 else np.random.default_rng(n_shape)
-            p1 = np.abs(src.normal(0.0, 0.5, (b_, h_ + 1, w_ + 1, 4 * NF)))
             p2 = np.abs(src.normal(0.0, 0.5, (b_, h_, w_, 16 * NF)))
-            for label, fn, arr in (("K6", "up2_hr_last_packed", p1), ("K7", "hr_last_packed", p2)):
+            fea_in = np.random.default_rng(40 + n_shape).normal(0.0, 0.5, (b_, h_, w_, NF))
+            for form, ups in forms:
+                label, fn, arr = TAIL_FORM_LABELS[form], tk.FORMS[form], {2: fea_in, 0: p2}[ups]
                 xin = torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
                 timed = (b_, h_, w_) == TAIL_SHAPES[0]
                 with tf32(False):
@@ -2885,47 +2893,64 @@ def main() -> int:
                 if timed:
                     results[(label, "mixed")] = (err, ms, pms)
                     # library: cuDNN's bf16 convs of the interleaved tail for the same work
-                    fea = torch.zeros((b_, NF, (2 if label == "K6" else 4) * h_, (2 if label == "K6" else 4) * w_),
-                                      device=dev)
-                    library[label] = cuda_ms(lambda: cudnn_tail(fea, graph_p, label == "K6", torch.bfloat16), 2, 10)
+                    fea = torch.zeros((b_, NF, 4 * h_ >> ups, 4 * w_ >> ups), device=dev)
+                    library[label] = cuda_ms(lambda: cudnn_tail(fea, graph_p, ups, torch.bfloat16), 2, 10)
                     del fea
                     print(f"tail {label}: the interleaved tail's cuDNN bf16 convs for the same work "
                           f"{library[label]:.3f} ms (library) {card}", flush=True)
                     # the input, the packed tail weights, the [B, 4H, 4W, 3] f32 output
                     results[(label, "io")] = nbytes(xin, *tp16.values()) + b_ * 16 * h_ * w_ * 3 * 4
                     # the patch shape alone: the kernel at each shape it is built for
-                    up = label == "K6"
                     with tf32(False):
                         exact = getattr(tk, fn.replace("_packed", "_reference"))(xin.float(), tp32)
                     for tile in tk.TAIL_TILES:
-                        e_t = rel_err(tk._launch(fn, xin, tp16, up, tile), exact)[0]
+                        e_t = rel_err(tk._launch(form, xin, tp16, tile), exact)[0]
                         check(e_t <= max(2 * e_p, 1e-3),
                               f"{label} at {tile}: max|kernel - f32 plain| {e_t} > max(2 x {e_p}, 1e-3)")
-                        t_ms = cuda_ms(lambda: tk._launch(fn, xin, tp16, up, tile), 2, 10)
+                        t_ms = cuda_ms(lambda: tk._launch(form, xin, tp16, tile), 2, 10)
                         n_t = b_ * -(-4 * h_ // tile[0]) * -(-4 * w_ // tile[1])
-                        f_t = n_t * tk.tail_block_macs(*tile, up) / (b_ * 16 * h_ * w_ * tk.tail_macs_per_pixel(up))
+                        f_t = n_t * tk.tail_block_macs(*tile, form) / (b_ * 16 * h_ * w_ * tk.tail_macs_per_pixel(form))
                         print(f"tail {label} at patch {tile[0]}x{tile[1]}: {n_t} patches, issued MACs "
                               f"{f_t:.3f}x the tail's; vs float32 plain {e_t:.3e}; kernel {t_ms:.3f} ms "
                               f"{card}", flush=True)
                     del exact
                 del xin
 
+        # K6 at the cells' chunks (bf16 operands, TF32 allowed, as a mixed
+        # engine runs it, with its cast of the float32 fea) beside its bound
+        # (945,152 MACs a base pixel)
+        for b_, h_, w_ in CELL_TAIL_SHAPES:
+            fea = torch.from_numpy(np.random.default_rng(50 + b_).normal(0.0, 0.5, (b_, h_, w_, NF)).astype(
+                np.float32)).to(dev)
+            with tf32(True):
+                route_ms = cuda_ms(lambda: tk.up1_up2_hr_last_packed(fea.to(torch.bfloat16), tp16), 2, 10)
+                xb = fea.to(torch.bfloat16)
+                k6_ms = cuda_ms(lambda: tk.up1_up2_hr_last_packed(xb, tp16), 2, 10)
+                del xb
+            k6_bound = bound(b_ * h_ * w_ * 16 * tk.tail_macs_per_pixel(tk.K6), 0)[0]
+            print(json.dumps({"phase": "3b", "what": f"K6 at the cells' chunk {b_} x {h_}x{w_}",
+                              "k6_ms": k6_ms, "k6_bound_ms": k6_bound, "k6_roofline_pct": 100 * k6_bound / k6_ms,
+                              "route_ms": route_ms, "card": smi}), flush=True)
+            del fea
+            torch.cuda.empty_cache()
+
         # the float32 instances (3xTF32) against the float32 plain versions
         # with TF32 off, as float32 K1; timed beside the interleaved tail's
         # cuDNN convs for the same work (the float32 engine's other tail)
         tol32 = RDB_TOL["float32"]
-        for up, label in ((True, "K6"), (False, "K7")):
+        for form, _ in forms:
+            label = TAIL_FORM_LABELS[form]
             for b_, h_, w_ in TAIL_SHAPES:
-                g = tk.tail_tf32_geometry(b_, h_, w_, up, sms)
+                g = tk.tail_tf32_geometry(b_, h_, w_, form, sms)
                 print(f"tail geometry {label} float32 B={b_} {h_}x{w_} -> {4 * h_}x{4 * w_}: patch "
                       f"{g.tile[0]}x{g.tile[1]}, {g.blocks} patches on {g.grid} persistent blocks = {g.waves:.3f} "
                       f"waves (fill {100 * g.fill:.1f} %), issued MACs {g.mac_factor:.3f}x the tail's", flush=True)
         for n_shape, (b_, h_, w_) in enumerate(TAIL_SHAPES):
             src = np.random.default_rng(30 + n_shape)
-            p1 = np.abs(src.normal(0.0, 0.5, (b_, h_ + 1, w_ + 1, 4 * NF)))
             p2 = np.abs(src.normal(0.0, 0.5, (b_, h_, w_, 16 * NF)))
-            for label, fn, arr in (("K6", "up2_hr_last_packed", p1), ("K7", "hr_last_packed", p2)):
-                up = label == "K6"
+            fea_in = src.normal(0.0, 0.5, (b_, h_, w_, NF))
+            for form, ups in forms:
+                label, fn, arr = TAIL_FORM_LABELS[form], tk.FORMS[form], {2: fea_in, 0: p2}[ups]
                 xin = torch.from_numpy(arr.astype(np.float32)).to(dev)
                 ref = getattr(tk, fn.replace("_packed", "_reference"))
                 key = f"{label} float32"
@@ -2933,26 +2958,27 @@ def main() -> int:
                 with tf32(False):
                     want = ref(xin, tp32)
                     for tile in (None, *tk.TAIL_TF32_TILES):
-                        got = getattr(tk, fn)(xin, tp32) if tile is None else tk._launch(fn, xin, tp32, up, tile)
+                        got = getattr(tk, fn)(xin, tp32) if tile is None else tk._launch(form, xin, tp32, tile)
                         torch.cuda.synchronize()
                         err, rel = rel_err(got, want)
                         shape_ok = tuple(got.shape) == (b_, 4 * h_, 4 * w_, 3) and bool(torch.isfinite(got).all())
-                        again = getattr(tk, fn)(xin, tp32) if tile is None else tk._launch(fn, xin, tp32, up, tile)
+                        again = getattr(tk, fn)(xin, tp32) if tile is None else tk._launch(form, xin, tp32, tile)
                         side = "the geometry's patch" if tile is None else f"patch {tile[0]}x{tile[1]}"
                         check(shape_ok and rel <= tol32 and torch.equal(got, again),
                               f"{key} B={b_} {h_}x{w_} at {side}: rel {rel} > {tol32}, bad shape or two runs differ")
                         times = ""
                         if main_shape:
-                            ms = cuda_ms(lambda: tk._launch(fn, xin, tp32, up, tile), 2, 10)
+                            ms = cuda_ms(lambda: tk._launch(form, xin, tp32, tile), 2, 10)
                             times = f"; kernel {ms:.3f} ms"
                             if tile is None:
                                 pms = cuda_ms(lambda: ref(xin, tp32), 1, 2)
-                                fea = torch.zeros((b_, NF, (2 if up else 4) * h_, (2 if up else 4) * w_), device=dev)
-                                lms = cuda_ms(lambda: cudnn_tail(fea, graph_p, up), 2, 10)
+                                fea = torch.zeros((b_, NF, 4 * h_ >> ups, 4 * w_ >> ups), device=dev)
+                                lms = cuda_ms(lambda: cudnn_tail(fea, graph_p, ups), 2, 10)
                                 del fea
                                 results[(key, "f32")] = (err, ms, pms)
                                 library[key] = lms
-                                w_keys = ("w2t", "b2", "w1t", "b1", "w9t", "b3") if up else ("w1t", "b1", "w9t", "b3")
+                                w_keys = {2: ("w0t", "b0", "w2t", "b2"), 0: ()}[ups]
+                                w_keys += ("w1t", "b1", "w9t", "b3")
                                 results[(key, "io")] = nbytes(xin, *(tp32[k] for k in w_keys)) + b_ * 16 * h_ * w_ * 12
                                 times += (f", plain {pms:.3f} ms (TF32 off), the interleaved tail's cuDNN convs for the "
                                           f"same work {lms:.3f} ms")
@@ -3270,7 +3296,7 @@ def main() -> int:
               f"tiles picked {picks}, tail {engine.tail}, {chunks} chunks ({GRAPH_COUNTS['captures']} computed "
               f"by a capture's warm-up, {GRAPH_COUNTS['replays']} graph replays, the rest eagerly: a key's first "
               f"chunk): {launches} rdb_kernel launches, {k6_main} K6 launches run on the card; the wrappers "
-              f"counted {wrappers_main['rdb_apply']} K1 and {wrappers_main['up2_hr_last_packed']} K6 (eager "
+              f"counted {wrappers_main['rdb_apply']} K1 and {wrappers_main['up1_up2_hr_last_packed']} K6 (eager "
               f"chunks, and each capture's warm-up and recording); "
               f"{out_mp:.3f} output MP in {wall:.3f} s = "
               f"{out_mp / wall:.3f} output MP/s (model load, first calls and captures included) {card}",
@@ -3601,9 +3627,9 @@ def main() -> int:
         "K1": wrappers_main["rdb_apply"], "K2": wrappers_main["rdb_apply"],
         "K1 float32": wrappers_32["rdb_apply"], "K2 float32": wrappers_32["rdb_apply"],
         "K3": mode_w["rdb_apply_chained"], "K4": mode_w["rdb_apply_paired"], "K5": mode_w["rdb_apply_packed"],
-        "K6": wrappers_k6["up2_hr_last_packed"], "K7": wrappers_k7["hr_last_packed"],
+        "K6": wrappers_k6["up1_up2_hr_last_packed"], "K7": wrappers_k7["hr_last_packed"],
         "K3 float32": f32_modes_w["rdb_apply_chained"], "K5 float32": f32_modes_w["rdb_apply_packed"],
-        "K6 float32": wrappers_32["up2_hr_last_packed"], "K7 float32": wrappers_k7_32["hr_last_packed"],
+        "K6 float32": wrappers_32["up1_up2_hr_last_packed"], "K7 float32": wrappers_k7_32["hr_last_packed"],
     }
     tail_px = B * 16 * SIDE * SIDE
     kernels = []
@@ -3623,21 +3649,21 @@ def main() -> int:
          "realsr_tpu/ops/rdb_kernel.py:595", mode_launches["rdb_apply_paired"], rdb_macs, ("K4", "mixed")),
         ("K5", "rdb_modes_wgmma (packed_kernel<T, state, nf, gc>: wgmma, rdb_apply_packed)", "rdb_modes_wgmma.cu",
          "realsr_tpu/ops/rdb_kernel.py:216", mode_launches["rdb_apply_packed"], rdb_macs, ("K5", "mixed")),
-        ("K6", "tail_kernel (tail_kernel<TH, TW, true>: wgmma, up2_hr_last_packed)", "tail_kernel.cu",
-         "realsr_tpu/ops/tail_kernel.py:103", k6_cli, tail_px * tk.tail_macs_per_pixel(True), ("K6", "mixed")),
-        ("K7", "tail_kernel (tail_kernel<TH, TW, false>: wgmma, hr_last_packed)", "tail_kernel.cu",
-         "realsr_tpu/ops/tail_kernel.py:329", k7, tail_px * tk.tail_macs_per_pixel(False), ("K7", "mixed")),
+        ("K6", "tail_kernel (tail_kernel<TH, TW, 1>: wgmma, up1 inside, up1_up2_hr_last_packed)", "tail_kernel.cu",
+         "realsr_tpu/ops/tail_kernel.py:103", k6_cli, tail_px * tk.tail_macs_per_pixel(tk.K6), ("K6", "mixed")),
+        ("K7", "tail_kernel (tail_kernel<TH, TW, 0>: wgmma, hr_last_packed)", "tail_kernel.cu",
+         "realsr_tpu/ops/tail_kernel.py:329", k7, tail_px * tk.tail_macs_per_pixel(tk.K7), ("K7", "mixed")),
         ("K3 float32", "rdb_modes_tf32 (chained_kernel<T, float, nf, gc, LayoutF32>: 3xTF32 wgmma, "
          "rdb_apply_chained)", "rdb_modes_tf32.cu", "realsr_tpu/ops/rdb_kernel.py:675",
          f32_modes["rdb_apply_chained"], rdb_macs, ("K3 float32", "f32")),
         ("K5 float32", "rdb_modes_tf32 (packed_kernel<T, float, nf, gc, LayoutF32>: 3xTF32 wgmma, "
          "rdb_apply_packed)", "rdb_modes_tf32.cu", "realsr_tpu/ops/rdb_kernel.py:216",
          f32_modes["rdb_apply_packed"], rdb_macs, ("K5 float32", "f32")),
-        ("K6 float32", "tail_tf32 (tail_kernel<TH, TW, true, float>: 3xTF32 wgmma, up2_hr_last_packed)",
-         "tail_tf32.cu", "realsr_tpu/ops/tail_kernel.py:103", k6_32, tail_px * tk.tail_macs_per_pixel(True),
+        ("K6 float32", "tail_tf32 (tail_kernel<TH, TW, 1, float>: 3xTF32 wgmma, up1_up2_hr_last_packed)",
+         "tail_tf32.cu", "realsr_tpu/ops/tail_kernel.py:103", k6_32, tail_px * tk.tail_macs_per_pixel(tk.K6),
          ("K6 float32", "f32")),
-        ("K7 float32", "tail_tf32 (tail_kernel<TH, TW, false, float>: 3xTF32 wgmma, hr_last_packed)",
-         "tail_tf32.cu", "realsr_tpu/ops/tail_kernel.py:329", k7_32, tail_px * tk.tail_macs_per_pixel(False),
+        ("K7 float32", "tail_tf32 (tail_kernel<TH, TW, 0, float>: 3xTF32 wgmma, hr_last_packed)",
+         "tail_tf32.cu", "realsr_tpu/ops/tail_kernel.py:329", k7_32, tail_px * tk.tail_macs_per_pixel(tk.K7),
          ("K7 float32", "f32")),
     ):
         err, ms, pms = results[result]

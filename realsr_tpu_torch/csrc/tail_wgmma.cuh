@@ -1,13 +1,14 @@
-// The fused packed-phase tail (K6: up2 + HRconv + conv_last; K7: HRconv +
-// conv_last) on wgmma, for either operand type: bf16 (instances in
-// tail_kernel.cu, whose header describes the design) or float32 with the
-// split 3xTF32 product (tail_tf32.cu). The operand type OP sets the planes'
-// bytes (bf16: 128-byte pixels; float32: two 32-channel sub-planes of
-// 128-byte pixels, hopper.cuh::chunk_offset_f32), the k-step (k16, or k8
-// with A split into tf32 hi and lo in registers and B as the hi and lo
-// slices of pack_tail_params' "w2t" / "w1t" / "w9t") and so each stage's
-// chunk length (Plan::KC); the stages, the ring, the persistent walk over
-// patches and the window's prefetch are one code.
+// The fused packed-phase tail on wgmma in its two forms (K6: up1 + up2 +
+// HRconv + conv_last from the long skip's sum; K7: HRconv + conv_last), for
+// either operand type: bf16 (instances in tail_kernel.cu, whose header
+// describes the design) or float32 with the split 3xTF32 product
+// (tail_tf32.cu). The operand type OP sets the planes' bytes (bf16: 128-byte
+// pixels; float32: two 32-channel sub-planes of 128-byte pixels, hopper.cuh::
+// chunk_offset_f32), the k-step (k16, or k8 with A split into tf32 hi and lo
+// in registers and B as the hi and lo slices of pack_tail_params' "w0t" /
+// "w2t" / "w1t" / "w9t") and so each stage's chunk length (Plan::KC); the
+// stages, the ring, the persistent walk over patches and the window's
+// prefetch are one code.
 
 #pragma once
 
@@ -22,6 +23,10 @@ constexpr int kW9 = 32;        // conv_last's W9 columns: 9 taps x 3 outputs, pa
 // thread: more makes ptxas spill and serialize the wgmmas (C7512)
 constexpr int kAccA = 192;
 constexpr int kLoaders = 96;   // producer threads that load the windows
+
+// The kernel's forms (FORM), by its input and the stages before HRconv
+constexpr int kK7 = 0;  // P2, the sixteen 4x phases [B, H, W, 16 * 64]
+constexpr int kK6 = 1;  // fea, the long skip's sum [B, H, W, 64]: up1, then up2
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
@@ -43,7 +48,9 @@ __device__ __forceinline__ uint32_t plane_offset(int pix, int chunk) {
 }
 
 // The regions of a TH x TW patch (TH, TW even: P2's sub-phases then follow
-// the 4x image's parity).
+// the 4x image's parity). K6 computes the 2x window as up1's output y1 over
+// YH x YW base pixels, each pixel the four phases (2x rows 2i - 1 and 2i,
+// columns alike), from fea with up1's 2x2 taps, FH x FW pixels.
 template <int TH, int TW>
 struct Geo {
   static_assert(TH % 2 == 0 && TW % 2 == 0, "even patch sides");
@@ -51,26 +58,31 @@ struct Geo {
   static constexpr int PH = TH + 4, PW = TW + 4, PP = PH * PW;    // P2: HRconv's on top
   static constexpr int QH = PH / 2, QW = PW / 2, PQ = QH * QW;    // one up2 sub-phase
   static constexpr int XH = QH + 2, XW = QW + 2, PX = XH * XW;    // the 2x window
-  static constexpr int ZT = (PZ + 63) / 64, UT = (PQ + 63) / 64;  // 64-row tiles
+  static constexpr int YH = XH / 2 + 1, YW = XW / 2 + 1, PY = YH * YW;  // y1 over it
+  static constexpr int FH = YH + 1, FW = YW + 1, PF = FH * FW;    // fea under y1
+  static constexpr int ZT = (PZ + 63) / 64, UT = (PQ + 63) / 64, YT = (PY + 63) / 64;  // 64-row tiles
 };
 
-// K6: the window, z, P2, a ring of two 32 KB slots. K7: z and two P2
-// buffers (the window of the next patch lands in one while the consumers
-// work in the other), two 16 KB slots. Planes of OP.
-template <int TH, int TW, bool UP2, typename OP>
+// K6: the fea window, the 2x window, z, P2, a ring of two 32 KB slots. K7: z
+// and two P2 buffers (the window of the next patch lands in one while the
+// consumers work in the other), two 16 KB slots. Planes of OP.
+template <int TH, int TW, int FORM, typename OP>
 struct Layout {
   using G = Geo<TH, TW>;
+  static constexpr bool UP2 = FORM == kK6;
   static constexpr int bufs = UP2 ? 1 : 2;  // window buffers
   static constexpr int slots = 2;           // weight ring slots
   static constexpr int slot = UP2 ? 32768 : 16384;
   static constexpr int p2_bytes = plane_bytes<OP>(G::PP);
-  static constexpr int z = UP2 ? plane_bytes<OP>(G::PX) : 0;  // the window first (K6)
+  static constexpr int x2 = UP2 ? plane_bytes<OP>(G::PF) : 0;  // the 2x window
+  static constexpr int z = x2 + (UP2 ? plane_bytes<OP>(G::PX) : 0);
   static constexpr int p2 = z + plane_bytes<OP>(G::PZ);
   static constexpr int ring = p2 + bufs * p2_bytes;
   static constexpr int bars = ring + slots * slot;
   static constexpr int bytes = bars + 8 * (2 * slots + 2 * bufs);
   static_assert(G::PZ * kW9 * 4 <= p2_bytes, "T fits the P2 region");
-  // window buffer j, and the P2 region of a patch in buffer j
+  // window buffer j (K6: the fea window), and
+  // the P2 region of a patch in buffer j
   __host__ __device__ static constexpr int win(int j) { return UP2 ? 0 : p2 + j * p2_bytes; }
   __host__ __device__ static constexpr int p2_of(int j) { return p2 + (UP2 ? 0 : j * p2_bytes); }
 };
@@ -89,15 +101,17 @@ struct Plan {
   static_assert(KC > 0, "the accumulators leave room for A");
 };
 
-// The stages' plans: up2 N = 128 slices (64 columns each warpgroup), K = 4
-// taps x 64; HRconv K = 576, N = 64; conv_last's W9 product K = 64, N = 32.
-// A k-step (OperandSteps) is k16 of one slice (bf16) or k8 of two (tf32 hi
-// and lo).
-template <int TH, int TW, bool UP2, typename OP>
+// The stages' plans: up1 N = 256 slices (4 phases x 64, 128 columns each
+// warpgroup), K = 4 taps x 64; up2 N = 128 slices (64 columns each
+// warpgroup), K = 4 taps x 64; HRconv K = 576, N = 64; conv_last's W9
+// product K = 64, N = 32. A k-step (OperandSteps) is k16 of one slice (bf16)
+// or k8 of two (tf32 hi and lo).
+template <int TH, int TW, int FORM, typename OP>
 struct Plans {
   using G = Geo<TH, TW>;
   using OS = OperandSteps<OP>;
-  static constexpr int S = Layout<TH, TW, UP2, OP>::slots, SB = Layout<TH, TW, UP2, OP>::slot;
+  static constexpr int S = Layout<TH, TW, FORM, OP>::slots, SB = Layout<TH, TW, FORM, OP>::slot;
+  using Up1 = Plan<G::YT, 0, 128, 4 * kNF / OS::K, 256 * 32 * OS::SLICES, S, SB, OS::A>;
   using Up2 = Plan<G::UT, 0, 64, 4 * kNF / OS::K, 128 * 32 * OS::SLICES, S, SB, OS::A>;
   using Hr = Plan<G::ZT / 2, G::ZT % 2, 64, 9 * kNF / OS::K, 64 * 32 * OS::SLICES, S, SB, OS::A>;
   using Last = Plan<G::ZT / 2, G::ZT % 2, kW9, kNF / OS::K, kW9 * 32 * OS::SLICES, S, SB, OS::A>;
@@ -244,8 +258,10 @@ __device__ __forceinline__ int lane_row(const Consumer& c, int tile, int n) {
 }
 
 struct Params {
-  const void* x;     // K6: P1 [B, H + 1, W + 1, 4 * 64]; K7: P2 [B, H, W, 16 * 64]; of OP
-  const char* w2;    // up2: 2 passes x its k-steps of N = 128, wgmma order
+  const void* x;     // the form's input (kK6: fea, kK7: P2), of OP
+  const char* w0;    // up1: the k-steps of N = 256, wgmma order
+  const float* b0;   // [256]: up1's bias for each phase
+  const char* w2;    // up2: 2 passes x its k-steps of N = 128
   const float* b2;   // [64]
   const char* w1;    // HRconv: the k-steps of N = 64
   const float* b1;   // [64]
@@ -278,15 +294,18 @@ __device__ __forceinline__ void produce_stage(const char* src, uint32_t ring, ui
   }
 }
 
+// The first base row of y1 over the 2x window that starts at 2x row r (y1
+// row i holds 2x rows 2i - 1 and 2i); alike for columns
+__device__ __forceinline__ int y1_first(int r) { return (r + 1) >> 1; }
+
 // One patch's window by the loader threads (tid = 0 .. kLoaders - 1), by
 // cp.async into the swizzled plane at `win` (no registers held, so all of a
 // thread's copies are in flight at once), with zeros outside the tile: K6 the
-// 2x window from P1, rows and columns from (Y0 / 2 - 2, X0 / 2 - 2); K7 P2
-// with its 2-pixel halo. `full` counts this thread once its copies landed.
-// The borders are per chunk, not TMA's zero fill past the tensor: the 2x
-// image's rows -1 and 2H lie inside P1 (phase 1 of row 0, phase 0 of row
-// H hold up1's values there), and K7's phases are channel groups.
-template <int TH, int TW, bool UP2, typename OP>
+// fea pixels under y1, rows and columns from y1_first(Y0 / 2 - 2) - 1 (up1's
+// zero padding); K7 P2 with its 2-pixel halo. `full` counts this thread
+// once its copies landed. The borders are per chunk, not TMA's zero fill
+// past the tensor: K7's phases are channel groups.
+template <int TH, int TW, int FORM, typename OP>
 __device__ __forceinline__ void load_window(const Params& p, const Patch& t, uint32_t win, uint32_t full,
                                             int tid) {
   using G = Geo<TH, TW>;
@@ -294,17 +313,17 @@ __device__ __forceinline__ void load_window(const Params& p, const Patch& t, uin
   constexpr int chunks = kNF / E;
   const OP* x = static_cast<const OP*>(p.x);
   const int H = p.H, W = p.W;
-  if constexpr (UP2) {
-#pragma unroll 4
-    for (int idx = tid; idx < G::PX * chunks; idx += kLoaders) {
+  if constexpr (FORM == kK6) {
+    // (four unrolled copies spilled 12 bytes, float32 28, in the
+    // producer's 40 registers)
+    const int r0 = y1_first(t.Y0 / 2 - 2) - 1, c0 = y1_first(t.X0 / 2 - 2) - 1;
+#pragma unroll 2
+    for (int idx = tid; idx < G::PF * chunks; idx += kLoaders) {
       const int pix = idx / chunks, ch = idx % chunks;
-      const int r2 = t.Y0 / 2 - 2 + pix / G::XW, c2 = t.X0 / 2 - 2 + pix % G::XW;
-      const bool in = r2 >= 0 && r2 < 2 * H && c2 >= 0 && c2 < 2 * W;
-      const int i = r2 & 1, j = c2 & 1;
-      const size_t o = in ? ((size_t(t.b) * (H + 1) + (r2 >> 1) + i) * (W + 1) + (c2 >> 1) + j) * (4 * kNF) +
-                                (2 * i + j) * kNF + ch * E
-                          : 0;
-      cp_async_16(win + plane_offset<OP, G::PX>(pix, ch), x + o, in);
+      const int r = r0 + pix / G::FW, c = c0 + pix % G::FW;
+      const bool in = r >= 0 && r < H && c >= 0 && c < W;
+      const size_t o = in ? ((size_t(t.b) * H + r) * W + c) * kNF + ch * E : 0;
+      cp_async_16(win + plane_offset<OP, G::PF>(pix, ch), x + o, in);
     }
   } else {
     // float32's 16 chunks a pixel: four unrolled copies spill (16 bytes) in
@@ -330,13 +349,14 @@ __device__ __forceinline__ uint32_t t_offset(int q, int col) {
   return uint32_t(q) * 128 + (uint32_t((col >> 2) ^ (q & 7)) << 4) + (col & 3) * 4;
 }
 
-// lrelu'd values of one accumulator row into pixel `pix` of a 64-channel
-// plane of PP pixels of OP (zero when outside the image), columns col0 ...
-template <typename OP, int PP, int NR>
-__device__ __forceinline__ void store_row(unsigned char* plane, int pix, bool inside, const float (&acc)[NR],
-                                          int h, int col0, int tig) {
+// lrelu'd values of one accumulator row, NJ groups of 8 columns, into
+// pixel `pix` of a 64-channel plane of PP pixels of OP (zero when outside
+// the image), columns col0 ...
+template <typename OP, int PP, int NJ>
+__device__ __forceinline__ void store_row(unsigned char* plane, int pix, bool inside, const float* acc, int h,
+                                          int col0, int tig) {
 #pragma unroll
-  for (int j = 0; j < NR / 4; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
     if constexpr (sizeof(OP) == 2) {
       *reinterpret_cast<uint32_t*>(plane + chunk_offset<kNF>(pix, col0 / 8 + j) + tig * 4) =
@@ -351,38 +371,70 @@ __device__ __forceinline__ void store_row(unsigned char* plane, int pix, bool in
 
 // The consumers' work on one patch whose window is in buffer j. win_empty:
 // where each consumer warp reports that it no longer reads the window.
-template <int TH, int TW, bool UP2, typename OP>
+template <int TH, int TW, int FORM, typename OP>
 __device__ __forceinline__ void consume(Consumer& c, unsigned char* base, const Params& p, const Patch& t,
                                         int j, uint32_t win_empty) {
   using G = Geo<TH, TW>;
-  using L = Layout<TH, TW, UP2, OP>;
-  using S = Plans<TH, TW, UP2, OP>;
+  using L = Layout<TH, TW, FORM, OP>;
+  using S = Plans<TH, TW, FORM, OP>;
   const int p2 = L::p2_of(j);
   const int H4 = 4 * p.H, W4 = 4 * p.W, tig = c.lane % 4;
   auto inside = [&](int Y, int X) { return Y >= 0 && Y < H4 && X >= 0 && X < W4; };
 
-  if constexpr (UP2) {
+  if constexpr (FORM == kK6) {
+    // up1: y1 pixel (yy, yx) reads fea window pixels (yy + s, yx + t); this
+    // warpgroup computes phases (a = wg, b = 0, 1), 2x pixels (2 (i0 + yy) -
+    // a, 2 (j0 + yx) - b), and writes those inside the 2x window (zero
+    // outside the 2x image: up2's padding)
+    Gemm<typename S::Up1, 2, G::FW, OP, G::PF> g(c, c.smem + L::win(0), p.b0, [&](int m) {
+      const int q = lane_row(c, m, G::PY);
+      return (q / G::YW) * G::FW + q % G::YW;
+    });
+    g.run(c.wg * 128);
+    if (c.lane == 0) mbar_arrive(win_empty);
+    const int R0 = t.Y0 / 2 - 2, C0 = t.X0 / 2 - 2, i0 = y1_first(R0), j0 = y1_first(C0);
+    g.each_tile(false, [&](int q0, const auto& acc, int) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int q = q0 + 8 * h;
+        // opaque, so that the row's y1 pixel is worked out here: hoisted out
+        // of the walk over patches, it stayed live through HRconv and
+        // spilled 8 bytes at 12 x 28
+        asm volatile("" : "+r"(q));
+        if (q >= G::PY) continue;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int r2 = 2 * (i0 + q / G::YW) - c.wg, c2 = 2 * (j0 + q % G::YW) - b;
+          const int wr = r2 - R0, wc = c2 - C0;
+          if (wr < 0 || wr >= G::XH || wc < 0 || wc >= G::XW) continue;
+          store_row<OP, G::PX, kNF / 8>(base + L::x2, wr * G::XW + wc,
+                                        r2 >= 0 && r2 < 2 * p.H && c2 >= 0 && c2 < 2 * p.W, acc + 32 * b, h, 0,
+                                        tig);
+        }
+      }
+    });
+    consumers_sync();
+
     // up2, pass cp: this warpgroup's sub-phase (cp, d = wg); P2 region
     // pixel (2 qy + cp, 2 qx + d) reads window pixels (qy + cp + s, qx + d + t)
 #pragma unroll 1
     for (int cp = 0; cp < 2; ++cp) {
       const int d = c.wg;
-      Gemm<typename S::Up2, 2, G::XW, OP, G::PX> g(c, c.smem + L::win(0), p.b2, [&](int m) {
+      Gemm<typename S::Up2, 2, G::XW, OP, G::PX> g(c, c.smem + L::x2, p.b2, [&](int m) {
         const int q = lane_row(c, m, G::PQ);
         return (q / G::QW + cp) * G::XW + q % G::QW + d;
       });
       g.run(c.wg * 64);
-      if (cp == 1 && c.lane == 0) mbar_arrive(win_empty);
-      // the other warpgroup may still read the last patch's T in P2
-      if (cp == 0) consumers_sync();
+      // (the other warpgroup no longer reads the last patch's T in P2: both
+      // passed the sync after up1)
       g.each_tile(false, [&](int q0, const auto& acc, int) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int q = q0 + 8 * h;
           if (q >= G::PQ) continue;
           const int py = 2 * (q / G::QW) + cp, px = 2 * (q % G::QW) + d;
-          store_row<OP, G::PP>(base + p2, py * G::PW + px, inside(t.Y0 - 2 + py, t.X0 - 2 + px), acc, h, 0,
-                               tig);
+          store_row<OP, G::PP, sizeof(acc) / 16>(base + p2, py * G::PW + px,
+                                                 inside(t.Y0 - 2 + py, t.X0 - 2 + px), acc, h, 0, tig);
         }
       });
     }
@@ -400,8 +452,8 @@ __device__ __forceinline__ void consume(Consumer& c, unsigned char* base, const 
       for (int h = 0; h < 2; ++h) {
         const int q = q0 + 8 * h;
         if (q >= G::PZ) continue;
-        store_row<OP, G::PZ>(base + L::z, q, inside(t.Y0 - 1 + q / G::ZW, t.X0 - 1 + q % G::ZW), acc, h, col0,
-                             tig);
+        store_row<OP, G::PZ, sizeof(acc) / 16>(base + L::z, q, inside(t.Y0 - 1 + q / G::ZW, t.X0 - 1 + q % G::ZW),
+                                               acc, h, col0, tig);
       }
     });
   }
@@ -448,17 +500,17 @@ __device__ __forceinline__ void consume(Consumer& c, unsigned char* base, const 
 #pragma unroll
     for (int e = 0; e < kOut; ++e) dst[e] = sum[e];
   }
-  if constexpr (!UP2) {
+  if constexpr (FORM == kK7) {
     if (c.lane == 0) mbar_arrive(win_empty);
   }
 }
 
 // Grid: min(patches, SMs) persistent blocks; block i takes patches i,
 // i + gridDim.x, ... of all B tiles.
-template <int TH, int TW, bool UP2, typename OP>
+template <int TH, int TW, int FORM, typename OP>
 __global__ void __launch_bounds__(kThreads, 1) tail_kernel(const Params p) {
-  using L = Layout<TH, TW, UP2, OP>;
-  using S = Plans<TH, TW, UP2, OP>;
+  using L = Layout<TH, TW, FORM, OP>;
+  using S = Plans<TH, TW, FORM, OP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t smem = smem_u32(smem_raw);
   const uint32_t full = smem + L::bars, empty = full + 8 * L::slots;
@@ -486,7 +538,8 @@ __global__ void __launch_bounds__(kThreads, 1) tail_kernel(const Params p) {
       // the weights, patch after patch, in the order the stages take them
       int s = 0;
       for (int i = blockIdx.x; i < total; i += gridDim.x) {
-        if constexpr (UP2) {
+        if constexpr (FORM == kK6) {
+          produce_stage<typename S::Up1>(p.w0, smem + L::ring, full, empty, s);
           produce_stage<typename S::Up2>(p.w2, smem + L::ring, full, empty, s);
           produce_stage<typename S::Up2>(p.w2 + S::Up2::STEPS * S::Up2::SLICE, smem + L::ring, full, empty, s);
         }
@@ -500,7 +553,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_kernel(const Params p) {
       for (int i = blockIdx.x; i < total; i += gridDim.x, ++k) {
         const int j = k % L::bufs, u = k / L::bufs;
         if (u > 0) mbar_wait(win_empty + 8 * j, (u - 1) & 1);
-        load_window<TH, TW, UP2, OP>(p, patch_of(p, i, TH, TW), smem + L::win(j), win_full + 8 * j, tid - 32);
+        load_window<TH, TW, FORM, OP>(p, patch_of(p, i, TH, TW), smem + L::win(j), win_full + 8 * j, tid - 32);
       }
     }
     return;
@@ -514,38 +567,40 @@ __global__ void __launch_bounds__(kThreads, 1) tail_kernel(const Params p) {
   for (int i = blockIdx.x; i < total; i += gridDim.x, ++k) {
     const int j = k % L::bufs;
     mbar_wait(win_full + 8 * j, (k / L::bufs) & 1);
-    consume<TH, TW, UP2, OP>(c, smem_raw, p, patch_of(p, i, TH, TW), j, win_empty + 8 * j);
+    consume<TH, TW, FORM, OP>(c, smem_raw, p, patch_of(p, i, TH, TW), j, win_empty + 8 * j);
   }
 }
 
 // The persistent grid of TH x TW patches over B tiles of H x W base pixels
-template <int TH, int TW, bool UP2, typename OP>
+template <int TH, int TW, int FORM, typename OP>
 int launch(Params p, int sms, cudaStream_t stream) {
-  constexpr int smem = Layout<TH, TW, UP2, OP>::bytes;
+  constexpr int smem = Layout<TH, TW, FORM, OP>::bytes;
   static_assert(smem <= 232448, "shared memory of one block");
   const cudaError_t err =
-      cudaFuncSetAttribute(tail_kernel<TH, TW, UP2, OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(tail_kernel<TH, TW, FORM, OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
   p.patches_x = (4 * p.W + TW - 1) / TW;
   p.patches = p.patches_x * ((4 * p.H + TH - 1) / TH);
   const int grid = cmin(p.B * p.patches, sms);
-  tail_kernel<TH, TW, UP2, OP><<<grid, kThreads, smem, stream>>>(p);
+  tail_kernel<TH, TW, FORM, OP><<<grid, kThreads, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
-// The launch's checks and parameters; tile(p, th, tw, with_up2) launches the
-// instance of the source. Returns a cudaError_t.
+// The launch's checks and parameters; tile(p) launches the instance of the
+// source for the form and patch shape. Returns a cudaError_t.
 template <class Tile>
-int tail_launch_with(const void* x, const void* w2, const void* b2, const void* w1, const void* b1, const void* w9,
-                     const void* b3, void* out, int B, int H, int W, int with_up2, int th, int tw,
-                     const Tile& tile) {
+int tail_launch_with(const void* x, const void* w0, const void* b0, const void* w2, const void* b2, const void* w1,
+                     const void* b1, const void* w9, const void* b3, void* out, int B, int H, int W, int form,
+                     int th, int tw, const Tile& tile) {
   if (B < 1 || H < 1 || W < 1 || H > (1 << 20) || W > (1 << 20)) return int(cudaErrorInvalidValue);
-  if (with_up2 && (w2 == nullptr || b2 == nullptr)) return int(cudaErrorInvalidValue);
+  if (form < kK7 || form > kK6) return int(cudaErrorInvalidValue);
+  if (form == kK6 && (w0 == nullptr || b0 == nullptr || w2 == nullptr || b2 == nullptr))
+    return int(cudaErrorInvalidValue);
   if (int64_t(B) * ((4 * int64_t(H) + th - 1) / th) * ((4 * int64_t(W) + tw - 1) / tw) > (1ll << 31) - 1)
     return int(cudaErrorInvalidValue);
-  const Params p{x, static_cast<const char*>(w2), static_cast<const float*>(b2), static_cast<const char*>(w1),
-                 static_cast<const float*>(b1), static_cast<const char*>(w9), static_cast<const float*>(b3),
-                 static_cast<float*>(out), B, H, W, 0, 0};
+  const Params p{x, static_cast<const char*>(w0), static_cast<const float*>(b0), static_cast<const char*>(w2),
+                 static_cast<const float*>(b2), static_cast<const char*>(w1), static_cast<const float*>(b1),
+                 static_cast<const char*>(w9), static_cast<const float*>(b3), static_cast<float*>(out), B, H, W, 0, 0};
   return tile(p);
 }
 

@@ -72,6 +72,7 @@ from realsr_tpu_torch.models.rrdbnet import SCHEDS, TAIL_MODES, tf32
 from realsr_tpu_torch.ops import build
 from realsr_tpu_torch.ops.pad import reflect101_indices, reflect101_pad2d, reflect101_pad_w
 from realsr_tpu_torch.ops.resize import resize_bicubic
+from realsr_tpu_torch.ops.tail_kernel import add_k6_runs, k6_runs
 from realsr_tpu_torch.ops.tta import NUM_TRANSFORMS, d4_inverse, d4_transform
 
 # one-shot operator notices (the planner anchors' provenance): printed at
@@ -369,6 +370,7 @@ class _CudaGraph:
     def __init__(self, state: _DeviceState):
         self._state = state
         self.graph = torch.cuda.CUDAGraph()
+        self.k6 = 0  # the K6 launches the recording holds
 
     @staticmethod
     def supports(device: torch.device) -> bool:
@@ -380,6 +382,7 @@ class _CudaGraph:
         side.wait_stream(cur)  # the static inputs were written on cur
         with torch.cuda.stream(side):
             fn()
+            k6 = k6_runs()
             self.graph.capture_begin(pool=self._state.pool, capture_error_mode="thread_local")
             try:
                 fn()
@@ -387,11 +390,16 @@ class _CudaGraph:
                 with contextlib.suppress(RuntimeError):
                     self.graph.capture_end()
                 raise
+            finally:
+                # the recording ran nothing: its K6 launches run at each replay
+                self.k6 = k6_runs() - k6
+                add_k6_runs(-self.k6)
             self.graph.capture_end()
         cur.wait_stream(side)  # the warm-up's output precedes cur's next use
 
     def replay(self) -> None:
         self.graph.replay()
+        add_k6_runs(self.k6)
 
 
 # the counter of each way _run_chunk runs a chunk (tracing on)
@@ -808,20 +816,25 @@ class RealSR:
     def _traced_chunk(self, padded, alpha, out, ph: int, pw: int, chunk: list, real: int, c: int) -> None:
         """:meth:`_run_chunk` with tracing on: in a ``dispatch`` span (its
         card, key, real tiles and mode), its tiles counted (``tiles.real``,
-        ``tiles.run``, and the model's ``bundle.chunk_counts``) and its mode
-        (``chunks.<mode>``), and its device time (``chunk.device``) taken on
-        its card's stream from before the gather to after the scatter."""
+        ``tiles.run``, and the model's ``bundle.chunk_counts``), its mode
+        (``chunks.<mode>``), its device time (``chunk.device``) taken on its
+        card's stream from before the gather to after the scatter, and the
+        fused tail K6's runs it put on the card (``tail.up1_fused``: its
+        launches, or its graph's recorded ones on a replay)."""
         dev = padded.device
         tracer.count("tiles.real", real)
         tracer.count("tiles.run", len(chunk))
         if self.bundle.chunk_counts is not None:
             for name, n in self.bundle.chunk_counts(ph, pw, len(chunk), real, self.prepadding).items():
                 tracer.count(name, n)
+        k6 = k6_runs()
         with tracer.span("dispatch", card=str(dev), key=f"{ph}x{pw}x{len(chunk)}", real=real) as sp:
             with tracer.device_timed("chunk.device", dev):
                 mode = self._run_chunk(padded, alpha, out, ph, pw, chunk, c)
             sp.attrs["mode"] = mode
         tracer.count(CHUNK_COUNTERS[mode])
+        if k6_runs() > k6:
+            tracer.count("tail.up1_fused", k6_runs() - k6)
 
     def _gather(self, padded, alpha, chunk, ph: int, pw: int, c: int, into: Optional[_ChunkProgram] = None):
         """The chunk's padded tiles [B, ph, pw, 3] and, for RGBA, its alpha

@@ -32,7 +32,7 @@ from realsr_tpu_torch.models.rrdbnet import (
 )
 from realsr_tpu_torch.ops.rdb_kernel import rdb_group
 from realsr_tpu_torch.ops.swin_kernel import BUILD as SWIN_BUILD
-from realsr_tpu_torch.ops.tail_kernel import pack_tail_params, tail_group
+from realsr_tpu_torch.ops.tail_kernel import K6, K7, TAIL_GROUPS, pack_tail_params
 from realsr_tpu_torch.utils.trace import tracer
 
 # the tail forms that run on the fused tail kernel (ops/tail_kernel.py)
@@ -79,7 +79,8 @@ def tail_groups(tail, op_dtype) -> tuple:
     """The kernel tail's library (K6 or K7) at the operand type, or none."""
     if tail not in KERNEL_TAILS:
         return ()
-    return (("tail_tf32" if op_dtype == torch.float32 else "tail_kernel", tail_group(tail == "kernel")),)
+    src = "tail_tf32" if op_dtype == torch.float32 else "tail_kernel"
+    return ((src, TAIL_GROUPS[K6 if tail == "kernel" else K7]),)
 
 
 def rrdb_tile_bytes(nf: int, side: int, dsize: int) -> int:

@@ -409,21 +409,21 @@ def packed_tail(params, fea, spec, od, tail_dt, mode=0):
     borders are those of the interleaved tail. ``mode`` 0: every stage as
     matmuls over concatenated shifted slices; 1: up2 so, then HRconv +
     conv_last on the fused kernel K7 (``ops.tail_kernel.hr_last_packed``);
-    2: up2 + HRconv + conv_last on the fused kernel K6
-    (``up2_hr_last_packed``) straight from up1's output. The kernel modes
+    2: up1 + up2 + HRconv + conv_last on the fused kernel K6
+    (``up1_up2_hr_last_packed``) straight from ``fea``. The kernel modes
     read ``params["tail"]`` (``ops.tail_kernel.pack_tail_params``) and hand
     the kernel its input at the operand type ``od``: bfloat16 in mixed mode
-    (y1 and P2 are float32 there and cast once), float32 as it is in float32
-    mode, where the kernels' float32 instances take it.
+    (fea and P2 are float32 there and cast once), float32 as it is in
+    float32 mode, where the kernels' float32 instances take it.
     """
+    if mode == 2:
+        from realsr_tpu_torch.ops.tail_kernel import up1_up2_hr_last_packed
+
+        return up1_up2_hr_last_packed(fea.to(od).contiguous(), params["tail"])
     dev, nf = fea.device, fea.shape[-1]
     up_w = torch.as_tensor(params["up"]["w"], device=dev)
     up_b = torch.as_tensor(params["up"]["b"], device=dev)
     y1 = up1_phases(fea, up_w[0], up_b[0], od, tail_dt)
-    if mode == 2:
-        from realsr_tpu_torch.ops.tail_kernel import up2_hr_last_packed
-
-        return up2_hr_last_packed(y1.to(od).contiguous(), params["tail"])
     P2 = up2_phases(p1_phases(y1, nf), up2_matrices(_hwio(up_w[1])), up_b[1], od, tail_dt)
     if mode == 1:
         from realsr_tpu_torch.ops.tail_kernel import hr_last_packed

@@ -25,8 +25,8 @@ bfloat16 operands) the products of the Swin layers and the 3conv bodies
 run in bfloat16 (``F.linear``, cuDNN), the attention on K8 and each
 residual add with the LayerNorm after it on K9 (``kernels``); conv_first
 runs in float32 on bfloat16-rounded operands, as RRDBNet's does, and the
-tail after conv_before_upsample is RRDBNet's: ``up1_phases`` and K6
-(``tail="kernel"``) or the interleaved convs. The kernels' wrappers take
+tail after conv_before_upsample is RRDBNet's: K6, up1 inside it
+(``tail="kernel"``), or the interleaved convs. The kernels' wrappers take
 their plain versions for a tensor on the CPU.
 
 Parameters come from SwinIR's published state dict (:func:`params_from_state`),
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from realsr_tpu_torch.models.rrdbnet import LRELU_SLOPE, conv3x3, up1_phases
+from realsr_tpu_torch.models.rrdbnet import LRELU_SLOPE, conv3x3
 from realsr_tpu_torch.ops import swin_kernel as sk
 from realsr_tpu_torch.ops.resize import nearest_x2
 
@@ -256,13 +256,12 @@ def _conv3(x, p, i=None):
 
 def _tail(p, f, od, storage_dtype, tail):
     """conv_before_upsample's output NHWC ``f`` -> NHWC float32 at 4x:
-    RRDBNet's up1 phases and K6 (``tail`` "kernel") or its interleaved
+    RRDBNet's K6 (``tail`` "kernel": up1 inside it) or its interleaved
     convs."""
     if tail == "kernel":
-        from realsr_tpu_torch.ops.tail_kernel import up2_hr_last_packed
+        from realsr_tpu_torch.ops.tail_kernel import up1_up2_hr_last_packed
 
-        y1 = up1_phases(f, p["up"]["w"][0], p["up"]["b"][0], od, storage_dtype)
-        return up2_hr_last_packed(y1.to(od).contiguous(), p["tail"])
+        return up1_up2_hr_last_packed(f.to(od).contiguous(), p["tail"])
 
     def conv(x, group, s=None, slope=LRELU_SLOPE):
         w, b = (p[group]["w"], p[group]["b"]) if s is None else (p[group]["w"][s], p[group]["b"][s])

@@ -63,7 +63,7 @@ GROUP_MACROS = {
 }
 _RDB_GROUPS = ("f32_nf64", "f32_nf32", "bf16_nf64", "bf16_nf32")
 _F32_GROUPS = ("f32_nf64", "f32_nf32")
-_TAIL_GROUPS = ("k6", "k7")
+_TAIL_GROUPS = ("k6", "k7")  # ops/tail_kernel.py::TAIL_GROUPS
 # the build groups of each source: the tile pick moves the patch side from
 # image to image, so a group holds every patch side of its instances and a
 # new side never waits for nvcc
@@ -74,7 +74,7 @@ GROUPS = {
 }
 # each source's instances, as its dispatch functions launch them: the call
 # with {T} the patch side ({TH}, {TW} the tail's patch shape) and {TS},
-# {NF}, {GC}, {UP2} what the group names; the patch sides (None: the call
+# {NF}, {GC}, {FORM} what the group names; the patch sides (None: the call
 # as it stands); the states it exists for (the paired carry: a float32
 # state as two bf16 planes)
 _CALLS = {
@@ -89,8 +89,8 @@ _CALLS = {
         ("launch_chained<{T}, float, {NF}, {GC}, LayoutF32<{T}, {NF}, {GC}>>", (10, 9, 8), ("f32",)),
         ("launch_packed<{T}, float, {NF}, {GC}, LayoutF32<{T}, {NF}, {GC}>>", (8, 7), ("f32",)),
     ),
-    "tail_kernel": (("launch<{TH}, {TW}, {UP2}, __nv_bfloat16>", ((16, 16), (12, 28)), None),),
-    "tail_tf32": (("launch<{TH}, {TW}, {UP2}, float>", ((10, 14), (8, 16)), None),),
+    "tail_kernel": (("launch<{TH}, {TW}, {FORM}, __nv_bfloat16>", ((16, 16), (12, 28)), None),),
+    "tail_tf32": (("launch<{TH}, {TW}, {FORM}, float>", ((10, 14), (8, 16)), None),),
     "swin_kernel": (("launch_window_attn<8, 30>", None, None), ("launch_swin_norm<240>", None, None)),
 }
 _WIDTHS = {"nf64": (64, 32), "nf32": (32, 16)}
@@ -124,8 +124,8 @@ def instances(name: str, group: str) -> tuple:
             for t in tiles:
                 out.append(call.format(T=t, TS=_STATE_TYPES[parts[0]], NF=nf, GC=gc))
         else:
-            up2 = "true" if group == "k6" else "false"
-            out += [call.format(TH=th, TW=tw, UP2=up2) for th, tw in tiles]
+            form = {"k7": "kK7", "k6": "kK6"}[group]  # tail_wgmma.cuh's forms
+            out += [call.format(TH=th, TW=tw, FORM=form) for th, tw in tiles]
     return tuple(out)
 
 

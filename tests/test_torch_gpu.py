@@ -198,25 +198,35 @@ def _tail_operands(cuda, op_dtype):
     return {k: v.to(cuda) for k, v in TLK.pack_tail_params(p, op_dtype).items()}
 
 
+# each form's wrapper, plain version and input shape
+TAIL_FORMS = {
+    TLK.K6: (TLK.up1_up2_hr_last_packed, TLK.up1_up2_hr_last_reference, lambda B, H, W: (B, H, W, 64)),
+    TLK.K7: (TLK.hr_last_packed, TLK.hr_last_reference, lambda B, H, W: (B, H, W, 1024)),
+}
+
+
+def _tail_input(cuda, form, B, H, W, seed, dtype):
+    """A form's input: K6's fea signed, as the long skip's sum; K7's phases
+    non-negative, as lrelu leaves them (mostly)."""
+    x = np.random.default_rng(seed).normal(0, 0.5, TAIL_FORMS[form][2](B, H, W)).astype(np.float32)
+    return torch.from_numpy(x if form == TLK.K6 else np.abs(x)).to(cuda, dtype)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("with_up2", [True, False])
-@pytest.mark.parametrize("B,H,W", [(1, 5, 7), (2, 37, 21), (1, 1, 1), (9, 37, 37)])
-def test_tail_kernel_matches_plain(cuda, with_up2, B, H, W):
-    """K6 (with_up2) and K7 on odd, non-square tiles (ragged patches), a
-    single base pixel, and a batch of more patches than the card has SMs
-    (persistent blocks take several, 12 x 28 patches): the kernel's error
-    against the float32 plain tail is at most max(2 x the plain bf16
-    version's, 1e-3), the JAX suite's rule for its tail kernel; two runs are
-    bit-equal; one launch is counted per call."""
-    fn, ref = (
-        (TLK.up2_hr_last_packed, TLK.up2_hr_last_reference)
-        if with_up2
-        else (TLK.hr_last_packed, TLK.hr_last_reference)
-    )
-    shape = (B, H + 1, W + 1, 256) if with_up2 else (B, H, W, 1024)
-    x = torch.from_numpy(
-        np.abs(np.random.default_rng(5).normal(0, 0.5, shape)).astype(np.float32)
-    ).to(cuda, torch.bfloat16)
+@pytest.mark.parametrize("form,B,H,W", [
+    (form, *shape) for form in (TLK.K6, TLK.K7)
+    for shape in ((1, 5, 7), (2, 37, 21), (1, 1, 1), (9, 37, 37), (1, 12, 12), (2, 23, 17))
+] + [(TLK.K6, b, 276, 276) for b in (5, 6, 4)])
+def test_tail_kernel_matches_plain(cuda, form, B, H, W):
+    """K6 (up1 inside) and K7 on odd, non-square tiles (ragged
+    patches), a single base pixel, and a batch of more patches than the card
+    has SMs (persistent blocks take several, 12 x 28 patches); K6 also at
+    the cells' chunks of 276² tiles (anime 5, df2k 6, SwinIR 4): the
+    kernel's error against the float32 plain tail is at most max(2 x the
+    plain bf16 version's, 1e-3), the JAX suite's rule for its tail kernel;
+    two runs are bit-equal; one launch is counted per call."""
+    fn, ref, _ = TAIL_FORMS[form]
+    x = _tail_input(cuda, form, B, H, W, 5, torch.bfloat16)
     tp = _tail_operands(cuda, torch.bfloat16)
     launches = TLK.LAUNCHES[fn.__name__]
     got = fn(x, tp)
@@ -233,32 +243,33 @@ def test_tail_kernel_matches_plain(cuda, with_up2, B, H, W):
 @pytest.mark.gpu
 def test_tail_kernel_has_no_float16_instance(cuda):
     tp = _tail_operands(cuda, torch.float32)
-    x = torch.zeros((1, 6, 6, 256), device=cuda, dtype=torch.float16)
+    x = torch.zeros((1, 6, 6, 1024), device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="not torch.float16"):
-        TLK.up2_hr_last_packed(x, tp)
+        TLK.hr_last_packed(x, tp)
+    with pytest.raises(NotImplementedError, match="not torch.float16"):
+        TLK.up1_up2_hr_last_packed(x[..., :64].contiguous(), tp)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile", TLK.TAIL_TF32_TILES)
-@pytest.mark.parametrize("with_up2", [True, False])
+@pytest.mark.parametrize("form", [TLK.K6, TLK.K7])
 @pytest.mark.parametrize("B,H,W", [(1, 5, 7), (2, 37, 21), (9, 37, 37)])
-def test_tf32_tail_kernel_matches_plain(cuda, tile, with_up2, B, H, W):
-    """K6 and K7's float32 instances (3xTF32 wgmma) at each patch shape they
-    are built for, on ragged tiles and on more patches than SMs: within
-    1e-4 of the float32 plain version's scale (TF32 off), as float32 K1;
-    two runs bit-equal; one launch counted per call."""
-    name = "up2_hr_last_packed" if with_up2 else "hr_last_packed"
-    ref = TLK.up2_hr_last_reference if with_up2 else TLK.hr_last_reference
-    shape = (B, H + 1, W + 1, 256) if with_up2 else (B, H, W, 1024)
-    x = torch.from_numpy(np.abs(np.random.default_rng(6).normal(0, 0.5, shape)).astype(np.float32)).to(cuda)
+def test_tf32_tail_kernel_matches_plain(cuda, tile, form, B, H, W):
+    """The two forms' float32 instances (3xTF32 wgmma) at each patch
+    shape they are built for, on ragged tiles and on more patches than SMs:
+    within 1e-4 of the float32 plain version's scale (TF32 off), as float32
+    K1; two runs bit-equal; one launch counted per call."""
+    _, ref, _ = TAIL_FORMS[form]
+    name = TLK.FORMS[form]
+    x = _tail_input(cuda, form, B, H, W, 6, torch.float32)
     tp = _tail_operands(cuda, torch.float32)
     launches = TLK.LAUNCHES[name]
-    got = TLK._launch(name, x, tp, with_up2, tile)
+    got = TLK._launch(form, x, tp, tile)
     torch.cuda.synchronize()
     assert TLK.LAUNCHES[name] == launches + 1
     assert got.shape == (B, 4 * H, 4 * W, 3) and got.dtype == torch.float32
     assert _rel(got, ref(x, tp)) <= 1e-4
-    assert torch.equal(got, TLK._launch(name, x, tp, with_up2, tile))
+    assert torch.equal(got, TLK._launch(form, x, tp, tile))
 
 
 # the trunk modes' kernels (K5 packed, K3 chained, K4 paired): a small and a
@@ -519,8 +530,8 @@ def test_float32_engine_runs_trunk_mode_kernels(cuda, tmp_path, cfg):
 
 @pytest.mark.gpu
 def test_float32_engine_runs_the_tf32_tail(cuda, tmp_path):
-    """A float32 engine on "auto" at nf = 64 ends on float32 K6, one launch
-    per chunk, and keeps >= 99.9 % of u8 values equal to the float32 plain
+    """A float32 engine on "auto" at nf = 64 ends on float32 K6 (up1
+    inside), and keeps >= 99.9 % of u8 values equal to the float32 plain
     engine's (cuDNN convs for the trunk and the interleaved tail), max diff
     1."""
     from realsr_tpu_torch.engine import EngineConfig, RealSR
@@ -531,9 +542,9 @@ def test_float32_engine_runs_the_tf32_tail(cuda, tmp_path):
     e = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32"))
     e.load(*files)
     assert (e.variant, e.tail) == ("cuda", "kernel")
-    launches = TLK.LAUNCHES["up2_hr_last_packed"]
+    launches = TLK.LAUNCHES["up1_up2_hr_last_packed"]
     got = e.process(img)
-    assert TLK.LAUNCHES["up2_hr_last_packed"] > launches
+    assert TLK.LAUNCHES["up1_up2_hr_last_packed"] > launches
     plain = RealSR(gpuid=0, config=EngineConfig(tilesize=32, storage="float32", variant="dense", tail="interleaved"))
     plain.load(*files)
     d = np.abs(got.astype(int) - plain.process(img).astype(int))
@@ -603,7 +614,7 @@ def test_banded_equals_whole_on_card(cuda, tmp_path, monkeypatch, storage):
     monkeypatch.setattr(engine_mod, "_CudaGraph", _counted(engine_mod._CudaGraph))
     e.precompile(50, 75, channels=4)
     # precompile captured the image's programs, each launching K1 and K6
-    assert e.programs() and all(p.graph.launches.get("rdb_apply") and p.graph.launches.get("up2_hr_last_packed")
+    assert e.programs() and all(p.graph.launches.get("rdb_apply") and p.graph.launches.get("up1_up2_hr_last_packed")
                                 for p in e.programs().values())
     whole = e.process(img)
     for btr in (1, 2):
@@ -775,6 +786,43 @@ def test_traced_chunk_device_times_on_card(cuda, tmp_path, traced, shards):
     assert traced._count.get("merge.device", 0) == (shards > 1) == traced._count.get("mesh.merge", 0)
     assert traced._pool["cuda:0"]
     np.testing.assert_array_equal(got, buf.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tta", [False, True])
+def test_traced_fused_tail_counted_once_a_launch(cuda, tmp_path, traced, tta):
+    """An engine on the K6 tail counts ``tail.up1_fused`` once a forward of
+    a chunk (TTA: two for non-square tiles, one for square): eagerly once a
+    K6 launch, and no other tail form launches; with graphs the replayed
+    chunks count their programs' recorded K6 launches, though the wrapper
+    runs only on eager and captured chunks. An engine on K7 counts none."""
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.ncnn.synth import make_model_dir
+
+    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
+    img = np.random.default_rng(13).integers(0, 256, (70, 90, 3), np.uint8)
+    for graphs in (False, True):
+        e = RealSR(gpuid=0, tta_mode=tta, config=EngineConfig(tilesize=32, max_batch=4, cuda_graphs=graphs))
+        e.load(*files)
+        assert e.tail == "kernel"
+        for _ in range(3):
+            before, seen = dict(TLK.LAUNCHES), len(traced.records())
+            counted = traced._count.get("tail.up1_fused", 0)
+            e.process(img)
+            n = traced._count["tail.up1_fused"] - counted
+            keys = [r.attrs["key"].split("x") for r in traced.records()[seen:] if r.name == "dispatch"]
+            want = sum(2 if tta and ph != pw else 1 for ph, pw, _ in keys)
+            ran = {k: TLK.LAUNCHES[k] - before[k] for k in TLK.LAUNCHES}
+            assert keys and n == want
+            if not graphs:
+                assert ran == {"up1_up2_hr_last_packed": n, "hr_last_packed": 0}
+        if graphs:  # the third image replays every chunk
+            assert ran == {"up1_up2_hr_last_packed": 0, "hr_last_packed": 0}
+    k7 = RealSR(gpuid=0, tta_mode=tta, config=EngineConfig(tilesize=32, max_batch=4, tail="kernel_hr"))
+    k7.load(*files)
+    counted, chunks = traced._count["tail.up1_fused"], traced._count["dispatch"]
+    k7.process(img)
+    assert traced._count["dispatch"] > chunks and traced._count["tail.up1_fused"] == counted
 
 
 @pytest.mark.gpu

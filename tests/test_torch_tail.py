@@ -8,6 +8,7 @@ same numpy inputs.
 
 import functools
 import os
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -107,15 +108,19 @@ def test_phase_split_and_packed_weights_bit_equal_jax():
         np.testing.assert_array_equal(g, np.asarray(wnt))
 
 
-@pytest.mark.parametrize("name", ["w2", "w1", "w9"])
+@pytest.mark.parametrize("name", ["w2", "w1", "w9", "w0"])
 def test_wgmma_layout_round_trips(name):
     """The kernel's operands, k16 slices in wgmma's layout (w9 in W9-packed
-    columns), unpack bit-equal to the JAX package's matrices (bf16-rounded);
-    b3 stays the JAX package's padded bias."""
+    columns, w0 up1's phases side by side), unpack bit-equal to the JAX
+    package's matrices (bf16-rounded; w0 its packed tail's k1c); b3 stays
+    the JAX package's padded bias and b0 is its up1 bias tiled over the
+    four phases."""
     params = _tail_params(64, seed=41)
     p = TR.params_from_jax(params)
     tp = TK.pack_tail_params(p, torch.bfloat16)
-    dense = dict(zip(("w2", "w1", "w9"), TK._dense(tp)))
+    dense = dict(zip(("w2", "w1", "w9"), TK._dense(tp)), w0=TK._dense_up1(tp))
+    k1 = R._phase_split(jnp.asarray(params["up"]["w"][0]))
+    k1c = jnp.concatenate([k1[0][0], k1[0][1], k1[1][0], k1[1][1]], axis=-1)  # rrdbnet.py _packed_tail
     kj = R._phase_split(jnp.asarray(params["up"]["w"][1]))
     w2_jax = jnp.stack([
         jnp.concatenate([kj[c][d][s, t] for s in (0, 1) for t in (0, 1)], 0)
@@ -130,10 +135,12 @@ def test_wgmma_layout_round_trips(name):
         "w2": np.asarray(w2_jax),
         "w1": np.asarray(w1_j).T,
         "w9": np.asarray(w9_j).reshape(9, 8, 64).transpose(0, 2, 1).reshape(576, 8),
+        "w0": np.asarray(k1c).reshape(256, 256),
     }[name]
     assert torch.equal(dense[name], torch.from_numpy(np.array(want)).to(torch.bfloat16))
-    assert tp[name].numel() == {"w2": 4 * 256 * 64, "w1": 576 * 64, "w9": 64 * TK.W9N}[name]
+    assert tp[name].numel() == {"w2": 4 * 256 * 64, "w1": 576 * 64, "w9": 64 * TK.W9N, "w0": 256 * 256}[name]
     assert tp["b3"].tolist() == np.asarray(b3_j).ravel().tolist()
+    assert tp["b0"].tolist() == np.tile(params["up"]["b"][0], 4).tolist()
 
 
 def test_wgmma_layout_is_k16_slices():
@@ -162,17 +169,17 @@ def _tf32_unpack(packed: torch.Tensor, k: int, n: int):
     return out
 
 
-@pytest.mark.parametrize("name", ["w2t", "w1t", "w9t"])
+@pytest.mark.parametrize("name", ["w2t", "w1t", "w9t", "w0t"])
 def test_tf32_slices_round_trip(name):
     """float32 operands also pack the float32 kernel's "w2t" / "w1t" /
-    "w9t": per k8 step the tf32 hi slice, then the lo slice, in the order of
+    "w9t" / "w0t": per k8 step the tf32 hi slice, then the lo slice, in the order of
     _wg_pack's k16 slices (the same matrices, the same passes): hi + lo
     unslice to the dense float32 weights within 2^-21, relative, and bf16
     operands pack none of them."""
     p = TR.params_from_jax(_tail_params(64, seed=44))
     tp = TK.pack_tail_params(p, torch.float32)
     assert name not in TK.pack_tail_params(p, torch.bfloat16)
-    k, n, passes = {"w2t": (256, 128, 2), "w1t": (576, 64, 1), "w9t": (64, TK.W9N, 1)}[name]
+    k, n, passes = {"w2t": (256, 128, 2), "w1t": (576, 64, 1), "w9t": (64, TK.W9N, 1), "w0t": (256, 256, 1)}[name]
     dense = tp[name[:2]].reshape(passes, -1)
     packed = tp[name].reshape(passes, -1)
     assert tp[name].dtype == torch.float32 and tp[name].numel() == 2 * tp[name[:2]].numel()
@@ -244,16 +251,14 @@ def test_w9_form_of_kernel_tails_matches_jax_kernels(tail, kernel):
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
 
 
-@pytest.mark.parametrize("B,H,W", [(8, 148, 148), (2, 37, 21), (1, 5, 7), (1, 1, 1)])
-@pytest.mark.parametrize("with_up2", [True, False])
-def test_tail_geometry_fits_and_covers(B, H, W, with_up2):
-    """The chosen patch shape is built, fits one block's shared memory and
-    tiles the 4x output with no patch row or column left empty; its grid is
-    at most one block per SM; its cost is the least of the shapes."""
-    g = TK.tail_geometry(B, H, W, with_up2)
+def _check_geometry(geometry, tiles, smem, B, H, W, form):
+    """The chosen patch shape is built, even, fits one block's shared memory
+    and tiles the 4x output with no patch row or column left empty; its grid
+    is at most one block per SM; its cost is the least of the shapes."""
+    g = geometry(B, H, W, form)
     th, tw = g.tile
-    assert g.tile in TK.TAIL_TILES and th % 2 == 0 and tw % 2 == 0
-    assert TK.tail_smem_bytes(th, tw, with_up2) <= TK.SMEM_LIMIT
+    assert g.tile in tiles and th % 2 == 0 and tw % 2 == 0
+    assert smem(th, tw, form) <= TK.SMEM_LIMIT
     py, px = g.patches
     assert py * th >= 4 * H > (py - 1) * th and px * tw >= 4 * W > (px - 1) * tw
     assert g.blocks == B * py * px and g.grid == min(g.blocks, 132)
@@ -261,53 +266,86 @@ def test_tail_geometry_fits_and_covers(B, H, W, with_up2):
 
     def cost(t):
         blocks = B * -(-4 * H // t[0]) * -(-4 * W // t[1])
-        return -(-blocks // 132) * TK.tail_block_macs(*t, with_up2)
+        return -(-blocks // 132) * TK.tail_block_macs(*t, form)
 
-    assert cost(g.tile) == min(cost(t) for t in TK.TAIL_TILES)
+    assert cost(g.tile) == min(cost(t) for t in tiles if smem(*t, form) <= TK.SMEM_LIMIT)
+    return g
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 148, 148), (2, 37, 21), (1, 5, 7), (1, 1, 1)])
+@pytest.mark.parametrize("with_up2", [True, False])
+def test_tail_geometry_fits_and_covers(B, H, W, with_up2):
+    """K6 (with_up2: up1 and up2 inside) and K7: :func:`_check_geometry`."""
+    g = _check_geometry(TK.tail_geometry, TK.TAIL_TILES, TK.tail_smem_bytes, B, H, W,
+                        TK.K6 if with_up2 else TK.K7)
     if (B, H, W) == (8, 148, 148):
         assert g.tile == (12, 28) and g.blocks == 8800
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 148, 148), (5, 276, 276), (2, 37, 21), (1, 5, 7), (1, 1, 1)])
+def test_fused_tail_geometry_fits_and_covers(B, H, W):
+    """K6 with up1 inside: :func:`_check_geometry`; 8 x 148² and the cells'
+    chunks of 276² take 12 x 28, and up1 issues 16 x 256 x 256 MACs a
+    patch: y1 fills one 64-row tile at every patch shape."""
+    g = _check_geometry(TK.tail_geometry, TK.TAIL_TILES, TK.tail_smem_bytes, B, H, W, TK.K6)
+    if (B, H, W) in ((8, 148, 148), (5, 276, 276)):
+        assert g.tile == (12, 28)
+    for t in TK.TAIL_TILES + TK.TAIL_TF32_TILES:
+        r = TK._regions(*t)
+        assert r["y1"] <= 64
+        up2 = 4 * 64 * -(-r["sub"] // 64) * 256 * 64
+        assert TK.tail_block_macs(*t) - TK.tail_block_macs(*t, TK.K7) - up2 == 64 * 256 * 256
 
 
 @pytest.mark.parametrize("B,H,W", [(8, 148, 148), (2, 37, 21), (9, 37, 37), (1, 1, 1)])
 @pytest.mark.parametrize("with_up2", [True, False])
 def test_tail_tf32_geometry_fits_and_covers(B, H, W, with_up2):
-    """The float32 instances' patch shape: built, even, within one block's
-    shared memory with float32 planes, covering the 4x output, at most one
-    block per SM, and the least cost of TAIL_TF32_TILES by tail_geometry's
-    rule; the 12 x 28 and 16 x 16 of the bfloat16 instances do not fit."""
-    g = TK.tail_tf32_geometry(B, H, W, with_up2)
-    th, tw = g.tile
-    assert g.tile in TK.TAIL_TF32_TILES and th % 2 == 0 and tw % 2 == 0
-    assert TK.tail_tf32_smem_bytes(th, tw, with_up2) <= TK.SMEM_LIMIT
-    py, px = g.patches
-    assert py * th >= 4 * H > (py - 1) * th and px * tw >= 4 * W > (px - 1) * tw
-    assert g.blocks == B * py * px and g.grid == min(g.blocks, 132)
-
-    def cost(t):
-        blocks = B * -(-4 * H // t[0]) * -(-4 * W // t[1])
-        return -(-blocks // 132) * TK.tail_block_macs(*t, with_up2)
-
-    assert cost(g.tile) == min(cost(t) for t in TK.TAIL_TF32_TILES)
+    """The float32 instances' patch shape, K6 (with_up2) and K7:
+    :func:`_check_geometry` with float32 planes over TAIL_TF32_TILES; the
+    12 x 28 and 16 x 16 of the bfloat16 instances do not fit."""
+    form = TK.K6 if with_up2 else TK.K7
+    g = _check_geometry(TK.tail_tf32_geometry, TK.TAIL_TF32_TILES, TK.tail_tf32_smem_bytes, B, H, W, form)
     for t in TK.TAIL_TILES:
-        assert TK.tail_tf32_smem_bytes(*t, with_up2) > TK.SMEM_LIMIT
+        assert TK.tail_tf32_smem_bytes(*t, form) > TK.SMEM_LIMIT
     if (B, H, W) == (8, 148, 148):
         assert g.tile == (10, 14) and g.blocks == 20640
-        # hand count, K6: the window 9 x 11, z 12 x 16, P2 14 x 18 pixels,
-        # each two sub-planes of 128-byte pixels padded to 1 KB; 2 x 32 KB
-        # slots; 6 barriers
+        # hand count, K7: z 12 x 16 and two P2 14 x 18 pixels, each two
+        # sub-planes of 128-byte pixels padded to 1 KB; 2 x 16 KB slots; 8
+        # barriers
         sub = lambda p: -(-p * 128 // 1024) * 1024  # noqa: E731
-        if with_up2:
-            assert TK.tail_tf32_smem_bytes(10, 14) == 2 * (sub(99) + sub(192) + sub(252)) + 65536 + 48
+        if not with_up2:
+            assert TK.tail_tf32_smem_bytes(10, 14, form) == 2 * (sub(192) + 2 * sub(252)) + 32768 + 64
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 148, 148), (2, 37, 21), (9, 37, 37), (1, 1, 1)])
+def test_fused_tail_tf32_geometry_fits_and_covers(B, H, W):
+    """K6 with up1 inside at float32: :func:`_check_geometry`; at 8 x 148²
+    10 x 14, whose block holds the fea window 6 x 7, the 2x window 9 x 11,
+    z 12 x 16 and P2 14 x 18 pixels, each two sub-planes of 128-byte pixels
+    padded to 1 KB, 2 x 32 KB slots and 6 barriers."""
+    g = _check_geometry(TK.tail_tf32_geometry, TK.TAIL_TF32_TILES, TK.tail_tf32_smem_bytes, B, H, W, TK.K6)
+    for t in TK.TAIL_TILES:
+        assert TK.tail_tf32_smem_bytes(*t) > TK.SMEM_LIMIT
+    if (B, H, W) == (8, 148, 148):
+        assert g.tile == (10, 14) and g.blocks == 20640
+        sub = lambda p: -(-p * 128 // 1024) * 1024  # noqa: E731
+        assert TK.tail_tf32_smem_bytes(10, 14) == 2 * (sub(42) + sub(99) + sub(192) + sub(252)) + 65536 + 48
 
 
 def test_tail_block_macs_count_the_stages():
-    """tail_block_macs against the stages counted by hand at 16 x 16: up2 4
-    sub-phases of 10 x 10 pixels in 2 tiles, HRconv and conv_last over 18 x
-    18 z pixels in 6 tiles."""
-    assert TK.tail_block_macs(16, 16) == 4 * 128 * 256 * 64 + 384 * (576 * 64 + 64 * 32)
-    assert TK.tail_block_macs(16, 16, False) == 384 * (576 * 64 + 64 * 32)
-    assert TK.tail_smem_bytes(16, 16) == 128 * (12 * 12 + 18 * 18 + 20 * 20) + 2 * 32768 + 48
-    assert TK.tail_smem_bytes(16, 16, False) == 128 * (18 * 18 + 2 * 20 * 20) + 2 * 16384 + 64
+    """tail_block_macs against the stages counted by hand at 16 x 16: up1
+    over 7 x 7 y1 pixels in one tile (K6), up2 4 sub-phases of 10 x 10
+    pixels in 2 tiles, HRconv and conv_last over 18 x 18 z pixels in 6
+    tiles; shared memory: the fea window 8 x 8 (K6), the 2x window 12 x 12,
+    z 18 x 18, P2 20 x 20."""
+    k7 = 384 * (576 * 64 + 64 * 32)
+    assert TK.tail_block_macs(16, 16) == 64 * 256 * 256 + 4 * 128 * 256 * 64 + k7
+    assert TK.tail_block_macs(16, 16, TK.K7) == k7
+    assert TK.tail_smem_bytes(16, 16) == 128 * (8 * 8 + 12 * 12 + 18 * 18 + 20 * 20) + 2 * 32768 + 48
+    assert TK.tail_smem_bytes(16, 16, TK.K7) == 128 * (18 * 18 + 2 * 20 * 20) + 2 * 16384 + 64
+    # a base pixel: up1 4 x 256 x 64, the rest 16 x 64 x (256 + 576) + 16 x 3 x 576
+    assert 16 * TK.tail_macs_per_pixel() == 945_152 == 4 * 256 * 64 + 16 * 64 * (256 + 576) + 16 * 3 * 576
+    assert 16 * TK.tail_macs_per_pixel(TK.K7) == 16 * (576 * 64 + 3 * 576)
 
 
 @pytest.mark.parametrize("H,W", [(7, 9), (8, 8), (5, 12)])
@@ -339,7 +377,7 @@ def test_packed_tail_matches_jax_mixed():
 @pytest.mark.parametrize("H,W", [(7, 9), (12, 12)])
 @pytest.mark.parametrize("tail,kernel", [("kernel", 2), ("kernel_hr", 1)])
 def test_kernel_plain_versions_match_jax_kernels(tail, kernel, H, W):
-    """K6 (up2_hr_last_packed) and K7 (hr_last_packed) on CPU tensors take
+    """K6 (up1_up2_hr_last_packed) and K7 (hr_last_packed) on CPU tensors take
     their plain versions; held to JAX's Pallas kernels in interpret mode,
     float32, nf = 64. CPU calls launch nothing."""
     params = _tail_params(64, seed=15)
@@ -350,6 +388,68 @@ def test_kernel_plain_versions_match_jax_kernels(tail, kernel, H, W):
     assert TK.LAUNCHES == launches
     assert got.shape == want.shape == (2, 4 * H, 4 * W, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("od", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W", [(2, 7, 9), (1, 12, 5)])
+def test_fused_entry_plain_version_matches_up1_then_p1_entry(od, B, H, W):
+    """K6's plain version (up1_up2_hr_last_packed on CPU tensors) against
+    up1_phases (the packed tail's up1, cuDNN's conv on the card) rounded to
+    the operand type and then up2_hr_last_reference: y1 within one
+    rounding step of the operand type (the two sum in another order; the
+    same bits in float32 to 1e-6), the outputs within the mixed tolerance
+    (1e-2 of the output's scale; float32 2e-4 absolute)."""
+    p = TR.params_from_jax(_tail_params(64, seed=47))
+    tp = TK.pack_tail_params(p, od)
+    fea = torch.from_numpy(np.random.default_rng(48).normal(0, 1, (B, H, W, 64)).astype(np.float32))
+    w, b = torch.as_tensor(p["up"]["w"][0]), torch.as_tensor(p["up"]["b"][0])
+    y1 = TR.up1_phases(fea, w, b, od, torch.float32).to(od)
+    y1_fused = TK.up1_reference(fea, tp)
+    assert y1_fused.dtype == od and y1_fused.shape == y1.shape == (B, H + 1, W + 1, 256)
+    step = 2.0**-7 if od == torch.bfloat16 else 1e-6
+    d = (y1_fused.float() - y1.float()).abs()
+    assert bool((d <= step * y1.float().abs() + 1e-6).all())
+    launches = dict(TK.LAUNCHES)
+    got = TK.up1_up2_hr_last_packed(fea.to(od), tp)
+    assert TK.LAUNCHES == launches
+    want = TK.up2_hr_last_reference(y1, tp)
+    assert got.shape == want.shape == (B, 4 * H, 4 * W, 3) and got.dtype == torch.float32
+    if od == torch.bfloat16:
+        assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-4)
+
+
+def test_k6_runs_count_this_threads_launches():
+    """k6_runs, which the engine's ``tail.up1_fused`` reads: K6 on CPU
+    tensors (its plain version) launches nothing, and what another thread
+    adds is not this thread's."""
+    before = TK.k6_runs()
+    tp = TK.pack_tail_params(TR.params_from_jax(_tail_params(64, seed=51)), torch.float32)
+    assert TK.up1_up2_hr_last_packed(torch.zeros((1, 3, 5, 64)), tp).shape == (1, 12, 20, 3)
+    th = threading.Thread(target=TK.add_k6_runs, args=(5,))
+    th.start()
+    th.join(timeout=30)
+    assert not th.is_alive() and TK.k6_runs() == before
+    TK.add_k6_runs(2)
+    assert TK.k6_runs() == before + 2
+    TK.add_k6_runs(-2)
+
+
+def test_fused_kernel_tail_matches_jax_kernel_tail_mixed():
+    """The K6 tail in mixed mode (up1 inside K6's plain version) against
+    JAX's packed tail on its Pallas K6 (mode 2, interpret mode), bfloat16
+    operands: the rule of test_packed_tail_matches_jax_mixed (1e-2 of the
+    output's scale; the error against float32 JAX's own size)."""
+    params = _tail_params(64, seed=49)
+    fea, body = _inputs(64, (2, 6, 11), seed=50)
+    want = _jax_tail(params, fea, body, 64, jnp.bfloat16, kernel=2)
+    exact = _jax_tail(params, fea, body, 64)
+    got = _port_tail(params, fea, body, 64, "kernel", torch.bfloat16)
+    assert got.shape == want.shape == (2, 24, 44, 3)
+    assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))  # noqa: E731
+    assert 0.8 <= rms(got - exact) / rms(want - exact) <= 1.25
 
 
 @pytest.mark.parametrize("tail", ["packed", "kernel_hr", "kernel"])

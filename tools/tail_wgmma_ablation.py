@@ -51,8 +51,8 @@ B, SIDE = 8, 148
 VARIANTS = {
     "final": [],
     "not_persistent": [("const int grid = cmin(p.B * p.patches, sms);", "const int grid = p.B * p.patches;")],
-    "no_overlap": [("      if (cp == 1 && c.lane == 0) mbar_arrive(win_empty);\n", ""),
-                   ("  if constexpr (!UP2) {\n    if (c.lane == 0) mbar_arrive(win_empty);",
+    "no_overlap": [("    if (c.lane == 0) mbar_arrive(win_empty);\n    const int R0", "    const int R0"),
+                   ("  if constexpr (FORM == kK7) {\n    if (c.lane == 0) mbar_arrive(win_empty);",
                     "  {\n    if (c.lane == 0) mbar_arrive(win_empty);")],
     "pingpong": [("    wg_fence();\n    const uint64_t desc", "    wg_fence();\n    turn_wait(c.wg);\n    const uint64_t desc"),
                  ("    wg_commit();\n", "    wg_commit();\n    turn_pass(c.wg);\n"),
@@ -91,7 +91,7 @@ def compile_variant(name: str) -> dict:
     sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        if re.search(r"tail_kernelILi12ELi28ELb1E", part.split("\n", 1)[0]):
+        if re.search(r"tail_kernelILi12ELi28ELi1E", part.split("\n", 1)[0]):
             counts = {k: len(re.findall(k, part)) for k in ("HGMMA", "WARPGROUP.DEPBAR", "LDL")}
     regs = re.findall(r"Used (\d+) registers", log)
     spills = re.findall(r"(\d+) bytes spill stores", log)
@@ -119,24 +119,25 @@ def time_variant(name: str) -> None:
     built one, check it against the plain version and time it."""
     lib = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.tail_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+    lib.tail_launch.argtypes = [vp] * 10 + [ci] * 7 + [vp]
     lib.tail_launch.restype = ci
     lib.tail_error_string.argtypes = [ci]
     lib.tail_error_string.restype = ctypes.c_char_p
-    tk._library = lambda: lib
+    tk._library = lambda group: lib
     dev = torch.device("cuda", 0)
     p = init_rrdbnet_params(RRDBNetSpec(num_rrdb=1, nf=64, gc=32), seed=4)
     tp = {k: v.to(dev) for k, v in tk.pack_tail_params(p, torch.bfloat16).items()}
     rng = np.random.default_rng(0)
-    for up, label, shape in ((True, "K6", (B, SIDE + 1, SIDE + 1, 256)), (False, "K7", (B, SIDE, SIDE, 1024))):
-        fn = "up2_hr_last_packed" if up else "hr_last_packed"
-        x = torch.from_numpy(np.abs(rng.normal(0, 0.5, shape)).astype(np.float32)).to(dev, torch.bfloat16)
+    for form, label, shape in ((tk.K6, "K6", (B, SIDE, SIDE, 64)), (tk.K7, "K7", (B, SIDE, SIDE, 1024))):
+        fn = tk.FORMS[form]
+        x = rng.normal(0, 0.5, shape).astype(np.float32)
+        x = torch.from_numpy(x if form == tk.K6 else np.abs(x)).to(dev, torch.bfloat16)
         with tf32(False):
             want = getattr(tk, fn.replace("_packed", "_reference"))(x, tp)
-        tiles = tk.TAIL_TILES if name == "final" else (tk.tail_geometry(B, SIDE, SIDE, up).tile,)
+        tiles = tk.TAIL_TILES if name == "final" else (tk.tail_geometry(B, SIDE, SIDE, form).tile,)
         for tile in tiles:
-            err = (tk._launch(fn, x, tp, up, tile) - want).abs().max().item()
-            ms = cuda_ms(lambda: tk._launch(fn, x, tp, up, tile))
+            err = (tk._launch(form, x, tp, tile) - want).abs().max().item()
+            ms = cuda_ms(lambda: tk._launch(form, x, tp, tile))
             print(f"{name} {label} patch {tile[0]}x{tile[1]}: {ms:.4f} ms; max|kernel - plain bf16| {err:.3e}",
                   flush=True)
         del x, want
