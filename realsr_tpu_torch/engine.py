@@ -65,14 +65,11 @@ import torch
 
 from realsr_tpu_torch.tiling.planner import CPU_TILESIZE, _anchors, anchor_provenance_notice, chunk_plan, pick_tilesize, plan_tiles
 from realsr_tpu_torch.utils.trace import maybe_start_profiler, tracer
-from realsr_tpu_torch.loader import ModelBundle, load_model, rrdb_tile_bytes
-from realsr_tpu_torch.models import rrdbnet as R
-from realsr_tpu_torch.models.swinir import SwinIRSpec
-from realsr_tpu_torch.models.rrdbnet import SCHEDS, TAIL_MODES, tf32
+from realsr_tpu_torch.loader import ModelBundle, load_for, rrdb_tile_bytes
+from realsr_tpu_torch.models.rrdbnet import tf32
 from realsr_tpu_torch.ops import build
 from realsr_tpu_torch.ops.pad import reflect101_indices, reflect101_pad2d, reflect101_pad_w
 from realsr_tpu_torch.ops.resize import resize_bicubic
-from realsr_tpu_torch.ops.tail_kernel import add_k6_runs, k6_runs
 from realsr_tpu_torch.ops.tta import NUM_TRANSFORMS, d4_inverse, d4_transform
 
 # one-shot operator notices (the planner anchors' provenance): printed at
@@ -86,6 +83,10 @@ class EngineConfig:
     # reference's fixed 200 on the CPU
     tilesize: int = 0
     prepadding: int = 10  # DF2K halo (src/main.cpp:661-667)
+    # The form fields (storage, variant, tail, trunk, sched) are a request:
+    # loader.resolve_forms resolves them once, at load, with the platform,
+    # the JAX engine's environment switches and the model's architecture,
+    # and raises for what cannot run (RealSR.load).
     # "auto" (mixed on CUDA, float32 on the CPU) | "float32" | "mixed" |
     # "bfloat16" | "float16"
     storage: str = "auto"
@@ -93,28 +94,19 @@ class EngineConfig:
     # band budget or TTA asks); a bucket runs as the fewest equal chunks
     # under it, in whole rounds of the mesh (planner.chunk_plan)
     max_batch: int = 0
-    # RDB conv formulation: "auto" | "dense" | "scatter" | "cuda". "auto"
-    # (_resolve_variant) is the fused CUDA kernel on a GPU and plain convs
-    # on the CPU; float16, which the kernel has no instance for, takes plain
-    # convs on a GPU too, as the JAX engine takes its conv path. An explicit
-    # "cuda" with float16 raises.
+    # RDB conv formulation: "auto" | "dense" | "scatter" | "cuda"; "auto" is
+    # the fused CUDA kernel on a GPU (plain convs for float16, which it has
+    # no instance for) and plain convs on the CPU
     variant: str = "auto"
     # tail form (models.rrdbnet.TAIL_MODES): "auto" | "interleaved" |
-    # "packed" | "kernel_hr" (K7) | "kernel" (K6). "auto" (_resolve_tail)
-    # reads REALSR_TPU_PACKED_TAIL like the JAX engine; unset, it is the
-    # fused tail kernel for the kernel variant ("cuda") on a GPU where the
-    # kernel has an instance (bf16 or float32 operands, nf 64, 3 outputs),
-    # as only JAX's kernel variant takes its packed tail, and "interleaved"
-    # for "dense" and "scatter" and on the CPU.
+    # "packed" | "kernel_hr" (K7) | "kernel" (K6); "auto" is K6 on the
+    # kernel variant on a GPU where it has an instance, else "interleaved"
     tail: str = "auto"
     # the kernel trunk's form (variant "cuda"): "auto" | "per_rdb" |
-    # "chained" (K3) | "paired" (K4, mixed mode). "auto" reads the module
-    # flags models.rrdbnet.CHAINED_TRUNK and PAIRED_CARRY at load, as the
-    # JAX package does: chained if set, else paired if set and the precision
-    # is mixed, else per_rdb.
+    # "chained" (K3) | "paired" (K4, mixed mode); "auto" follows the JAX
+    # package's module flags (models.rrdbnet)
     trunk: str = "auto"
-    # the per-RDB kernel's schedule: "scatter" (K1) | "packed" (K5).
-    # REALSR_TPU_SCHED overrides it on the kernel trunk (sched_env).
+    # the per-RDB kernel's schedule: "scatter" (K1) | "packed" (K5)
     sched: str = "scatter"
     # on a card, run each chunk as the replay of a CUDA graph captured once
     # per chunk program (RealSR.graphs); False launches every chunk's work
@@ -143,75 +135,6 @@ class Device:
 
     platform: str
     torch_device: torch.device
-
-
-_PRECISION = {
-    "float32": (torch.float32, torch.float32),
-    "mixed": (torch.float32, torch.bfloat16),
-    "bfloat16": (torch.bfloat16, torch.bfloat16),
-    "float16": (torch.float16, torch.float16),
-}
-
-
-def _resolve_precision(storage: str, device: Device) -> tuple:
-    """storage mode -> (storage_dtype, op_dtype). ``auto`` is mixed (float32
-    carried state, bfloat16 conv operands) on a GPU and float32 on the CPU,
-    like the reference's all-f32 CPU path."""
-    if storage == "auto":
-        storage = "mixed" if device.platform == "gpu" else "float32"
-    if storage not in _PRECISION:
-        raise ValueError(f"unknown storage mode {storage!r}")
-    return _PRECISION[storage]
-
-
-def _resolve_variant(variant: str, platform: str, dtype) -> str:
-    """``variant`` with "auto" resolved: "cuda" on a GPU, except for float16
-    storage, which gets "dense" (the JAX engine's float16 runs on its conv
-    path, realsr_tpu/engine.py:259-270); "dense" on the CPU."""
-    if variant != "auto":
-        return variant
-    return "cuda" if platform == "gpu" and dtype != torch.float16 else "dense"
-
-
-def _resolve_tail(tail: str, variant: str, platform: str) -> str:
-    """``tail`` with "auto" resolved: ``REALSR_TPU_PACKED_TAIL`` where set;
-    else "kernel" (K6) for the kernel variant on a GPU and "interleaved"
-    for "dense" and "scatter" and on the CPU, as the JAX engine keeps the
-    interleaved tail on its conv variants (realsr_tpu/engine.py:287-336)."""
-    if tail != "auto":
-        return tail
-    return packed_tail_env() or ("kernel" if platform == "gpu" and variant == "cuda" else "interleaved")
-
-
-def packed_tail_env() -> Optional[str]:
-    """``REALSR_TPU_PACKED_TAIL`` parsed as the JAX engine parses it: unset
-    or empty -> None; a non-digit -> level 0; else ``min(int, 3)``. Levels
-    0-3 are interleaved, packed, kernel_hr (K7) and kernel (K6)."""
-    raw = os.environ.get("REALSR_TPU_PACKED_TAIL", "")
-    if not raw:
-        return None
-    return TAIL_MODES[min(int(raw), 3) if raw.isdigit() else 0]
-
-
-def sched_env() -> Optional[str]:
-    """``REALSR_TPU_SCHED`` parsed as the JAX engine parses it: only the
-    exact strings "scatter" and "packed" count; anything else is None."""
-    raw = os.environ.get("REALSR_TPU_SCHED", "")
-    return raw if raw in SCHEDS else None
-
-
-def _resolve_trunk(config: EngineConfig, variant: str, dtype, op_dtype) -> tuple:
-    """(trunk, sched) for the forward. On the kernel trunk, "auto" reads
-    the module flags and ``REALSR_TPU_SCHED`` overrides ``config.sched``; on
-    plain convs, where the JAX package's flags and SCHED have no effect,
-    "auto" is per_rdb and the environment is not read."""
-    trunk, sched = config.trunk, config.sched
-    if variant != "cuda":
-        return ("per_rdb" if trunk == "auto" else trunk), sched
-    if trunk == "auto":
-        mixed = (dtype, op_dtype) == (torch.float32, torch.bfloat16)
-        trunk = "chained" if R.CHAINED_TRUNK else "paired" if R.PAIRED_CARRY and mixed else "per_rdb"
-    return trunk, sched_env() or sched
 
 
 def _auto_batch(
@@ -261,45 +184,18 @@ def fast_start_env() -> bool:
     return os.environ.get("REALSR_TPU_FAST_START", "1") != "0"
 
 
-def _resolve_forms(config: EngineConfig, device: Device) -> tuple:
-    """(storage dtype, operand dtype, variant, trunk, sched, the tail to ask
-    the loader for) of an engine of ``config`` on ``device``."""
-    dtype, op_dtype = _resolve_precision(config.storage, device)
-    variant = _resolve_variant(config.variant, device.platform, dtype)
-    if variant == "cuda" and dtype == torch.float16:
-        raise NotImplementedError(
-            "the fused RDB kernel has no float16 instance (the JAX package runs "
-            "float16 on its conv path too); pass variant='dense' to run float16 on plain convs"
-        )
-    trunk, sched = _resolve_trunk(config, variant, dtype, op_dtype)
-    tail = _resolve_tail(config.tail, variant, device.platform)
-    if tail == "kernel" and config.tail == "auto" and packed_tail_env() is None:
-        tail = "auto"  # the loader's auto: K6 where it has an instance for the graph
-    return dtype, op_dtype, variant, trunk, sched, tail
+def _load(config: EngineConfig, platform: str, parampath: str, modelpath: str) -> ModelBundle:
+    """The model in the forms an engine of ``config`` runs on ``platform``
+    (``loader.resolve_forms``)."""
+    return load_for(platform, parampath, modelpath, storage=config.storage, variant=config.variant,
+                    tail=config.tail, trunk=config.trunk, sched=config.sched)
 
 
 def card_kernel_groups(config: EngineConfig, parampath: str, modelpath: str) -> tuple:
     """What :meth:`RealSR.kernel_groups` of an engine of ``config`` loaded
     with this model gives on a card, resolved on any host (the seed tool's
     build host may have no card)."""
-    bundle = _load_bundle(config, Device("gpu", torch.device("cuda", 0)), parampath, modelpath)[-1]
-    return _build_set(bundle.groups, config.fast_start and fast_start_env())
-
-
-def _load_bundle(config: EngineConfig, device: Device, parampath: str, modelpath: str) -> tuple:
-    """(storage dtype, operand dtype, variant, trunk, sched, bundle): the
-    model loaded in the forms an engine of ``config`` runs on ``device``. A
-    SwinIR model runs on a card on its kernels alone (variant "cuda", which
-    the loader refuses where K8 / K9 have no instance): another variant
-    there (float16's "dense", or one asked for) raises ``ValueError``."""
-    dtype, op_dtype, variant, trunk, sched, tail = _resolve_forms(config, device)
-    bundle = load_model(parampath, modelpath, storage_dtype=dtype, op_dtype=op_dtype,
-                        variant=variant, tail=tail, trunk=trunk, sched=sched)
-    if device.platform == "gpu" and variant != "cuda" and isinstance(bundle.spec, SwinIRSpec):
-        raise ValueError(f"{parampath}: a SwinIR model runs on a card on its kernels only (variant 'cuda', "
-                         f"mixed precision), not on variant {variant!r} with {dtype} storage; "
-                         "run it on the CPU (gpuid -1) for the plain forms")
-    return dtype, op_dtype, variant, trunk, sched, bundle
+    return _build_set(_load(config, "gpu", parampath, modelpath).groups, config.fast_start and fast_start_env())
 
 
 def _build_set(launched: tuple, fast_start: bool) -> tuple:
@@ -370,7 +266,6 @@ class _CudaGraph:
     def __init__(self, state: _DeviceState):
         self._state = state
         self.graph = torch.cuda.CUDAGraph()
-        self.k6 = 0  # the K6 launches the recording holds
 
     @staticmethod
     def supports(device: torch.device) -> bool:
@@ -382,7 +277,6 @@ class _CudaGraph:
         side.wait_stream(cur)  # the static inputs were written on cur
         with torch.cuda.stream(side):
             fn()
-            k6 = k6_runs()
             self.graph.capture_begin(pool=self._state.pool, capture_error_mode="thread_local")
             try:
                 fn()
@@ -390,16 +284,11 @@ class _CudaGraph:
                 with contextlib.suppress(RuntimeError):
                     self.graph.capture_end()
                 raise
-            finally:
-                # the recording ran nothing: its K6 launches run at each replay
-                self.k6 = k6_runs() - k6
-                add_k6_runs(-self.k6)
             self.graph.capture_end()
         cur.wait_stream(side)  # the warm-up's output precedes cur's next use
 
     def replay(self) -> None:
         self.graph.replay()
-        add_k6_runs(self.k6)
 
 
 # the counter of each way _run_chunk runs a chunk (tracing on)
@@ -601,24 +490,21 @@ class RealSR:
         the graph or the operand type has no kernel for raises, as does a
         trunk form the variant or precision cannot run, and a SwinIR model
         on a card at a precision or width its kernels have no instance for
-        (``ValueError``, :func:`_load_bundle`). A
-        graph the RRDBNet matcher rejects runs on the generic executor;
-        ``variant``, ``tail``, ``trunk`` and ``sched`` are None then."""
-        dtype, op_dtype, variant, trunk, sched, self.bundle = _load_bundle(self.config, self.device, parampath,
-                                                                           modelpath)
-        self.storage_dtype, self.op_dtype = dtype, op_dtype
+        (``loader.resolve_forms``). The resolved forms are the bundle's
+        (``bundle.forms``); a form that does not apply to the model is None
+        (``variant``, ``tail``, ``trunk`` and ``sched`` on the generic
+        executor, ``trunk`` and ``sched`` on SwinIR)."""
+        self.bundle = _load(self.config, self.device.platform, parampath, modelpath)
+        f = self.bundle.forms
+        self.storage_dtype, self.op_dtype = f.storage_dtype, f.op_dtype
+        self.variant, self.tail, self.trunk, self.sched = f.variant, f.tail, f.trunk, f.sched
         self._model_paths = (parampath, modelpath)
-        if self.bundle.spec is None:
-            variant = trunk = sched = None
-        elif not isinstance(self.bundle.spec, R.RRDBNetSpec):
-            trunk = sched = None  # the RRDB trunk's forms
-        self.variant, self.tail, self.trunk, self.sched = variant, self.bundle.tail, trunk, sched
         self.scale = self.bundle.scale
         self._kernels_ready = False  # this model's groups build before its first launch
         self._programs = {}  # graphs of the previous model read its parameters
         # the planner's rate table, read once here, not once per image
         self._rate_anchors = _anchors()
-        if variant == "cuda":
+        if self.variant == "cuda":
             # the planner's anchors were measured on one kind of card: say
             # once when this one is another
             note = anchor_provenance_notice(self._device_kind())
@@ -817,24 +703,19 @@ class RealSR:
         """:meth:`_run_chunk` with tracing on: in a ``dispatch`` span (its
         card, key, real tiles and mode), its tiles counted (``tiles.real``,
         ``tiles.run``, and the model's ``bundle.chunk_counts``), its mode
-        (``chunks.<mode>``), its device time (``chunk.device``) taken on its
-        card's stream from before the gather to after the scatter, and the
-        fused tail K6's runs it put on the card (``tail.up1_fused``: its
-        launches, or its graph's recorded ones on a replay)."""
+        (``chunks.<mode>``), and its device time (``chunk.device``) taken on
+        its card's stream from before the gather to after the scatter."""
         dev = padded.device
         tracer.count("tiles.real", real)
         tracer.count("tiles.run", len(chunk))
         if self.bundle.chunk_counts is not None:
             for name, n in self.bundle.chunk_counts(ph, pw, len(chunk), real, self.prepadding).items():
                 tracer.count(name, n)
-        k6 = k6_runs()
         with tracer.span("dispatch", card=str(dev), key=f"{ph}x{pw}x{len(chunk)}", real=real) as sp:
             with tracer.device_timed("chunk.device", dev):
                 mode = self._run_chunk(padded, alpha, out, ph, pw, chunk, c)
             sp.attrs["mode"] = mode
         tracer.count(CHUNK_COUNTERS[mode])
-        if k6_runs() > k6:
-            tracer.count("tail.up1_fused", k6_runs() - k6)
 
     def _gather(self, padded, alpha, chunk, ph: int, pw: int, c: int, into: Optional[_ChunkProgram] = None):
         """The chunk's padded tiles [B, ph, pw, 3] and, for RGBA, its alpha

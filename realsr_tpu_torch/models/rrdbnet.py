@@ -47,8 +47,8 @@ LRELU_SLOPE = 0.2
 RESIDUAL_SCALE = 0.2
 
 # The kernel trunk's alternative modes, off by default as in the JAX package
-# (its models/rrdbnet.py:54 and :68); EngineConfig(trunk="auto") reads them
-# at load. CHAINED_TRUNK runs the trunk on K3, the chained layout;
+# (its models/rrdbnet.py:54 and :68); loader.resolve_forms reads them at
+# load for EngineConfig(trunk="auto"). CHAINED_TRUNK runs the trunk on K3, the chained layout;
 # PAIRED_CARRY (mixed mode only) carries the state as bf16 hi + lo planes
 # on K4. Chained beats paired when both are set.
 CHAINED_TRUNK = False
@@ -488,17 +488,12 @@ def rrdbnet_forward(
     ``trunk`` (:data:`TRUNK_MODES`) and ``sched`` (:data:`SCHEDS`) pick the
     kernel trunk's form for variant 'cuda': 'chained' (K3), 'paired' (K4,
     mixed mode), or 'per_rdb' with ``sched`` 'scatter' (K1) or 'packed' (K5,
-    ``params["rdb"]`` packed with ``sched="packed"``). Combinations the JAX
-    package cannot run raise ``ValueError`` (:func:`trunk_mode_error`).
+    ``params["rdb"]`` packed with ``sched="packed"``).
+
+    The forms come resolved and checked (``loader.resolve_forms``, which
+    refuses what the JAX package cannot run); they are not checked again.
     """
     od = op_dtype if op_dtype is not None else storage_dtype
-    err = trunk_mode_error(variant, trunk, sched, storage_dtype, od)
-    if err:
-        raise ValueError(err)
-    if tail not in TAIL_MODES:
-        raise ValueError(f"unknown tail {tail!r}; expected one of {TAIL_MODES}")
-    if tail != "interleaved" and spec.num_upsample != 2:
-        raise ValueError(f"the packed tail needs two upsamplers, the graph has {spec.num_upsample}")
     x = _nchw(x.to(storage_dtype))
     fea = conv3x3(x, params["conv_first"]["w"], params["conv_first"]["b"], None, od)
     fea = fea.to(storage_dtype)

@@ -277,10 +277,9 @@ def swinir_forward(p: dict, x: torch.Tensor, spec: SwinIRSpec, storage_dtype=tor
     """Normalized NHWC input ``[B, H, W, 3]`` in [0, 1] -> NHWC float32
     ``[B, 4H, 4W, 3]``. ``kernels``: the attention on K8 and the residual
     adds and LayerNorms on K9 (mixed mode: float32 ``storage_dtype``,
-    bfloat16 ``op_dtype``), else their plain versions at these types."""
+    bfloat16 ``op_dtype``), else their plain versions at these types.
+    ``tail`` (:data:`TAIL_FORMS`) comes resolved (``loader.resolve_forms``)."""
     od = op_dtype if op_dtype is not None else storage_dtype
-    if tail not in TAIL_FORMS:
-        raise ValueError(f"unknown SwinIR tail {tail!r}; expected one of {TAIL_FORMS}")
     # the plain attention reads the float32 bias, not K8's packed operand
     attn = sk.window_attn if kernels else (lambda q, b, _, *a: sk.window_attn_plain(q, b, *a))
     norm = sk.swin_norm if kernels else (lambda *a, **k: sk.swin_norm_plain(*a, **k, out_dtype=od))

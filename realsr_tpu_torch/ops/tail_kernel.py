@@ -69,8 +69,6 @@ _CIN = {K7: NPH * NF, K6: NF}  # the input's channels
 # kernel launches per wrapper since the last reset (set the values to 0)
 LAUNCHES = {name: 0 for name in FORMS.values()}
 _COUNT_LOCK = threading.Lock()
-# this thread's K6 runs (k6_runs)
-_THREAD = threading.local()
 
 
 def up2_weights(w_up2: np.ndarray, b_up2: np.ndarray):
@@ -441,21 +439,7 @@ def _launch(form, x, tp, tile=None):
         )
     with _COUNT_LOCK:
         LAUNCHES[fn] += 1
-    if form == K6:
-        add_k6_runs(1)
     return out
-
-
-def k6_runs() -> int:
-    """K6 launches this thread has put on its devices: its calls of the
-    kernel, less those a CUDA graph recorded (which run nothing), plus those
-    its graphs' replays ran (``engine._CudaGraph`` adds both)."""
-    return getattr(_THREAD, "k6", 0)
-
-
-def add_k6_runs(n: int) -> None:
-    """Add ``n`` to this thread's :func:`k6_runs`."""
-    _THREAD.k6 = k6_runs() + n
 
 
 def up1_up2_hr_last_packed(fea: torch.Tensor, tp: Dict[str, torch.Tensor]) -> torch.Tensor:

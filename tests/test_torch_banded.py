@@ -11,7 +11,9 @@ import torch
 from realsr_tpu.engine import EngineConfig as JaxConfig
 from realsr_tpu.engine import RealSR as JaxRealSR
 from realsr_tpu.ops.pad import reflect101_pad_w as jax_pad_w
-from realsr_tpu_torch.engine import Device, EngineConfig, RealSR, _resolve_tail
+from realsr_tpu_torch.engine import Device, EngineConfig, RealSR
+from realsr_tpu_torch.loader import resolve_forms
+from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
 from realsr_tpu_torch.ops.pad import reflect101_pad_w
 from realsr_tpu_torch.tiling.planner import chunk_plan
 
@@ -245,9 +247,10 @@ def test_process_cpu_builds_a_cpu_sibling(tiny_model_dir):
 def test_resolve_tail(tail, variant, platform, env, want, monkeypatch):
     """"auto" is the kernel tail on the kernel variant only (the JAX engine
     keeps the interleaved tail on its conv variants); REALSR_TPU_PACKED_TAIL
-    overrides "auto", never an explicit tail."""
+    overrides "auto", never an explicit tail. An nf 64 RRDBNet, which the
+    tail kernel has an instance for, in mixed precision."""
     if env is None:
         monkeypatch.delenv("REALSR_TPU_PACKED_TAIL", raising=False)
     else:
         monkeypatch.setenv("REALSR_TPU_PACKED_TAIL", env)
-    assert _resolve_tail(tail, variant, platform) == want
+    assert resolve_forms(RRDBNetSpec(num_rrdb=1), platform, "mixed", variant, tail).tail == want

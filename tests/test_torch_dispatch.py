@@ -358,7 +358,7 @@ def test_kernel_sources(storage, trunk, sched, tail, want):
     """precompile builds groups of the sources the resolved forward
     launches, not of all six: the default mixed engine needs rdb_wgmma and
     tail_kernel (``kernel_groups``, one group of each)."""
-    dtype, op = engine_mod._PRECISION[storage]
+    dtype, op = loader.PRECISIONS[storage]
     groups = loader.kernel_groups("cuda", trunk, sched, tail, op, dtype)
     assert tuple(src for src, _ in groups) == want
     assert loader.kernel_groups("dense", "per_rdb", "scatter", "interleaved", op, dtype) == ()

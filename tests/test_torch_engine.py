@@ -215,14 +215,20 @@ def test_port_native_sources_name_only_the_port():
 def test_resolve_variant(platform, storage):
     """"auto" is the kernel on a GPU except for float16, which takes plain
     convs there as the JAX engine's float16 takes its conv path; plain convs
-    on the CPU; an explicit variant is kept as it is."""
-    from realsr_tpu_torch.engine import _PRECISION, _resolve_variant
+    on the CPU; an explicit variant is kept as it is, but for the kernel
+    with float16, which raises."""
+    from realsr_tpu_torch.loader import resolve_forms
+    from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
 
-    dtype = _PRECISION[storage][0]
+    spec = RRDBNetSpec(num_rrdb=1)
     want = "cuda" if platform == "gpu" and storage != "float16" else "dense"
-    assert _resolve_variant("auto", platform, dtype) == want
+    assert resolve_forms(spec, platform, storage).variant == want
     for explicit in ("dense", "scatter", "cuda"):
-        assert _resolve_variant(explicit, platform, dtype) == explicit
+        if explicit == "cuda" and storage == "float16":
+            with pytest.raises(NotImplementedError, match="no float16 instance"):
+                resolve_forms(spec, platform, storage, explicit, tail="interleaved")
+        else:
+            assert resolve_forms(spec, platform, storage, explicit, tail="interleaved").variant == explicit
 
 
 def _tf32_thread(target):
@@ -379,3 +385,278 @@ def test_tf32_scope_stress(tf32_flags):
     assert all(not th.is_alive() and not err for th, err in threads), [err for _, err in threads if err]
     assert not wrong, wrong[:5]
     assert tf32_flags() == (True, False)
+
+
+# -- how an engine's forms resolve -------------------------------------------
+
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+K1, K1B, K1F = ("rdb_wgmma", "f32_nf64"), ("rdb_wgmma", "bf16_nf64"), ("rdb_tf32", "f32_nf64")
+KM, KMB, KMF = ("rdb_modes_wgmma", "f32_nf64"), ("rdb_modes_wgmma", "bf16_nf64"), ("rdb_modes_tf32", "f32_nf64")
+K6, K7, K6F, K7F = ("tail_kernel", "k6"), ("tail_kernel", "k7"), ("tail_tf32", "k6"), ("tail_tf32", "k7")
+SWIN = ("swin_kernel", "swin")
+
+
+def _mixed_card(variant="cuda", tail="kernel", trunk="per_rdb", sched="scatter", groups=(K1, K6)):
+    return (F32, BF16, variant, tail, trunk, sched, groups)
+
+
+# (model, platform, config, environment, module flags (CHAINED_TRUNK,
+# PAIRED_CARRY)) -> (storage dtype, operand dtype, variant, tail, trunk,
+# sched, kernel_groups()), or (exception type, message fragment). Models:
+# "rrdb" an nf 64 RRDBNet (the tail kernel's width), "rrdb16" an nf 16 one,
+# "rrdb_x2" an nf 64 RRDBNet with one upsampler, "swin" Real-SwinIR-L's
+# widths, "swin_tiny" a SwinIR the kernels have no instance for, "generic"
+# a graph the RRDBNet matcher rejects (bilinear upsamplers).
+FORM_CASES = {
+    # precision and variant
+    "rrdb gpu default": ("rrdb", "gpu", {}, {}, (0, 0), _mixed_card()),
+    "rrdb cpu default": ("rrdb", "cpu", {}, {}, (0, 0), (F32, F32, "dense", "interleaved", "per_rdb", "scatter", ())),
+    "rrdb gpu float32": ("rrdb", "gpu", dict(storage="float32"), {}, (0, 0),
+                         (F32, F32, "cuda", "kernel", "per_rdb", "scatter", (K1F, K6F))),
+    "rrdb gpu bfloat16": ("rrdb", "gpu", dict(storage="bfloat16"), {}, (0, 0),
+                          (BF16, BF16, "cuda", "kernel", "per_rdb", "scatter", (K1B, K6))),
+    "rrdb gpu float16": ("rrdb", "gpu", dict(storage="float16"), {}, (0, 0),
+                         (F16, F16, "dense", "interleaved", "per_rdb", "scatter", ())),
+    "rrdb gpu float16 cuda": ("rrdb", "gpu", dict(storage="float16", variant="cuda"), {}, (0, 0),
+                              (NotImplementedError, "float16")),
+    "rrdb cpu float16 cuda": ("rrdb", "cpu", dict(storage="float16", variant="cuda"), {}, (0, 0),
+                              (NotImplementedError, "float16")),
+    "rrdb gpu unknown storage": ("rrdb", "gpu", dict(storage="int8"), {}, (0, 0), (ValueError, "unknown storage")),
+    "rrdb cpu mixed": ("rrdb", "cpu", dict(storage="mixed"), {}, (0, 0),
+                       (F32, BF16, "dense", "interleaved", "per_rdb", "scatter", ())),
+    "rrdb cpu mixed cuda": ("rrdb", "cpu", dict(storage="mixed", variant="cuda"), {}, (0, 0),
+                            _mixed_card(tail="interleaved", groups=(K1,))),
+    "rrdb cpu float32 auto": ("rrdb", "cpu", dict(storage="float32", variant="auto"), {}, (0, 0),
+                              (F32, F32, "dense", "interleaved", "per_rdb", "scatter", ())),
+    "rrdb gpu dense": ("rrdb", "gpu", dict(variant="dense"), {}, (0, 0),
+                       _mixed_card("dense", "interleaved", groups=())),
+    "rrdb gpu scatter": ("rrdb", "gpu", dict(variant="scatter"), {}, (0, 0),
+                         _mixed_card("scatter", "interleaved", groups=())),
+    "rrdb gpu unknown variant": ("rrdb", "gpu", dict(variant="xla"), {}, (0, 0), (ValueError, "unknown variant")),
+    # tail
+    "rrdb gpu packed tail": ("rrdb", "gpu", dict(tail="packed"), {}, (0, 0), _mixed_card(tail="packed", groups=(K1,))),
+    "rrdb gpu K7 tail": ("rrdb", "gpu", dict(tail="kernel_hr"), {}, (0, 0),
+                         _mixed_card(tail="kernel_hr", groups=(K1, K7))),
+    "rrdb gpu interleaved tail": ("rrdb", "gpu", dict(tail="interleaved"), {}, (0, 0),
+                                  _mixed_card(tail="interleaved", groups=(K1,))),
+    "rrdb gpu float32 K7 tail": ("rrdb", "gpu", dict(storage="float32", tail="kernel_hr"), {}, (0, 0),
+                                 (F32, F32, "cuda", "kernel_hr", "per_rdb", "scatter", (K1F, K7F))),
+    "rrdb gpu unknown tail": ("rrdb", "gpu", dict(tail="fused"), {}, (0, 0), (ValueError, "unknown tail")),
+    "rrdb gpu dense K6 tail": ("rrdb", "gpu", dict(variant="dense", tail="kernel"), {}, (0, 0),
+                               _mixed_card("dense", "kernel", groups=(K6,))),
+    "rrdb gpu float16 K6 tail": ("rrdb", "gpu", dict(storage="float16", tail="kernel"), {}, (0, 0),
+                                 (NotImplementedError, "float16")),
+    "rrdb16 gpu dense": ("rrdb16", "gpu", dict(variant="dense"), {}, (0, 0),
+                         _mixed_card("dense", "interleaved", groups=())),
+    "rrdb16 cpu K6 tail": ("rrdb16", "cpu", dict(tail="kernel"), {}, (0, 0), (ValueError, "nf=64")),
+    "rrdb16 cpu K7 tail": ("rrdb16", "cpu", dict(tail="kernel_hr"), {}, (0, 0), (ValueError, "nf=64")),
+    "rrdb_x2 gpu auto tail": ("rrdb_x2", "gpu", {}, {}, (0, 0), _mixed_card(tail="interleaved", groups=(K1,))),
+    "rrdb_x2 cpu packed tail": ("rrdb_x2", "cpu", dict(tail="packed"), {}, (0, 0), (ValueError, "two upsamplers")),
+    "rrdb_x2 cpu K6 tail": ("rrdb_x2", "cpu", dict(tail="kernel"), {}, (0, 0), (ValueError, "two upsamplers")),
+    # REALSR_TPU_PACKED_TAIL
+    "rrdb gpu PACKED_TAIL 0": ("rrdb", "gpu", {}, dict(REALSR_TPU_PACKED_TAIL="0"), (0, 0),
+                               _mixed_card(tail="interleaved", groups=(K1,))),
+    "rrdb gpu PACKED_TAIL 2": ("rrdb", "gpu", {}, dict(REALSR_TPU_PACKED_TAIL="2"), (0, 0),
+                               _mixed_card(tail="kernel_hr", groups=(K1, K7))),
+    "rrdb gpu PACKED_TAIL 3": ("rrdb", "gpu", {}, dict(REALSR_TPU_PACKED_TAIL="3"), (0, 0), _mixed_card()),
+    "rrdb gpu PACKED_TAIL x": ("rrdb", "gpu", {}, dict(REALSR_TPU_PACKED_TAIL="x"), (0, 0),
+                               _mixed_card(tail="interleaved", groups=(K1,))),
+    "rrdb gpu PACKED_TAIL empty": ("rrdb", "gpu", {}, dict(REALSR_TPU_PACKED_TAIL=""), (0, 0), _mixed_card()),
+    "rrdb gpu PACKED_TAIL 2 explicit tail": ("rrdb", "gpu", dict(tail="interleaved"), dict(REALSR_TPU_PACKED_TAIL="2"),
+                                             (0, 0), _mixed_card(tail="interleaved", groups=(K1,))),
+    "rrdb gpu dense PACKED_TAIL 3": ("rrdb", "gpu", dict(variant="dense"), dict(REALSR_TPU_PACKED_TAIL="3"), (0, 0),
+                                     _mixed_card("dense", "kernel", groups=(K6,))),
+    "rrdb cpu PACKED_TAIL 1": ("rrdb", "cpu", {}, dict(REALSR_TPU_PACKED_TAIL="1"), (0, 0),
+                               (F32, F32, "dense", "packed", "per_rdb", "scatter", ())),
+    "rrdb16 cpu PACKED_TAIL 3": ("rrdb16", "cpu", {}, dict(REALSR_TPU_PACKED_TAIL="3"), (0, 0), (ValueError, "nf=64")),
+    # trunk and schedule
+    "rrdb gpu chained": ("rrdb", "gpu", dict(trunk="chained"), {}, (0, 0),
+                         _mixed_card(trunk="chained", groups=(KM, K6))),
+    "rrdb gpu paired": ("rrdb", "gpu", dict(trunk="paired"), {}, (0, 0), _mixed_card(trunk="paired", groups=(KM, K6))),
+    "rrdb gpu packed sched": ("rrdb", "gpu", dict(sched="packed"), {}, (0, 0),
+                              _mixed_card(sched="packed", groups=(KM, K6))),
+    "rrdb gpu float32 chained": ("rrdb", "gpu", dict(storage="float32", trunk="chained"), {}, (0, 0),
+                                 (F32, F32, "cuda", "kernel", "chained", "scatter", (KMF, K6F))),
+    "rrdb gpu float32 packed sched": ("rrdb", "gpu", dict(storage="float32", sched="packed"), {}, (0, 0),
+                                      (F32, F32, "cuda", "kernel", "per_rdb", "packed", (KMF, K6F))),
+    "rrdb gpu bfloat16 chained": ("rrdb", "gpu", dict(storage="bfloat16", trunk="chained"), {}, (0, 0),
+                                  (BF16, BF16, "cuda", "kernel", "chained", "scatter", (KMB, K6))),
+    "rrdb gpu chained packed": ("rrdb", "gpu", dict(trunk="chained", sched="packed"), {}, (0, 0),
+                                (ValueError, "per-RDB trunk only")),
+    "rrdb gpu paired float32": ("rrdb", "gpu", dict(trunk="paired", storage="float32"), {}, (0, 0),
+                                (ValueError, "mixed mode only")),
+    "rrdb gpu chained dense": ("rrdb", "gpu", dict(trunk="chained", variant="dense"), {}, (0, 0),
+                               (ValueError, "variant 'cuda'")),
+    "rrdb cpu chained": ("rrdb", "cpu", dict(trunk="chained"), {}, (0, 0), (ValueError, "variant 'cuda'")),
+    "rrdb gpu unknown trunk": ("rrdb", "gpu", dict(trunk="resident"), {}, (0, 0), (ValueError, "unknown trunk")),
+    "rrdb gpu unknown sched": ("rrdb", "gpu", dict(sched="k-packed"), {}, (0, 0), (ValueError, "unknown sched")),
+    # REALSR_TPU_SCHED
+    "rrdb gpu SCHED packed": ("rrdb", "gpu", {}, dict(REALSR_TPU_SCHED="packed"), (0, 0),
+                              _mixed_card(sched="packed", groups=(KM, K6))),
+    "rrdb gpu SCHED other": ("rrdb", "gpu", dict(sched="packed"), dict(REALSR_TPU_SCHED="K"), (0, 0),
+                             _mixed_card(sched="packed", groups=(KM, K6))),
+    "rrdb gpu dense SCHED packed": ("rrdb", "gpu", dict(variant="dense"), dict(REALSR_TPU_SCHED="packed"), (0, 0),
+                                    _mixed_card("dense", "interleaved", groups=())),
+    "rrdb cpu SCHED packed": ("rrdb", "cpu", {}, dict(REALSR_TPU_SCHED="packed"), (0, 0),
+                              (F32, F32, "dense", "interleaved", "per_rdb", "scatter", ())),
+    "rrdb gpu chained SCHED packed": ("rrdb", "gpu", dict(trunk="chained"), dict(REALSR_TPU_SCHED="packed"), (0, 0),
+                                      (ValueError, "per-RDB trunk only")),
+    # the module flags
+    "rrdb gpu CHAINED_TRUNK": ("rrdb", "gpu", {}, {}, (1, 0), _mixed_card(trunk="chained", groups=(KM, K6))),
+    "rrdb gpu PAIRED_CARRY": ("rrdb", "gpu", {}, {}, (0, 1), _mixed_card(trunk="paired", groups=(KM, K6))),
+    "rrdb gpu both flags": ("rrdb", "gpu", {}, {}, (1, 1), _mixed_card(trunk="chained", groups=(KM, K6))),
+    "rrdb gpu float32 PAIRED_CARRY": ("rrdb", "gpu", dict(storage="float32"), {}, (0, 1),
+                                      (F32, F32, "cuda", "kernel", "per_rdb", "scatter", (K1F, K6F))),
+    "rrdb gpu explicit trunk CHAINED_TRUNK": ("rrdb", "gpu", dict(trunk="per_rdb"), {}, (1, 0), _mixed_card()),
+    "rrdb cpu CHAINED_TRUNK": ("rrdb", "cpu", {}, {}, (1, 0),
+                               (F32, F32, "dense", "interleaved", "per_rdb", "scatter", ())),
+    "rrdb gpu CHAINED_TRUNK SCHED packed": ("rrdb", "gpu", {}, dict(REALSR_TPU_SCHED="packed"), (1, 0),
+                                            (ValueError, "per-RDB trunk only")),
+    # SwinIR
+    "swin gpu default": ("swin", "gpu", {}, {}, (0, 0), (F32, BF16, "cuda", "kernel", None, None, (SWIN, K6))),
+    "swin cpu default": ("swin", "cpu", {}, {}, (0, 0), (F32, F32, "dense", "interleaved", None, None, ())),
+    "swin gpu float32": ("swin", "gpu", dict(storage="float32"), {}, (0, 0), (ValueError, "mixed precision")),
+    "swin gpu bfloat16": ("swin", "gpu", dict(storage="bfloat16"), {}, (0, 0), (ValueError, "mixed precision")),
+    "swin gpu float16": ("swin", "gpu", dict(storage="float16"), {}, (0, 0), (ValueError, "on its kernels only")),
+    "swin gpu float16 cuda": ("swin", "gpu", dict(storage="float16", variant="cuda"), {}, (0, 0),
+                              (NotImplementedError, "float16")),
+    "swin gpu dense": ("swin", "gpu", dict(variant="dense"), {}, (0, 0), (ValueError, "on its kernels only")),
+    "swin gpu interleaved tail": ("swin", "gpu", dict(tail="interleaved"), {}, (0, 0),
+                                  (F32, BF16, "cuda", "interleaved", None, None, (SWIN,))),
+    "swin gpu packed tail": ("swin", "gpu", dict(tail="packed"), {}, (0, 0), (ValueError, "SwinIR runs the tails")),
+    "swin gpu PACKED_TAIL 0": ("swin", "gpu", {}, dict(REALSR_TPU_PACKED_TAIL="0"), (0, 0),
+                               (F32, BF16, "cuda", "interleaved", None, None, (SWIN,))),
+    "swin gpu PACKED_TAIL 2": ("swin", "gpu", {}, dict(REALSR_TPU_PACKED_TAIL="2"), (0, 0),
+                               (ValueError, "SwinIR runs the tails")),
+    "swin gpu trunk and flags": ("swin", "gpu", dict(trunk="chained"), dict(REALSR_TPU_SCHED="packed"), (1, 1),
+                                 (F32, BF16, "cuda", "kernel", None, None, (SWIN, K6))),
+    "swin cpu mixed K6 tail": ("swin", "cpu", dict(storage="mixed", tail="kernel"), {}, (0, 0),
+                               (F32, BF16, "dense", "kernel", None, None, (K6,))),
+    "swin cpu float16 K6 tail": ("swin", "cpu", dict(storage="float16", tail="kernel"), {}, (0, 0),
+                                 (NotImplementedError, "float16")),
+    "swin_tiny gpu default": ("swin_tiny", "gpu", {}, {}, (0, 0), (ValueError, "is built for")),
+    "swin_tiny cpu mixed cuda": ("swin_tiny", "cpu", dict(storage="mixed", variant="cuda"), {}, (0, 0),
+                                 (ValueError, "is built for")),
+    # the generic executor
+    "generic gpu default": ("generic", "gpu", {}, {}, (0, 0), (F32, BF16, None, None, None, None, ())),
+    "generic cpu default": ("generic", "cpu", {}, {}, (0, 0), (F32, F32, None, None, None, None, ())),
+    "generic gpu float16": ("generic", "gpu", dict(storage="float16"), {}, (0, 0),
+                            (F16, F16, None, None, None, None, ())),
+    "generic gpu float16 cuda": ("generic", "gpu", dict(storage="float16", variant="cuda"), {}, (0, 0),
+                                 (NotImplementedError, "float16")),
+    "generic gpu forms and environment": ("generic", "gpu", dict(trunk="chained", tail="kernel"),
+                                          dict(REALSR_TPU_PACKED_TAIL="2", REALSR_TPU_SCHED="packed"), (1, 0),
+                                          (F32, BF16, None, None, None, None, ())),
+    "generic gpu unknown storage": ("generic", "gpu", dict(storage="half"), {}, (0, 0),
+                                    (ValueError, "unknown storage")),
+}
+
+
+@pytest.fixture(scope="module")
+def form_models(tmp_path_factory, tiny_model_dir):
+    """The files of each model of :data:`FORM_CASES`."""
+    from realsr_tpu_torch.models import swinir as S
+    from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
+    from realsr_tpu_torch.ncnn.bin import write_weights
+    from realsr_tpu_torch.ncnn.param import parse_param_file
+    from realsr_tpu_torch.ncnn.synth import make_model_dir, make_rrdbnet_param_text, synth_weights
+
+    root = tmp_path_factory.mktemp("forms")
+    tiny = os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin")
+    text = make_rrdbnet_param_text(RRDBNetSpec(num_rrdb=1, nf=16, gc=8)).replace("0=1 1=2.0 2=2.0", "0=2 1=2.0 2=2.0")
+    generic = str(root / "x4.param"), str(root / "x4.bin")
+    with open(generic[0], "w") as f:
+        f.write(text)
+    graph = parse_param_file(generic[0])
+    write_weights(graph, synth_weights(graph, seed=3), generic[1])
+    big = S.SwinIRSpec()
+    return {
+        "rrdb": make_model_dir(str(root / "nf64"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32), seed=2),
+        "rrdb16": tiny,
+        "rrdb_x2": make_model_dir(str(root / "x2"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32, num_upsample=1), seed=2),
+        "swin": S.save_model(str(root / "swin"), big, {k: torch.zeros(s) for k, s in S.state_keys(big)}),
+        "swin_tiny": S.save_model(str(root / "swin_tiny"), S.SwinIRSpec(depths=(2,), embed_dim=32, num_heads=(2,)),
+                                  S.init_state(S.SwinIRSpec(depths=(2,), embed_dim=32, num_heads=(2,)), seed=3)),
+        "generic": generic,
+    }
+
+
+def _form_engine(form_models, monkeypatch, model, platform, cfg, env, flags):
+    """An engine of ``cfg`` on the CPU, told it runs on ``platform`` (the
+    seed tool resolves a card engine's forms so on a host without a card),
+    with ``env`` set over an environment without the form variables and
+    the trunk flags set, and the model's files."""
+    from realsr_tpu_torch.engine import Device
+    from realsr_tpu_torch.models import rrdbnet as TR
+
+    for name in ("REALSR_TPU_PACKED_TAIL", "REALSR_TPU_SCHED", "REALSR_TPU_FAST_START"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(TR, "CHAINED_TRUNK", bool(flags[0]))
+    monkeypatch.setattr(TR, "PAIRED_CARRY", bool(flags[1]))
+    e = RealSR(gpuid=-1, config=EngineConfig(**{"tilesize": 16, **cfg}))
+    e.device = Device(platform, torch.device("cpu"))
+    return e, form_models[model]
+
+
+@pytest.mark.parametrize("case", list(FORM_CASES))
+def test_engine_forms_resolve(case, form_models, monkeypatch):
+    """The forms an engine resolves at load from its config, platform,
+    environment, the trunk flags and the model's architecture: precision,
+    variant, tail, trunk, schedule and the kernel groups it builds; or what
+    an impossible request raises, at load or, at the latest, on the first
+    image."""
+    model, platform, cfg, env, flags, want = FORM_CASES[case]
+    e, files = _form_engine(form_models, monkeypatch, model, platform, cfg, env, flags)
+    if isinstance(want[0], type) and issubclass(want[0], Exception):
+        with pytest.raises(want[0], match=want[1]):
+            e.load(*files)
+            e.process(np.zeros((8, 8, 3), np.uint8))
+        return
+    e.load(*files)
+    got = (e.storage_dtype, e.op_dtype, e.variant, e.tail, e.trunk, e.sched, e.kernel_groups())
+    assert got == want
+
+
+@pytest.mark.parametrize("platform", ["gpu", "cpu"])
+@pytest.mark.parametrize("model", ["rrdb", "swin", "generic"])
+def test_bundle_carries_the_engines_forms(model, platform, form_models, monkeypatch):
+    """The forms an engine runs are its bundle's, resolved once by the
+    loader: an RRDBNet has them all, SwinIR no trunk or schedule, the
+    generic executor only its precision."""
+    from realsr_tpu_torch.loader import Forms
+
+    e, files = _form_engine(form_models, monkeypatch, model, platform, {}, {}, (0, 0))
+    e.load(*files)
+    f = e.bundle.forms
+    assert f == Forms(e.storage_dtype, e.op_dtype, e.variant, e.trunk, e.sched, e.tail) and e.bundle.tail == f.tail
+    want = FORM_CASES[f"{model} {platform} default"][5]
+    assert (f.storage_dtype, f.op_dtype, f.variant, f.tail, f.trunk, f.sched) == want[:6]
+
+
+@pytest.mark.parametrize("model,forms", [
+    ("rrdb", (F32, BF16, "cuda", "kernel_hr", "chained", "scatter")),
+    ("rrdb", (F32, F32, "scatter", "packed", "per_rdb", "scatter")),
+    ("swin", (F32, F32, "dense", "kernel", "per_rdb", "scatter")),
+    ("generic", (BF16, BF16, "cuda", "kernel", "chained", "packed")),
+])
+def test_load_model_takes_forms_as_given(model, forms, form_models, monkeypatch):
+    """``load_model`` takes explicit forms as they are and reads neither the
+    environment nor the trunk flags; a form the model has not is None."""
+    from realsr_tpu_torch.loader import load_model
+    from realsr_tpu_torch.models import rrdbnet as TR
+
+    monkeypatch.setenv("REALSR_TPU_PACKED_TAIL", "1")
+    monkeypatch.setenv("REALSR_TPU_SCHED", "packed")
+    monkeypatch.setattr(TR, "CHAINED_TRUNK", True)
+    dtype, op, variant, tail, trunk, sched = forms
+    b = load_model(*form_models[model], dtype, op, variant=variant, tail=tail, trunk=trunk, sched=sched)
+    f = b.forms
+    got = (f.storage_dtype, f.op_dtype, f.variant, f.tail, f.trunk, f.sched)
+    if model == "rrdb":
+        assert got == forms
+    elif model == "swin":
+        assert got == (F32, F32, "dense", "kernel", None, None)
+    else:
+        assert got == (BF16, BF16, None, None, None, None)

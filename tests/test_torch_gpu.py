@@ -790,39 +790,46 @@ def test_traced_chunk_device_times_on_card(cuda, tmp_path, traced, shards):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tta", [False, True])
-def test_traced_fused_tail_counted_once_a_launch(cuda, tmp_path, traced, tta):
-    """An engine on the K6 tail counts ``tail.up1_fused`` once a forward of
-    a chunk (TTA: two for non-square tiles, one for square): eagerly once a
-    K6 launch, and no other tail form launches; with graphs the replayed
-    chunks count their programs' recorded K6 launches, though the wrapper
-    runs only on eager and captured chunks. An engine on K7 counts none."""
+def test_engine_launches_k6_once_a_forward(cuda, tmp_path, tta):
+    """An engine on the K6 tail launches K6 once a forward of a chunk (TTA:
+    two for non-square tiles, one for square) and no other tail form, by
+    ``tail_kernel.LAUNCHES``; with graphs a recorded launch counts two (the
+    warm-up and the recording) and a replay none, so an image whose every
+    chunk replays launches nothing. An engine on K7 launches K7, never K6."""
     from realsr_tpu_torch.engine import EngineConfig, RealSR
     from realsr_tpu_torch.ncnn.synth import make_model_dir
 
     files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
     img = np.random.default_rng(13).integers(0, 256, (70, 90, 3), np.uint8)
+    k6, k7 = TLK.FORMS[TLK.K6], TLK.FORMS[TLK.K7]
     for graphs in (False, True):
         e = RealSR(gpuid=0, tta_mode=tta, config=EngineConfig(tilesize=32, max_batch=4, cuda_graphs=graphs))
         e.load(*files)
-        assert e.tail == "kernel"
+        assert e.tail == "kernel" and e.bundle.forms.tail == "kernel"
+        keys, run = [], e._run_chunk
+
+        def recording(*a, run=run, keys=keys):
+            keys.append(a[3:5])  # the chunk's (ph, pw)
+            return run(*a)
+
+        e._run_chunk = recording
         for _ in range(3):
-            before, seen = dict(TLK.LAUNCHES), len(traced.records())
-            counted = traced._count.get("tail.up1_fused", 0)
+            before, keys[:] = dict(TLK.LAUNCHES), []
             e.process(img)
-            n = traced._count["tail.up1_fused"] - counted
-            keys = [r.attrs["key"].split("x") for r in traced.records()[seen:] if r.name == "dispatch"]
-            want = sum(2 if tta and ph != pw else 1 for ph, pw, _ in keys)
+            torch.cuda.synchronize()
             ran = {k: TLK.LAUNCHES[k] - before[k] for k in TLK.LAUNCHES}
-            assert keys and n == want
+            assert keys and ran[k7] == 0
             if not graphs:
-                assert ran == {"up1_up2_hr_last_packed": n, "hr_last_packed": 0}
+                assert ran[k6] == sum(2 if tta and ph != pw else 1 for ph, pw in keys)
         if graphs:  # the third image replays every chunk
-            assert ran == {"up1_up2_hr_last_packed": 0, "hr_last_packed": 0}
-    k7 = RealSR(gpuid=0, tta_mode=tta, config=EngineConfig(tilesize=32, max_batch=4, tail="kernel_hr"))
-    k7.load(*files)
-    counted, chunks = traced._count["tail.up1_fused"], traced._count["dispatch"]
-    k7.process(img)
-    assert traced._count["dispatch"] > chunks and traced._count["tail.up1_fused"] == counted
+            assert ran == {k6: 0, k7: 0}
+    e7 = RealSR(gpuid=0, tta_mode=tta, config=EngineConfig(tilesize=32, max_batch=4, tail="kernel_hr",
+                                                           cuda_graphs=False))
+    e7.load(*files)
+    before = dict(TLK.LAUNCHES)
+    e7.process(img)
+    torch.cuda.synchronize()
+    assert TLK.LAUNCHES[k6] == before[k6] and TLK.LAUNCHES[k7] > before[k7]
 
 
 @pytest.mark.gpu

@@ -8,7 +8,6 @@ same numpy inputs.
 
 import functools
 import os
-import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +16,8 @@ import torch
 
 from realsr_tpu.models import rrdbnet as R
 from realsr_tpu.ops import tail_kernel as JTK
-from realsr_tpu_torch.engine import EngineConfig, RealSR, packed_tail_env
-from realsr_tpu_torch.loader import load_model
+from realsr_tpu_torch.engine import EngineConfig, RealSR
+from realsr_tpu_torch.loader import load_model, resolve_forms
 from realsr_tpu_torch.models import rrdbnet as TR
 from realsr_tpu_torch.ops import tail_kernel as TK
 
@@ -420,22 +419,6 @@ def test_fused_entry_plain_version_matches_up1_then_p1_entry(od, B, H, W):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-4)
 
 
-def test_k6_runs_count_this_threads_launches():
-    """k6_runs, which the engine's ``tail.up1_fused`` reads: K6 on CPU
-    tensors (its plain version) launches nothing, and what another thread
-    adds is not this thread's."""
-    before = TK.k6_runs()
-    tp = TK.pack_tail_params(TR.params_from_jax(_tail_params(64, seed=51)), torch.float32)
-    assert TK.up1_up2_hr_last_packed(torch.zeros((1, 3, 5, 64)), tp).shape == (1, 12, 20, 3)
-    th = threading.Thread(target=TK.add_k6_runs, args=(5,))
-    th.start()
-    th.join(timeout=30)
-    assert not th.is_alive() and TK.k6_runs() == before
-    TK.add_k6_runs(2)
-    assert TK.k6_runs() == before + 2
-    TK.add_k6_runs(-2)
-
-
 def test_fused_kernel_tail_matches_jax_kernel_tail_mixed():
     """The K6 tail in mixed mode (up1 inside K6's plain version) against
     JAX's packed tail on its Pallas K6 (mode 2, interpret mode), bfloat16
@@ -474,9 +457,11 @@ def test_packed_tail_env_parsed_as_jax(raw, tiny_model_dir, monkeypatch):
     e = JaxRealSR(gpuid=-1, config=JaxConfig(tilesize=32, compilation_cache=False))
     e.load(os.path.join(tiny_model_dir, "x4.param"), os.path.join(tiny_model_dir, "x4.bin"))
     level = (1 + R.PACKED_TAIL_KERNEL) if R.PACKED_TAIL else 0
-    mode = packed_tail_env()
-    assert (mode or "interleaved") == TR.TAIL_MODES[level]
-    assert (mode is None) == (raw == "")
+    # the port's "auto" tail: the variable's level where it is set, K6
+    # where it is not on a card's kernel variant, interleaved on the CPU
+    spec = TR.RRDBNetSpec(num_rrdb=1)
+    assert resolve_forms(spec, "cpu").tail == TR.TAIL_MODES[level]
+    assert resolve_forms(spec, "gpu").tail == (TR.TAIL_MODES[level] if raw else "kernel")
 
 
 @pytest.fixture(scope="module")

@@ -324,33 +324,6 @@ def test_engine_counts_captures_and_replays(tiny_model_dir, traced, monkeypatch)
     assert all(d.request == req.request and d.parent == req.id for d in r["dispatch"])
 
 
-@pytest.mark.parametrize("tail,tta", [("kernel", False), ("kernel", True), ("kernel_hr", False)])
-def test_engine_counts_fused_tail_runs(tmp_path, traced, monkeypatch, tail, tta):
-    """``tail.up1_fused`` counts the K6 runs a chunk put on its device
-    (``tail_kernel.k6_runs``): on the CPU, with K6's entry counting a run
-    as a launch does, one a forward of a chunk (TTA: two for non-square
-    tiles, one for square); none on the K7 tail, whose chunks skip K6."""
-    from realsr_tpu_torch.models.rrdbnet import RRDBNetSpec
-    from realsr_tpu_torch.ops import tail_kernel as TLK
-
-    entry = TLK.up1_up2_hr_last_packed
-
-    def launched(fea, tp):
-        TLK.add_k6_runs(1)
-        return entry(fea, tp)
-
-    monkeypatch.setattr(TLK, "up1_up2_hr_last_packed", launched)
-    files = make_model_dir(str(tmp_path / "m"), RRDBNetSpec(num_rrdb=1, nf=64, gc=32))
-    e = RealSR(gpuid=-1, tta_mode=tta, config=EngineConfig(tilesize=16, storage="float32", max_batch=4, tail=tail))
-    e.load(*files)
-    assert e.tail == tail
-    e.process(np.random.default_rng(7).integers(0, 256, (20, 40, 3), np.uint8))
-    keys = [d.attrs["key"].split("x") for d in _by_name(traced)["dispatch"]]
-    assert any(ph != pw for ph, pw, _ in keys)
-    want = sum(2 if tta and ph != pw else 1 for ph, pw, _ in keys) if tail == "kernel" else 0
-    assert traced._count.get("tail.up1_fused", 0) == want
-
-
 def test_cli_trace_and_profile_hold_the_threads_spans(cli_inputs, tmp_path):
     """``-g -1`` with both switches: the Chrome trace holds the load
     thread's ``decode``, the proc thread's ``dispatch`` and the save

@@ -18,7 +18,8 @@ import torch
 
 from realsr_tpu.models import rrdbnet as R
 from realsr_tpu.ops import rdb_kernel as K
-from realsr_tpu_torch.engine import EngineConfig, RealSR, sched_env
+from realsr_tpu_torch.engine import EngineConfig, RealSR
+from realsr_tpu_torch.loader import resolve_forms
 from realsr_tpu_torch.models import rrdbnet as TR
 from realsr_tpu_torch.models.rrdbnet import params_from_jax
 from realsr_tpu_torch.ops import rdb_kernel as TK
@@ -559,9 +560,12 @@ def test_forward_mixed_psnr_matches_jax(jax_params, f32_reference, mode):
                  (" packed", None), ("packed\n", None), ("1", None)]
 )
 def test_sched_env_parsed_as_jax(raw, want, monkeypatch):
-    """Only the exact strings count, as in the JAX engine (engine.py:298-304)."""
+    """Only the exact strings count, as in the JAX engine (engine.py:298-304):
+    they override the requested schedule on the kernel trunk."""
     monkeypatch.setenv("REALSR_TPU_SCHED", raw)
-    assert sched_env() == want
+    spec = TR.RRDBNetSpec(num_rrdb=1)
+    assert resolve_forms(spec, "gpu", "float32", "cuda", trunk="per_rdb").sched == (want or "scatter")
+    assert resolve_forms(spec, "gpu", "float32", "cuda", trunk="per_rdb", sched="packed").sched == (want or "packed")
     assert (want is not None) == (raw in ("scatter", "packed"))
 
 
