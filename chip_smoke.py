@@ -164,10 +164,16 @@ Phases (each prints its lines; any failure exits non-zero):
    chunk's tokens: the residual exact, the output within one bf16 step on
    at most ``SWIN_NORM_SHARE`` of the values, which a LayerNorm with the
    unbiased variance or a sum without its branch fails; both timed beside
-   their bounds; (c) the default engine on the cell's 1024 x 768 photo
-   (``init_state`` weights, conv_last x 128): three runs bit-equal, the
-   launches run on the card per chunk (54 K8, 119 K9, one K6, no K1), ms a
-   photo; then the same engine's tiling around the float32 plain forward
+   their bounds; (c) K10 over the chunk's tokens and a ragged count: within
+   ``SWIN_ATTN_TOL`` of its plain version's scale, on at most
+   ``SWIN_MLP_SHARE`` of the values, which plain versions without fc1's
+   bias or with the tanh GELU fail, two runs bit-equal, timed beside its bound, its plain version and
+   the route the port no longer calls (``F.linear``, ``F.gelu``,
+   ``F.linear`` in bf16: ``library_ms``); (d) the default engine on the
+   cell's 1024 x 768 photo (``init_state`` weights, conv_last x 128): three
+   runs bit-equal, the launches run on the card per chunk (54 K8, 119 K9,
+   54 K10, one K6, no K1; ``F.gelu`` never called), ms a photo; then the
+   same engine's tiling around the float32 plain forward
    and the plain mixed forms (float32 bias; bf16 bias), eagerly: u8 rmse
    and max of each pair, the kernels within ``PSNR_SLACK`` of the plain
    mixed forms' PSNR against float32 and within the cell's limits.
@@ -196,9 +202,9 @@ instances, tf32 with three products per MAC, and the bytes over its memory
 rate); for the float32 instances ``library_ms`` is the cuDNN route's time
 for the same work (the plain RDB's convs; the interleaved tail's convs),
 for K6 and K7 that of the interleaved tail's convs with bf16 operands, for
-K1, K3-K5 and K2 that of cuDNN's bf16 convs (phase 3); K8 and K9 (phase
-14, no TPU kernel) give their launches in 14c's engine runs and their
-times at the cell's chunk.
+K1, K3-K5 and K2 that of cuDNN's bf16 convs (phase 3); K8, K9 and K10
+(phase 14, no TPU kernel) give their launches in 14d's engine runs and
+their times at the cell's chunk, K10 beside the route it replaced.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 or of the JAX package.
 """
@@ -279,6 +285,13 @@ SWIN_ATTN_TOL = 1e-2
 # this share of the values; a LayerNorm with the unbiased variance (0.2 %
 # larger at width 240) moves far more of them
 SWIN_NORM_SHARE = 0.01
+# K10's bf16 output vs its plain version's: max|diff| / max(1, max|plain|)
+# within SWIN_ATTN_TOL (an output is a sum of 480 products, so one near 0
+# carries its terms' rounding, not its own), on at most this share of the
+# values (fc1's sums in another order and K10's GELU, within 6e-6 of the
+# exact erf's, move a hidden value's rounding now and then); fc1's bias left
+# out, or the tanh GELU, fails one of the two
+SWIN_MLP_SHARE = 0.01
 SWIN_CELL_LIMITS = os.path.join(ROOT, "benchmark", "limits", "swinir-l-x4.photo-1024x768.json")
 # the trunk's alternative modes: engine config, the rrdbnet module flag or
 # REALSR_TPU_SCHED value that selects it through the CLI, its launch count
@@ -2442,12 +2455,13 @@ def u8_gaps(a: np.ndarray, b: np.ndarray) -> tuple:
 
 
 def slice14(rk, tk, sk, work: str, card: str, dev=None) -> list:
-    """Phase 14, Real-SwinIR-L x4 at its published widths: K8 and K9 against
-    their plain versions on card tensors at the cell's chunk, with the
-    tolerances shown to fail wrong versions, timed beside their bounds;
+    """Phase 14, Real-SwinIR-L x4 at its published widths: K8, K9 and K10
+    against their plain versions on card tensors at the cell's chunk, with
+    the tolerances shown to fail wrong versions, timed beside their bounds;
     the default engine on the cell's photo, launches per chunk counted on
     the card, against the float32 plain forward and the plain mixed forms
-    through the same engine. Returns the kernels line's rows of K8 and K9.
+    through the same engine. Returns the kernels line's rows of K8, K9 and
+    K10.
     ``dev`` (cuda:0) may be the CPU for a rehearsal with stand-ins."""
     from realsr_tpu_torch.engine import RealSR, _to_device
     from realsr_tpu_torch.models import swinir as S
@@ -2535,7 +2549,52 @@ def slice14(rk, tk, sk, work: str, card: str, dev=None) -> list:
               f"{card}", flush=True)
     del x, branch, res, out, want_res, want
 
-    # -- 14c. the default engine on the cell's photo ----------------------
+    # -- 14c. K10 over the chunk's tokens and a ragged count --------------
+    hid = 2 * c
+    h = torch.randn(tokens, c, generator=g, device=dev).to(torch.bfloat16)
+    # fc1's pre-activations spread over about N(0, 1.6): GELU's curved range
+    w1 = (torch.randn(hid, c, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    b1 = (torch.randn(hid, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    w2 = (torch.randn(c, hid, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    b2 = (torch.randn(c, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    mlp_w = tuple(t.to(dev) for t in sk.pack_mlp(w1.cpu(), w2.cpu()))
+    mlp = {}
+    with tf32(False):
+        for n in (tokens, 1003):
+            hn = h[:n]
+            got = sk.swin_mlp(hn, w1, b1, w2, b2, mlp_w)
+            want = sk.swin_mlp_plain(hn, w1, b1, w2, b2)
+            rel, share = rel_err(got, want)[1], (got != want).float().mean().item()
+            check(rel <= SWIN_ATTN_TOL and share <= SWIN_MLP_SHARE,
+                  f"K10 {n} tokens: rel {rel:.3e}, {100 * share:.2f} % of values differ")
+            check(torch.equal(got, sk.swin_mlp(hn, w1, b1, w2, b2, mlp_w)), f"K10 {n} tokens: two runs differ")
+            fc1 = torch.nn.functional.linear(hn.float(), w1.float())
+            wrong = {"no fc1 bias": torch.nn.functional.gelu(fc1),
+                     "tanh GELU": torch.nn.functional.gelu(fc1 + b1.float(), approximate="tanh")}
+            wrong = {k: torch.nn.functional.linear(v.to(torch.bfloat16).float(), w2.float(), b2.float())
+                     .to(torch.bfloat16) for k, v in wrong.items()}
+            wrong = {k: (rel_err(v, want)[1], (v != want).float().mean().item()) for k, v in wrong.items()}
+            check(all(r > SWIN_ATTN_TOL or f > SWIN_MLP_SHARE for r, f in wrong.values()),
+                  f"K10 {n} tokens: a wrong plain version passes: {wrong}")
+            mlp[n] = {"err": (got.float() - want.float()).abs().max().item(), "rel": rel, "share": share,
+                      "wrong": wrong}
+    ms = cuda_ms(lambda: sk.swin_mlp(h, w1, b1, w2, b2, mlp_w), 2, 10)
+    with tf32(False):
+        pms = cuda_ms(lambda: sk.swin_mlp_plain(h, w1, b1, w2, b2), 1, 3)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.linear(torch.nn.functional.gelu(torch.nn.functional.linear(h, w1, b1)),
+                                                        w2, b2), 2, 10)
+    b_ms, b_by = bound(tokens * 2 * c * hid, 2 * nbytes(h))  # h read, m written
+    mlp.update({"err": mlp[tokens]["err"], "ms": ms, "plain_ms": pms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by})
+    print(f"K10 swin_mlp {tokens} x {c} -> {hid} -> {c} (and 1003 tokens, a ragged last tile): "
+          + "; ".join(f"{n} tokens rel {r['rel']:.3e}, {100 * r['share']:.3f} % of values differ, wrong versions "
+                      + ", ".join(f"{k} rel {v[0]:.3e} on {100 * v[1]:.1f} %" for k, v in r["wrong"].items())
+                      for n, r in ((n, mlp[n]) for n in (tokens, 1003)))
+          + f" (<= {SWIN_ATTN_TOL}, {100 * SWIN_MLP_SHARE} %); kernel {ms:.3f} ms, plain {pms:.3f} ms, F.linear + F.gelu + F.linear "
+          f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}, {100 * b_ms / ms:.1f} %) {card}", flush=True)
+    del h, got, want, fc1
+
+    # -- 14d. the default engine on the cell's photo ----------------------
     spec = S.SwinIRSpec(**SWIN_SPEC)
     sd = S.init_state(spec, SWIN_SEED, last_gain=SWIN_LAST_GAIN)
     files = S.save_model(os.path.join(work, "swinir"), spec, sd)
@@ -2545,12 +2604,20 @@ def slice14(rk, tk, sk, work: str, card: str, dev=None) -> list:
           f"SwinIR engine: graphs {eng.graphs}, tail {eng.bundle.tail}, groups {eng.kernel_groups()}")
     img = natural_image(np.random.default_rng(SWIN_SEED), *SWIN_HW)
     zero_counts(rk, tk, sk)
-    outs = [eng.process(img) for _ in range(3)]
+    gelu_calls = []
+    kept_gelu = torch.nn.functional.gelu
+    torch.nn.functional.gelu = lambda *a, **k: gelu_calls.append(1) or kept_gelu(*a, **k)
+    try:
+        outs = [eng.process(img) for _ in range(3)]
+    finally:
+        torch.nn.functional.gelu = kept_gelu
+    check(not gelu_calls, f"SwinIR engine: F.gelu called {len(gelu_calls)} times")
     wrapped = dict(sk.LAUNCHES, up1_up2_hr_last_packed=tk.LAUNCHES["up1_up2_hr_last_packed"])
     ran = executed(rk, tk, sk)
     chunks = 3 * chunk_counts(eng, {"photo": img})[0]
     layers = sum(spec.depths)
-    per_chunk = {"window_attn": layers, "swin_norm": 2 * layers + len(spec.depths) + 2, "up1_up2_hr_last_packed": 1}
+    per_chunk = {"window_attn": layers, "swin_norm": 2 * layers + len(spec.depths) + 2, "swin_mlp": layers,
+                 "up1_up2_hr_last_packed": 1}
     got_runs = {k: ran[k] for k in per_chunk}
     check(got_runs == {k: v * chunks for k, v in per_chunk.items()} and ran["rdb_apply"] == 0,
           f"SwinIR engine: {got_runs} launches ran for {chunks} chunks, {per_chunk} a chunk expected")
@@ -2596,7 +2663,7 @@ def slice14(rk, tk, sk, work: str, card: str, dev=None) -> list:
     rmse, widest = gaps["kernels vs float32"]
     check(rmse <= limits["rmse_u8"]["limit"] and widest <= limits["max_abs_u8"]["limit"],
           f"SwinIR kernels vs float32: rmse {rmse:.3f}, max {widest} above the cell's limits {limits}")
-    print(json.dumps({"phase": "14c", "u8 (rmse, max_abs)": gaps, "psnr_db": {"kernels": k_db, "plain mixed": p_db},
+    print(json.dumps({"phase": "14d", "u8 (rmse, max_abs)": gaps, "psnr_db": {"kernels": k_db, "plain mixed": p_db},
                       "float32 clipped_pct": 100 * clipped, "cell_limits": {k: v["limit"] for k, v in limits.items()},
                       "card": card}), flush=True)
     del eng, p32, pm, pm_bf16
@@ -2616,6 +2683,13 @@ def slice14(rk, tk, sk, work: str, card: str, dev=None) -> list:
             "library_ms": None, "checked_against_plain": True,
             "at": f"{b_} x {h_} x {w_}, width {c}",
         })
+    rows.append({
+        "name": "K10 swin_mlp (swin_mlp_kernel<48>: wgmma, persistent 128-token tiles, the hidden on the SM)",
+        "route": "cuda", "source": "realsr_tpu_torch/csrc/swin_kernel.cu", "replaces": None,
+        "launches": wrapped["swin_mlp"], "launches_replayed": ran["swin_mlp"], "max_abs_err": mlp["err"],
+        "ms": mlp["ms"], "plain_ms": mlp["plain_ms"], "bound_ms": mlp["bound_ms"], "bound_by": mlp["bound_by"],
+        "library_ms": mlp["library_ms"], "checked_against_plain": True, "at": f"{tokens} tokens, width {c}, hidden {hid}",
+    })
     rows[0]["shifted"] = attn[4]
     rows[1]["modes"] = norm
     return rows
@@ -3607,7 +3681,7 @@ def main() -> int:
         slice13(rk, tk, mparam, mbin, card, auto_engine, engine, big_band)
         print(f"phase 13: {time.perf_counter() - t13:.1f} s {card}", flush=True)
 
-        # -- 14. Real-SwinIR-L x4: K8, K9 and its engine ---------------------
+        # -- 14. Real-SwinIR-L x4: K8, K9, K10 and its engine ----------------
         t14 = time.perf_counter()
         swin_rows = slice14(rk, tk, sk, work, card)
         print(f"phase 14: {time.perf_counter() - t14:.1f} s {card}", flush=True)
@@ -3679,8 +3753,8 @@ def main() -> int:
             # phase 8a: the chunk shapes of tiles 192 and 256
             kernels[-1]["at_new_shapes"] = {shape: rows[key] for shape, rows in new_shapes.items()}
         check(n > 0 and wrapped[key] > 0, f"{key}: no launch on the main path")
-    # K8 and K9 (no TPU kernel: the JAX package has no transformer), with
-    # their launches in phase 14c's engine runs
+    # K8, K9 and K10 (no TPU kernel: the JAX package has no transformer),
+    # with their launches in phase 14d's engine runs
     kernels += swin_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -96,7 +96,7 @@ def resolve_forms(spec, platform: Optional[str], storage="auto", variant: str = 
     operand type): a trunk form the variant or precision cannot run
     (``models.rrdbnet.trunk_mode_error``), a kernel tail without an
     instance (:func:`kernel_tail_error`), a packed tail on other than two
-    upsamplers, and a SwinIR model on the kernel variant without K8 / K9
+    upsamplers, and a SwinIR model on the kernel variant without K8 / K9 / K10
     instances (``models.swinir.kernel_error``) or on a card on another.
 
     ``platform`` "gpu" or "cpu" resolves an engine's request as the JAX

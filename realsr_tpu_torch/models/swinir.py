@@ -22,8 +22,9 @@ Precision: the residual stream is carried in ``storage_dtype``; every
 product reads ``op_dtype`` operands and sums in float32; LayerNorm
 statistics and the softmax are float32. In the mixed mode (float32 stream,
 bfloat16 operands) the products of the Swin layers and the 3conv bodies
-run in bfloat16 (``F.linear``, cuDNN), the attention on K8 and each
-residual add with the LayerNorm after it on K9 (``kernels``); conv_first
+run in bfloat16 (``F.linear``, cuDNN), the attention on K8, each
+residual add with the LayerNorm after it on K9 and the MLP (fc1, GELU,
+fc2) on K10 (``kernels``); conv_first
 runs in float32 on bfloat16-rounded operands, as RRDBNet's does, and the
 tail after conv_before_upsample is RRDBNet's: K6, up1 inside it
 (``tail="kernel"``), or the interleaved convs. The kernels' wrappers take
@@ -154,7 +155,8 @@ def params_from_state(sd: Dict[str, torch.Tensor], spec: SwinIRSpec, op_dtype, k
     conv_before_upsample are in ``op_dtype``; q's rows of each qkv carry
     the ``head_dim ** -0.5`` scale; ``attn_bias`` is each layer's table
     gathered to ``[heads, N, N]`` and, with ``kernels``, ``attn_packed`` its
-    K8 operand. LayerNorms, conv_first and the tail stay float32."""
+    K8 operand and ``mlp_w1`` / ``mlp_w2`` fc1's and fc2's K10 operands.
+    LayerNorms, conv_first and the tail stay float32."""
     sd = {k: v.float() for k, v in sd.items()}
     c, w = spec.embed_dim, spec.window_size
     scale = spec.head_dim ** -0.5
@@ -194,19 +196,20 @@ def params_from_state(sd: Dict[str, torch.Tensor], spec: SwinIRSpec, op_dtype, k
     p["rstb"] = {k: torch.stack([r[k] for r in p["rstb"]]) for k in p["rstb"][0]}
     if kernels:
         p["blocks"]["attn_packed"] = sk.pack_bias(bias)
+        p["blocks"]["mlp_w1"], p["blocks"]["mlp_w2"] = sk.pack_mlp(p["blocks"]["fc1_w"], p["blocks"]["fc2_w"])
     return p
 
 
 def kernel_error(spec: SwinIRSpec, storage_dtype, op_dtype) -> Optional[str]:
-    """Why K8 / K9 have no instance for ``spec``'s widths at this precision,
-    or None: they run the mixed mode (float32 residual stream, bfloat16
-    operands) alone."""
+    """Why K8 / K9 / K10 have no instance for ``spec``'s widths at this
+    precision, or None: they run the mixed mode (float32 residual stream,
+    bfloat16 operands) alone."""
     if (storage_dtype, op_dtype) != (torch.float32, torch.bfloat16):
-        return (f"window_attn and swin_norm run mixed precision (float32 storage, bfloat16 operands) only; "
-                f"the engine asks for {storage_dtype} storage with {op_dtype} operands")
+        return (f"window_attn, swin_norm and swin_mlp run mixed precision (float32 storage, bfloat16 operands) "
+                f"only; the engine asks for {storage_dtype} storage with {op_dtype} operands")
     if spec.embed_dim not in sk.NORM_WIDTHS:
         return f"swin_norm is built for widths {sk.NORM_WIDTHS}, the model has {spec.embed_dim}"
-    return sk.attn_error(spec.heads, spec.head_dim, spec.window_size)
+    return sk.attn_error(spec.heads, spec.head_dim, spec.window_size) or sk.mlp_error(spec.embed_dim, spec.hidden)
 
 
 def padded_side(n: int, spec: SwinIRSpec) -> int:
@@ -219,8 +222,8 @@ def tile_bytes(spec: SwinIRSpec, ph: int, pw: int) -> int:
     halo) at the peak of the forward, a Swin layer: per token three float32
     residual streams (the RSTB's input, the stream and its next) and the
     bfloat16 LayerNorm output, with the larger of the attention's (qkv,
-    its output, proj's output) and the MLP's (fc1's output and GELU's)
-    bfloat16 activations."""
+    its output, proj's output) and the plain MLP's (fc1's output and
+    GELU's; K10 keeps its hidden on the SM) bfloat16 activations."""
     c = spec.embed_dim
     per_token = 3 * 4 * c + 2 * c + 2 * max(3 * c + c + c, 2 * spec.hidden)
     return padded_side(ph, spec) * padded_side(pw, spec) * per_token
@@ -254,6 +257,19 @@ def _conv3(x, p, i=None):
     return F.conv2d(x, g("w2"), g("b2"), padding=1)
 
 
+def _mlp(bl, i, h):
+    """Swin layer ``i``'s MLP on the tokens ``h`` in the plain forms:
+    ``F.linear``, ``F.gelu``, ``F.linear`` in the weights' type."""
+    return F.linear(F.gelu(F.linear(h, bl["fc1_w"][i], bl["fc1_b"][i])), bl["fc2_w"][i], bl["fc2_b"][i])
+
+
+def _mlp_kernel(bl, i, h):
+    """The same MLP on K10 (``ops/swin_kernel.py::swin_mlp``, its packed
+    weights; the CPU takes its plain version)."""
+    return sk.swin_mlp(h, bl["fc1_w"][i], bl["fc1_b"][i], bl["fc2_w"][i], bl["fc2_b"][i],
+                       (bl["mlp_w1"][i], bl["mlp_w2"][i]))
+
+
 def _tail(p, f, od, storage_dtype, tail):
     """conv_before_upsample's output NHWC ``f`` -> NHWC float32 at 4x:
     RRDBNet's K6 (``tail`` "kernel": up1 inside it) or its interleaved
@@ -275,14 +291,18 @@ def _tail(p, f, od, storage_dtype, tail):
 def swinir_forward(p: dict, x: torch.Tensor, spec: SwinIRSpec, storage_dtype=torch.float32, op_dtype=None,
                    kernels: bool = False, tail: str = "interleaved") -> torch.Tensor:
     """Normalized NHWC input ``[B, H, W, 3]`` in [0, 1] -> NHWC float32
-    ``[B, 4H, 4W, 3]``. ``kernels``: the attention on K8 and the residual
-    adds and LayerNorms on K9 (mixed mode: float32 ``storage_dtype``,
-    bfloat16 ``op_dtype``), else their plain versions at these types.
-    ``tail`` (:data:`TAIL_FORMS`) comes resolved (``loader.resolve_forms``)."""
+    ``[B, 4H, 4W, 3]``. ``kernels``: the attention on K8, the residual
+    adds and LayerNorms on K9 and the MLP on K10 (mixed mode: float32
+    ``storage_dtype``, bfloat16 ``op_dtype``), else the plain attention and
+    norms at these types and the MLP as ``F.linear``, ``F.gelu``,
+    ``F.linear``. ``tail`` (:data:`TAIL_FORMS`) comes resolved
+    (``loader.resolve_forms``)."""
     od = op_dtype if op_dtype is not None else storage_dtype
     # the plain attention reads the float32 bias, not K8's packed operand
     attn = sk.window_attn if kernels else (lambda q, b, _, *a: sk.window_attn_plain(q, b, *a))
     norm = sk.swin_norm if kernels else (lambda *a, **k: sk.swin_norm_plain(*a, **k, out_dtype=od))
+    mlp = _mlp_kernel if kernels else _mlp
+    bl = p["blocks"]
     B, H, W, _ = x.shape
     ws, c, heads = spec.window_size, spec.embed_dim, spec.heads
     hp, wp = padded_side(H, spec), padded_side(W, spec)
@@ -293,7 +313,6 @@ def swinir_forward(p: dict, x: torch.Tensor, spec: SwinIRSpec, storage_dtype=tor
     fea = conv3x3(x, p["conv_first"]["w"], p["conv_first"]["b"], None, od).to(storage_dtype)
     fea = _tokens(fea.contiguous(memory_format=torch.channels_last))
 
-    bl = p["blocks"]
     packed = bl.get("attn_packed")
     res, h = norm(fea, None, bl["n1w"][0], bl["n1b"][0], pre=(p["pe_norm"]["w"], p["pe_norm"]["b"]))
     layer = 0
@@ -307,8 +326,7 @@ def swinir_forward(p: dict, x: torch.Tensor, spec: SwinIRSpec, storage_dtype=tor
             res, h = norm(res, F.linear(a.view(-1, c), bl["proj_w"][layer], bl["proj_b"][layer]),
                           bl["n2w"][layer], bl["n2b"][layer])
             del a
-            m = F.linear(F.gelu(F.linear(h, bl["fc1_w"][layer], bl["fc1_b"][layer])),
-                         bl["fc2_w"][layer], bl["fc2_b"][layer])
+            m = mlp(bl, layer, h)
             if j + 1 < depth:
                 res, h = norm(res, m, bl["n1w"][layer + 1], bl["n1b"][layer + 1])
             else:  # the body's first conv reads the sum itself, in the operand type

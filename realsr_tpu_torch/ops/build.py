@@ -49,8 +49,8 @@ NVCC_FLAGS = (
 )
 
 # every kernel source of csrc/: K1/K2 (bf16 and float32 operands), K3-K5
-# (bf16; K3 and K5 float32), K6/K7 (bf16 and float32), K8/K9 (SwinIR's
-# window attention and residual add + LayerNorm, bf16)
+# (bf16; K3 and K5 float32), K6/K7 (bf16 and float32), K8/K9/K10 (SwinIR's
+# window attention, residual add + LayerNorm and MLP, bf16)
 SOURCES = ("rdb_wgmma", "rdb_tf32", "rdb_modes_wgmma", "rdb_modes_tf32", "tail_kernel", "tail_tf32", "swin_kernel")
 
 # a group's name is its parts joined by "_"; each part is one macro of
@@ -91,7 +91,8 @@ _CALLS = {
     ),
     "tail_kernel": (("launch<{TH}, {TW}, {FORM}, __nv_bfloat16>", ((16, 16), (12, 28)), None),),
     "tail_tf32": (("launch<{TH}, {TW}, {FORM}, float>", ((10, 14), (8, 16)), None),),
-    "swin_kernel": (("launch_window_attn<8, 30>", None, None), ("launch_swin_norm<240>", None, None)),
+    "swin_kernel": (("launch_window_attn<8, 30>", None, None), ("launch_swin_norm<240>", None, None),
+                    ("launch_swin_mlp<48>", None, None)),
 }
 _WIDTHS = {"nf64": (64, 32), "nf32": (32, 16)}
 _STATE_TYPES = {"f32": "float", "bf16": "__nv_bfloat16"}

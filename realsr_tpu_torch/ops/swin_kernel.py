@@ -7,18 +7,22 @@
   in one pass over the tokens: ``s = x + branch`` (float32), optionally
   ``s = LN_pre(s)``, ``s`` written back as the next residual, and
   ``LN(s)`` (or ``s`` itself) in bfloat16 for the next product.
+- K10 :func:`swin_mlp`: the layer's MLP, ``fc2(GELU(fc1(h)))`` over
+  ``[N, C]`` tokens in one kernel, the hidden (``2C`` a token) kept on the
+  SM and rounded to bfloat16 once, after GELU.
 
-Both replace no TPU kernel: the JAX package has no transformer. They were
+None replaces a TPU kernel: the JAX package has no transformer. They were
 added for Real-SwinIR (``models/swinir.py``), where 54 Swin layers of width
-240 and head dim 30 run per tile; both are bound by memory, not by
-operations (PERF.md, the kernels table).
+240 and head dim 30 run per tile. K8 and K9 are bound by memory; K10 by
+operations (480 flop a byte of HBM: PERF.md, the kernels table).
 
 Each has a plain PyTorch version here (:func:`window_attn_plain`,
-:func:`swin_norm_plain`) that repeats the kernel's arithmetic: operands in
-the input's type, float32 sums, softmax in float32 with its probabilities
-rounded to the operand type before ``. v`` and the row sums taken before
-that rounding, LayerNorm statistics in float32. A tensor on the CPU takes
-the plain version; a CUDA tensor launches the kernel or raises.
+:func:`swin_norm_plain`, :func:`swin_mlp_plain`) that repeats the kernel's
+arithmetic: operands in the input's type, float32 sums, softmax in float32
+with its probabilities rounded to the operand type before ``. v`` and the
+row sums taken before that rounding, LayerNorm statistics in float32, GELU
+(the exact erf) in float32 with the hidden rounded once. A tensor on the
+CPU takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -35,11 +39,13 @@ MASK_FILL = -100.0  # SwinIR's calculate_mask: scores between different regions
 # the kernel's instances (swin_kernel.cu::window_attn_launch, swin_norm_launch)
 ATTN_INSTANCES = ((8, 30),)  # (heads, head dim) at window 8
 NORM_WIDTHS = (240,)
+MLP_INSTANCES = ((240, 480),)  # (width, hidden): swin_kernel.cu::swin_mlp_launch
+MLP_CHUNK = 48  # hidden columns K10 takes at a time; pack_mlp packs for it
 WINDOW = 8  # the kernel's window side: 64 tokens, four m16 row tiles
 BUILD = ("swin_kernel", "swin")  # the build group (ops/build.py::GROUPS)
 
 # kernel launches per wrapper since the last reset (set the values to 0)
-LAUNCHES = {"window_attn": 0, "swin_norm": 0}
+LAUNCHES = {"window_attn": 0, "swin_norm": 0, "swin_mlp": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -136,6 +142,41 @@ def swin_norm_plain(x: torch.Tensor, branch: Optional[torch.Tensor], weight: Opt
     return (s.to(x.dtype) if write_res else None), y.to(out_dtype)
 
 
+def swin_mlp_plain(h: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor) -> torch.Tensor:
+    """Plain version of K10 over tokens ``[N, C]``: ``fc1`` (``w1`` ``[H,
+    C]``, ``b1``) in float32 on the values of ``h``'s type, GELU with the
+    exact erf in float32, rounded once to ``h``'s type; ``fc2`` (``w2`` ``[C,
+    H]``, ``b2``) in float32, + ``b2``, in ``h``'s type."""
+    hidden = F.gelu(F.linear(h.float(), w1.float(), b1.float()))
+    return F.linear(hidden.to(h.dtype).float(), w2.float(), b2.float()).to(h.dtype)
+
+
+def pack_mlp(w1: torch.Tensor, w2: torch.Tensor, chunk: int = MLP_CHUNK) -> tuple:
+    """fc1's ``[..., H, C]`` and fc2's ``[..., C, H]`` weights (leading
+    dims: the layers) -> K10's operands in bfloat16, ``[..., H * C]`` each:
+    per chunk ``j`` of ``chunk`` hidden columns, fc1's ``C / 16`` k16 slices
+    of ``w1[j]^T`` (N = ``chunk``) and fc2's ``chunk / 16`` slices of
+    ``w2[:, j]^T`` (N = ``C``), each slice in wgmma's K-major order without
+    swizzle (``rdb_kernel._step_order("wgmma")``), in the order the kernel
+    streams them."""
+    from realsr_tpu_torch.ops.rdb_kernel import _step_order
+
+    *lead, hid, c = w1.shape
+    if hid % chunk or chunk % 16 or c % 16 or tuple(w2.shape[-2:]) != (c, hid):
+        raise ValueError(f"pack_mlp: fc1 {tuple(w1.shape)}, fc2 {tuple(w2.shape)} in chunks of {chunk}")
+
+    def slices(dense):  # [..., K, N] -> [..., K / 16, 16 N] in the k16 order
+        k, n = dense.shape[-2:]
+        cols, rows = (torch.from_numpy(a) for a in _step_order("wgmma", n))
+        return dense.reshape(*lead, k // 16, 16, n)[..., rows, cols].reshape(*lead, -1)
+
+    w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    parts = [(slices(w1[..., j:j + chunk, :].transpose(-1, -2)), slices(w2[..., j:j + chunk].transpose(-1, -2)))
+             for j in range(0, hid, chunk)]
+    return tuple(torch.cat([p[i] for p in parts], -1).contiguous() for i in (0, 1))
+
+
 # -- the kernels ---------------------------------------------------------
 
 
@@ -144,6 +185,13 @@ def attn_error(heads: int, head_dim: int, window: int) -> Optional[str]:
     if window != WINDOW or (heads, head_dim) not in ATTN_INSTANCES:
         return (f"window_attn is built for window {WINDOW}, (heads, head dim) in {ATTN_INSTANCES}; "
                 f"the model has window {window}, {heads} heads of {head_dim}")
+    return None
+
+
+def mlp_error(width: int, hidden: int) -> Optional[str]:
+    """Why K10 has no instance for these widths, or None."""
+    if (width, hidden) not in MLP_INSTANCES:
+        return f"swin_mlp is built for (width, hidden) in {MLP_INSTANCES}; the model has {width}, {hidden}"
     return None
 
 
@@ -157,6 +205,8 @@ def _library():
         lib.window_attn_launch.restype = ci
         lib.swin_norm_launch.argtypes = [vp] * 8 + [ci, ci, ctypes.c_float, vp]
         lib.swin_norm_launch.restype = ci
+        lib.swin_mlp_launch.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        lib.swin_mlp_launch.restype = ci
         lib.swin_error_string.argtypes = [ci]
         lib.swin_error_string.restype = ctypes.c_char_p
         lib._realsr_bound = True
@@ -254,3 +304,42 @@ def swin_norm(x: torch.Tensor, branch: Optional[torch.Tensor], weight: Optional[
     _counted(fn)
     return res, out
 
+
+def swin_mlp(h: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+             packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """K10: :func:`swin_mlp_plain`'s function. On the CPU the plain version
+    (on ``w1``, ``w2``); on a card the kernel, on ``packed`` (:func:`pack_mlp`
+    of ``w1``, ``w2`` for :data:`MLP_CHUNK`), with bfloat16 ``h`` ``[N,
+    240]`` and biases: one persistent block an SM walks 128-token tiles,
+    fc1's sums, GELU and fc2's operand staying on the SM; h read and the
+    output written once."""
+    if h.device.type == "cpu":
+        return swin_mlp_plain(h, w1, b1, w2, b2)
+    fn = "swin_mlp"
+    if h.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {h.device}")
+    if h.dim() != 2:
+        raise ValueError(f"{fn}: expected tokens [N, C], got {tuple(h.shape)}")
+    n, c = h.shape
+    hidden = b1.shape[-1]
+    err = mlp_error(c, hidden)
+    if err:
+        raise ValueError(f"{fn}: {err}")
+    if packed is None:
+        raise ValueError(f"{fn}: the kernel reads the packed weights (pack_mlp)")
+    _check(fn, "h", h, h.device, torch.bfloat16)
+    for name, t in zip(("packed fc1", "packed fc2"), packed):
+        _check(fn, name, t, h.device, torch.bfloat16, (hidden * c,))
+    _check(fn, "fc1 bias", b1, h.device, torch.bfloat16, (hidden,))
+    _check(fn, "fc2 bias", b2, h.device, torch.bfloat16, (c,))
+    from realsr_tpu_torch.ops.rdb_kernel import _sm_count
+
+    out = torch.empty_like(h)
+    lib = _library()
+    with torch.cuda.device(h.device):
+        err = lib.swin_mlp_launch(h.data_ptr(), packed[0].data_ptr(), b1.data_ptr(), packed[1].data_ptr(),
+                                  b2.data_ptr(), out.data_ptr(), n, c, hidden, MLP_CHUNK, _sm_count(h.device),
+                                  torch.cuda.current_stream(h.device).cuda_stream)
+    _raise(lib, err, f"{fn}, N={n}, C={c}, hidden={hidden}")
+    _counted(fn)
+    return out

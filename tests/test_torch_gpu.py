@@ -878,6 +878,60 @@ def test_window_attn_kernel_matches_plain(cuda, B, H, W, shift):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [4 * 280 * 280, 1003, 5])
+def test_swin_mlp_kernel_matches_plain(cuda, n):
+    """K10 at width 240 and hidden 480 over the cell's chunk (4 x 280^2
+    tokens, whole 128-token tiles) and over counts that leave the last tile
+    ragged (zeros past the last token, only the rows that exist written): within one
+    bf16 step of the outputs' scale of the plain version, on at most 1 % of
+    the values (fc1's sums in another order and K10's GELU, within 6e-6 of
+    the exact erf's, move a hidden value's rounding now and then); two runs
+    bit-equal, one launch counted per call."""
+    from realsr_tpu_torch.ops import swin_kernel as SK
+
+    g = torch.Generator().manual_seed(n)
+    h = torch.randn(n, 240, generator=g).to(cuda, torch.bfloat16)
+    w1 = (torch.randn(480, 240, generator=g) * 0.1).to(torch.bfloat16)
+    w2 = (torch.randn(240, 480, generator=g) * 0.05).to(torch.bfloat16)
+    b1 = (torch.randn(480, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    b2 = (torch.randn(240, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    packed = tuple(t.to(cuda) for t in SK.pack_mlp(w1, w2))
+    w1, w2 = w1.to(cuda), w2.to(cuda)
+    launches = SK.LAUNCHES["swin_mlp"]
+    got = SK.swin_mlp(h, w1, b1, w2, b2, packed)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["swin_mlp"] == launches + 1
+    want = SK.swin_mlp_plain(h, w1, b1, w2, b2)
+    assert got.shape == want.shape == (n, 240) and got.dtype == torch.bfloat16
+    assert _rel(got, want) <= 1e-2
+    assert (got != want).float().mean().item() <= 0.01
+    assert torch.equal(got, SK.swin_mlp(h, w1, b1, w2, b2, packed))
+
+
+@pytest.mark.gpu
+def test_swinir_engine_runs_k10_once_a_layer(cuda, tmp_path, monkeypatch):
+    """Real-SwinIR-L's 54 Swin layers on a card: one eager chunk launches K10
+    54 times (and K8 54) and never calls F.gelu."""
+    import torch.nn.functional as F
+
+    from realsr_tpu_torch.engine import EngineConfig, RealSR
+    from realsr_tpu_torch.models import swinir as S
+    from realsr_tpu_torch.ops import swin_kernel as SK
+
+    spec = S.SwinIRSpec()
+    files = S.save_model(str(tmp_path / "m"), spec, S.init_state(spec, 7))
+    e = RealSR(gpuid=0, config=EngineConfig(storage="mixed", tilesize=64, cuda_graphs=False))
+    e.load(*files)
+    gelu = []
+    monkeypatch.setattr(F, "gelu", lambda *a, **k: gelu.append(1))
+    before = dict(SK.LAUNCHES)
+    out = e.process(np.random.default_rng(3).integers(0, 256, (64, 64, 3), np.uint8))
+    assert out.shape == (256, 256, 3) and not gelu
+    assert SK.LAUNCHES["swin_mlp"] - before["swin_mlp"] == 54 == sum(spec.depths)
+    assert SK.LAUNCHES["window_attn"] - before["window_attn"] == 54
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["add_norm", "embed", "add", "norm"])
 def test_swin_norm_kernel_matches_plain(cuda, mode):
     """K9 at width 240 over a token count that leaves a block part empty:
@@ -909,7 +963,7 @@ def test_swin_norm_kernel_matches_plain(cuda, mode):
 def test_swinir_graphs_on_card(cuda, tmp_path, storage):
     """A SwinIR engine at width 240 (one RSTB of two layers): its chunks
     replay graphs, bit-equal to the same engine run eagerly, RGB and RGBA;
-    an eager chunk launches K8 once a layer and K9 2 x layers + 3 times,
+    an eager chunk launches K8 and K10 once a layer and K9 2 x layers + 3 times,
     and the tail runs on K6. A card runs SwinIR on its kernels alone, which
     have mixed instances only: a float32 engine's load raises."""
     from realsr_tpu_torch.engine import EngineConfig, RealSR
@@ -936,6 +990,7 @@ def test_swinir_graphs_on_card(cuda, tmp_path, storage):
         if shape[0] == 64:  # one tile, one chunk
             assert SK.LAUNCHES["window_attn"] - before["window_attn"] == 2
             assert SK.LAUNCHES["swin_norm"] - before["swin_norm"] == 7
+            assert SK.LAUNCHES["swin_mlp"] - before["swin_mlp"] == 2
         e.config = graphs
         np.testing.assert_array_equal(got, want)
     assert e.programs()

@@ -107,22 +107,28 @@ def test_mixed_limits_fail_the_float8_reference(tiny):
     assert rmse > MIXED_RMSE or widest > MIXED_MAX
 
 
-def test_kernel_path_on_the_cpu_runs_the_plain_forms(tiny):
-    """The card's mixed forms (K8 and K9 through their wrappers, the K6
-    tail) on CPU tensors take the plain versions and give the plain
-    forward's output; nothing is launched. The tiny widths have no kernel
-    instance, so the loader refuses the kernel variant for them, and the
-    forward runs the wrappers' dispatch on the plain variant's parameters
-    with K8's packed bias added."""
+def test_kernel_path_on_the_cpu_runs_the_plain_forms(tiny, monkeypatch):
+    """The card's mixed forms (K8, K9 and K10 through their wrappers, the
+    K6 tail) on CPU tensors take the plain versions and give the plain
+    forward's output, its MLP taken as K10's plain version (one rounding of
+    the hidden, where ``F.linear``, ``F.gelu``, ``F.linear`` round twice);
+    nothing is launched. The tiny widths have no kernel instance, so the
+    loader refuses the kernel variant for them, and the forward runs the
+    wrappers' dispatch on the plain variant's parameters with K8's packed
+    bias and K10's packed weights added."""
     sd, files = tiny
     x = torch.from_numpy(_img(24, 40, seed=2)).float()[None] / 255
     launches = dict(SK.LAUNCHES)
     plain = load_model(*files, storage_dtype=torch.float32, op_dtype=torch.bfloat16, variant="dense", tail="kernel")
     with pytest.raises(ValueError, match="is built for"):
         load_model(*files, storage_dtype=torch.float32, op_dtype=torch.bfloat16, variant="cuda", tail="kernel")
-    blocks = {**plain.params["blocks"], "attn_packed": SK.pack_bias(plain.params["blocks"]["attn_bias"])}
+    bl = plain.params["blocks"]
+    w1, w2 = SK.pack_mlp(bl["fc1_w"], bl["fc2_w"], chunk=16)
+    blocks = {**bl, "attn_packed": SK.pack_bias(bl["attn_bias"]), "mlp_w1": w1, "mlp_w2": w2}
     got = S.swinir_forward({**plain.params, "blocks": blocks}, x, TINY, torch.float32, torch.bfloat16, kernels=True,
                            tail="kernel")
+    monkeypatch.setattr(S, "_mlp", lambda b, i, h: SK.swin_mlp_plain(h, b["fc1_w"][i], b["fc1_b"][i],
+                                                                     b["fc2_w"][i], b["fc2_b"][i]))
     torch.testing.assert_close(got, plain.forward(plain.params, x), rtol=0, atol=0)
     assert SK.LAUNCHES == launches
 
@@ -135,10 +141,13 @@ def test_kernel_path_on_the_cpu_runs_the_plain_forms(tiny):
     (S.SwinIRSpec(embed_dim=180, num_heads=(6,) * 6, depths=(6,) * 6), torch.float32, torch.bfloat16,
      "built for widths"),
     (S.SwinIRSpec(embed_dim=240, num_heads=(6,) * 9), torch.float32, torch.bfloat16, "heads"),
+    # a hidden of 4C: K10 is built for 240 -> 480 -> 240
+    (S.SwinIRSpec(mlp_ratio=4.0), torch.float32, torch.bfloat16, r"swin_mlp is built for \(width, hidden\) in "
+                                                                 r"\(\(240, 480\),\); the model has 240, 960"),
 ])
 def test_kernel_variant_refuses_what_its_kernels_lack(tmp_path, spec, storage, op, match):
     """The kernel variant (a card's) of a SwinIR model at a precision or
-    width K8 / K9 have no instance for raises, naming what is missing,
+    width K8 / K9 / K10 have no instance for raises, naming what is missing,
     before it reads the weights; it never falls back to the plain forms."""
     import dataclasses
     import json
@@ -147,6 +156,130 @@ def test_kernel_variant_refuses_what_its_kernels_lack(tmp_path, spec, storage, o
     path.write_text(json.dumps({"architecture": "swinir", **dataclasses.asdict(spec)}))
     with pytest.raises(ValueError, match=match):
         load_model(str(path), str(tmp_path / "absent.pth"), storage_dtype=storage, op_dtype=op, variant="cuda")
+
+
+def _mlp_case(c, hidden, seed):
+    """bf16 tokens and fc1 / fc2 weights whose pre-activations spread over
+    GELU's curved range (about N(0, 1.6))."""
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(2000, c, generator=g).to(torch.bfloat16)
+    w1 = (torch.randn(hidden, c, generator=g) * 1.6 / c ** 0.5).to(torch.bfloat16)
+    b1 = (torch.randn(hidden, generator=g) * 0.5).to(torch.bfloat16)
+    w2 = (torch.randn(c, hidden, generator=g) / hidden ** 0.5).to(torch.bfloat16)
+    b2 = (torch.randn(c, generator=g) * 0.1).to(torch.bfloat16)
+    return h, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("c,hidden", [(240, 480), (32, 64)])
+def test_swin_mlp_plain_rounds_the_hidden_once(c, hidden):
+    """K10's plain version against F.linear(F.gelu(F.linear(.)), .) in
+    float32 on the same bf16 operands: apart only by the hidden's one
+    rounding to bf16 (each value within 2^-8 of itself) and the output's,
+    so within 2^-8 (|m| + (1 + 2^-8) sum_k |hidden_k w2_k|) of it, plus
+    float32's sums; closer on average than the route it replaces, which
+    rounds fc1's output and GELU's."""
+    import torch.nn.functional as F
+
+    h, w1, b1, w2, b2 = _mlp_case(c, hidden, c)
+    got = SK.swin_mlp_plain(h, w1, b1, w2, b2)
+    hid = F.gelu(F.linear(h.float(), w1.float(), b1.float()))
+    exact = F.linear(hid, w2.float(), b2.float())
+    u = 2.0 ** -8
+    bound = u * exact.abs() + (1 + u) * u * (hid.abs() @ w2.float().abs().T) + 1e-5
+    assert got.dtype == torch.bfloat16 and got.shape == (2000, c)
+    assert ((got.float() - exact).abs() <= bound).all()
+    twice = F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2)
+    assert (got.float() - exact).abs().mean() < (twice.float() - exact).abs().mean()
+
+
+@pytest.mark.parametrize("kernels", [True, False])
+def test_mlp_form_follows_the_kernel_form(tiny, monkeypatch, kernels):
+    """The kernel form's MLP is one sk.swin_mlp call a Swin layer and no
+    F.gelu (a stand-in counts the calls and returns zeros); the plain form
+    keeps F.linear, F.gelu, F.linear and never calls K10's wrapper."""
+    import torch.nn.functional as F
+
+    sd, files = tiny
+    plain = load_model(*files, storage_dtype=torch.float32, op_dtype=torch.bfloat16, variant="dense")
+    bl = plain.params["blocks"]
+    w1, w2 = SK.pack_mlp(bl["fc1_w"], bl["fc2_w"], chunk=16)
+    p = {**plain.params, "blocks": {**bl, "attn_packed": SK.pack_bias(bl["attn_bias"]), "mlp_w1": w1, "mlp_w2": w2}}
+    calls = {"swin_mlp": 0, "gelu": 0}
+    gelu = F.gelu
+
+    def stand_in(h, *a):
+        calls["swin_mlp"] += 1
+        assert len(a) == 5 and a[4][0].shape == (64 * 32,)
+        return torch.zeros_like(h)
+
+    def counted_gelu(*a, **k):
+        calls["gelu"] += 1
+        return gelu(*a, **k)
+
+    monkeypatch.setattr(SK, "swin_mlp", stand_in)
+    monkeypatch.setattr(F, "gelu", counted_gelu)
+    x = torch.from_numpy(_img(16, 24, seed=4)).float()[None] / 255
+    S.swinir_forward(p, x, TINY, torch.float32, torch.bfloat16, kernels=kernels, tail="interleaved")
+    layers = sum(TINY.depths)
+    assert calls == ({"swin_mlp": layers, "gelu": 0} if kernels else {"swin_mlp": 0, "gelu": layers})
+
+
+@pytest.mark.parametrize("c,hidden,chunk", [(240, 480, SK.MLP_CHUNK), (32, 64, 16)])
+def test_pack_mlp_streams_each_chunks_slices(c, hidden, chunk):
+    """K10's operands: per chunk of the hidden, fc1's k16 slices of W1[j]^T
+    and fc2's of W2[:, j]^T, each in wgmma's K-major order (the tail's
+    packing of a [K, N] matrix), for every layer of a stack; a chunk that
+    does not divide the hidden, or is no whole number of k-steps, raises."""
+    from realsr_tpu_torch.ops.tail_kernel import _wg_pack
+
+    g = torch.Generator().manual_seed(chunk)
+    w1, w2 = torch.randn(2, hidden, c, generator=g), torch.randn(2, c, hidden, generator=g)
+    p1, p2 = SK.pack_mlp(w1, w2, chunk)
+    assert p1.dtype == p2.dtype == torch.bfloat16 and p1.shape == p2.shape == (2, hidden * c)
+    b1, b2 = w1.to(torch.bfloat16).float().numpy(), w2.to(torch.bfloat16).float().numpy()
+    for layer in range(2):
+        want1 = np.concatenate([_wg_pack(b1[layer, j:j + chunk].T) for j in range(0, hidden, chunk)])
+        want2 = np.concatenate([_wg_pack(b2[layer, :, j:j + chunk].T) for j in range(0, hidden, chunk)])
+        np.testing.assert_array_equal(p1[layer].float().numpy(), want1)
+        np.testing.assert_array_equal(p2[layer].float().numpy(), want2)
+    for bad in (chunk + 8, 3 * hidden):
+        with pytest.raises(ValueError, match="pack_mlp"):
+            SK.pack_mlp(w1, w2, bad)
+
+
+def test_k10_gelu_holds_its_bounds():
+    """K10's GELU as csrc/swin_kernel.cu writes it (gelu_erf: its
+    coefficients read from the source, its float32 operations in turn, the
+    card's ex2 as exp2 in float32) against x Phi(x) with the exact erf:
+    within 6e-6 of |GELU(x)| for |x| <= 4.5 and 1e-6 beyond, on every
+    float32 step of [-1, 1] in 2^-12 and a fine grid out to +-12: far
+    inside the 2^-8 of the bf16 rounding that follows it."""
+    import math
+    import re
+
+    with open(os.path.join(os.path.dirname(SK.__file__), "..", "csrc", "swin_kernel.cu")) as f:
+        src = f.read()
+    body = src[src.index("__device__ __forceinline__ float gelu_erf(float x) {"):]
+    body = body[:body.index("\n}\n")]
+    coef = [float(v) for v in re.findall(r"p = (?:fmaf\(p, v, )?(-?[0-9.e-]+)f", body)]
+    lim = float(re.search(r"fminf\(u, ([0-9.]+)f\)", body).group(1))
+    k = float(re.search(r"x \* \(x \* (-[0-9.]+)f\)", body).group(1))
+    assert len(coef) == 11 and lim == 4.5
+    f32 = np.float32
+    x = np.concatenate([np.arange(-4096, 4097) / 4096, np.linspace(-12, 12, 480001)]).astype(f32)
+    u = np.abs(x)
+    v = (np.minimum(u, f32(lim)) * f32(2 / lim) - f32(1)).astype(f32)
+    p = f32(coef[0])
+    for c in coef[1:]:
+        p = (p * v + f32(c)).astype(f32)
+    e = np.exp2((x * (x * f32(k))).astype(f32)).astype(f32)
+    got = (np.maximum(x, f32(0)) - (u * p).astype(f32) * e).astype(np.float64)
+    xd = x.astype(np.float64)
+    want = 0.5 * xd * (1 + np.array([math.erf(t / math.sqrt(2)) for t in xd]))
+    err = np.abs(got - want)
+    inner = np.abs(xd) <= lim
+    assert (err[inner] <= 6e-6 * np.abs(want[inner]) + 1e-30).all(), err[inner].max()
+    assert err[~inner].max() <= 1e-6
 
 
 def test_shift_mask_and_bias_index_are_swinirs():
